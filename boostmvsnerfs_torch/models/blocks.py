@@ -1,0 +1,37 @@
+"""Shared conv building blocks (counterpart of ``boostmvsnerfs_tpu/models/blocks.py``).
+
+Modules here work in PyTorch's channels-first layout (NCHW / NCDHW); the
+networks that use them convert at their public boundary.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+
+class ConvBnReLU(nn.Module):
+    """Conv (no bias) + BatchNorm (eps 1e-5) + ReLU, 2D or 3D, with symmetric
+    ``k // 2`` padding. Parameter names ``conv.*`` / ``bn.*`` follow the
+    reference checkpoints."""
+
+    def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1, dims: int = 2):
+        super().__init__()
+        conv = nn.Conv2d if dims == 2 else nn.Conv3d
+        bn = nn.BatchNorm2d if dims == 2 else nn.BatchNorm3d
+        self.conv = conv(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+        self.bn = bn(cout, eps=1e-5)
+
+    def forward(self, x):
+        return self.bn(self.conv(x)).relu()
+
+
+class DeconvBn(nn.Sequential):
+    """ConvTranspose3d(k3, s2, p1, op1, no bias) + BatchNorm3d: an exact 2x
+    upsampling (flax ``ConvTranspose(padding ((1, 2),)*3,
+    transpose_kernel=True)``). Names ``0.*`` / ``1.*`` as in the reference."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(
+            nn.ConvTranspose3d(cin, cout, 3, stride=2, padding=1, output_padding=1, bias=False),
+            nn.BatchNorm3d(cout, eps=1e-5),
+        )

@@ -1,0 +1,175 @@
+"""Resampling: bilinear / trilinear gathers and align-corners resize.
+
+Counterpart of ``boostmvsnerfs_tpu/ops/sampling.py``. Coordinates are in
+pixel units with align-corners semantics (pixel centers at 0..size-1); the
+samplers gather their taps explicitly instead of normalising to [-1, 1]
+for ``F.grid_sample``, whose round trip moves a tap by ~2e-5 px at 184-px
+widths.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
+    """float32 ``jnp.linspace``, by its formula: ``start * (1 - t) + stop * t``
+    with ``t = i / (num-1)``, endpoint exact. XLA rounds some entries 1-2
+    ulps away from this (it folds the constant arithmetic its own way), as
+    ``torch.linspace`` does with another formula; the tests allow for it."""
+    if num == 1:
+        return torch.full((1,), start, dtype=torch.float32, device=device)
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32, device=device) / div
+    out = start * (1 - step) + stop * step
+    end = torch.full((1,), stop, dtype=torch.float32, device=device)
+    return torch.cat([out, end])
+
+
+def _batched(img: torch.Tensor, pts: torch.Tensor, rank: int):
+    """Add a batch axis to an unbatched (image, points) pair."""
+    if img.dim() == rank:
+        return img[None], pts[None], False
+    return img, pts, True
+
+
+def _take(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather rows: flat (B, M, C), idx (B, N) -> (B, N, C)."""
+    b = torch.arange(flat.shape[0], device=flat.device)[:, None]
+    return flat[b, idx]
+
+
+def grid_sample_2d(
+    img: torch.Tensor,  # ([B,] H, W, C)
+    xy: torch.Tensor,  # ([B,] N, 2) pixel coords (x, y)
+    padding_mode: str = "zeros",
+) -> torch.Tensor:
+    """Bilinear sample, ([B,] N, C).
+
+    ``zeros``: out-of-range taps contribute 0. ``border``: coordinates are
+    clamped to the image rectangle first. In ``zeros`` mode the coordinates
+    are clamped to [-2, size+1] before ``floor`` (taps that far out carry
+    zero weight either way), which keeps the float->int conversion of
+    behind-camera projections (~1e10) defined.
+    """
+    img, xy, batched = _batched(img, xy, 3)
+    B, H, W, C = img.shape
+    x, y = xy[..., 0], xy[..., 1]
+    if padding_mode == "border":
+        x = x.clamp(0.0, W - 1)
+        y = y.clamp(0.0, H - 1)
+    elif padding_mode == "zeros":
+        x = x.clamp(-2.0, W + 1.0)
+        y = y.clamp(-2.0, H + 1.0)
+    else:
+        raise ValueError(f"padding_mode {padding_mode!r}")
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    tx, ty = x - x0f, y - y0f
+    x0, y0 = x0f.long(), y0f.long()
+    x1, y1 = x0 + 1, y0 + 1
+
+    w00 = (1 - ty) * (1 - tx)
+    w01 = (1 - ty) * tx
+    w10 = ty * (1 - tx)
+    w11 = ty * tx
+    if padding_mode == "zeros":
+        vx0, vx1 = (x0 >= 0) & (x0 <= W - 1), (x1 >= 0) & (x1 <= W - 1)
+        vy0, vy1 = (y0 >= 0) & (y0 <= H - 1), (y1 >= 0) & (y1 <= H - 1)
+        w00 = torch.where(vy0 & vx0, w00, 0.0)
+        w01 = torch.where(vy0 & vx1, w01, 0.0)
+        w10 = torch.where(vy1 & vx0, w10, 0.0)
+        w11 = torch.where(vy1 & vx1, w11, 0.0)
+    x0, x1 = x0.clamp(0, W - 1), x1.clamp(0, W - 1)
+    y0, y1 = y0.clamp(0, H - 1), y1.clamp(0, H - 1)
+
+    flat = img.reshape(B, H * W, C)
+    out = (
+        _take(flat, y0 * W + x0) * w00[..., None]
+        + _take(flat, y0 * W + x1) * w01[..., None]
+        + _take(flat, y1 * W + x0) * w10[..., None]
+        + _take(flat, y1 * W + x1) * w11[..., None]
+    )
+    return out if batched else out[0]
+
+
+def grid_sample_3d(
+    vol: torch.Tensor,  # ([B,] D, H, W, C)
+    xyz: torch.Tensor,  # ([B,] N, 3) pixel coords (x->W, y->H, z->D)
+    padding_mode: str = "zeros",
+) -> torch.Tensor:
+    """Trilinear sample, ([B,] N, C) (5D ``grid_sample``, align-corners)."""
+    vol, xyz, batched = _batched(vol, xyz, 4)
+    B, D, H, W, C = vol.shape
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    if padding_mode == "border":
+        x, y, z = x.clamp(0.0, W - 1), y.clamp(0.0, H - 1), z.clamp(0.0, D - 1)
+    elif padding_mode == "zeros":
+        x = x.clamp(-2.0, W + 1.0)
+        y = y.clamp(-2.0, H + 1.0)
+        z = z.clamp(-2.0, D + 1.0)
+    else:
+        raise ValueError(f"padding_mode {padding_mode!r}")
+    x0f, y0f, z0f = torch.floor(x), torch.floor(y), torch.floor(z)
+    tx, ty, tz = x - x0f, y - y0f, z - z0f
+    x0, y0, z0 = x0f.long(), y0f.long(), z0f.long()
+
+    flat = vol.reshape(B, D * H * W, C)
+    out = torch.zeros(xyz.shape[:-1] + (C,), dtype=vol.dtype, device=vol.device)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                xi, yi, zi = x0 + dx, y0 + dy, z0 + dz
+                w = (
+                    (tx if dx else 1 - tx)
+                    * (ty if dy else 1 - ty)
+                    * (tz if dz else 1 - tz)
+                )
+                if padding_mode == "zeros":
+                    valid = (
+                        (xi >= 0) & (xi <= W - 1)
+                        & (yi >= 0) & (yi <= H - 1)
+                        & (zi >= 0) & (zi <= D - 1)
+                    )
+                    w = torch.where(valid, w, 0.0)
+                xi, yi, zi = xi.clamp(0, W - 1), yi.clamp(0, H - 1), zi.clamp(0, D - 1)
+                out = out + _take(flat, (zi * H + yi) * W + xi) * w[..., None]
+    return out if batched else out[0]
+
+
+def _lerp_taps(n_out: int, n_in: int, device):
+    """Align-corners linear interpolation from n_in to n_out samples: the
+    two taps of each output and their triangle weights max(0, 1-|pos-j|)."""
+    pos = linspace(0.0, n_in - 1, n_out, device=device)
+    i0 = torch.floor(pos).clamp(0, n_in - 1)
+    i1 = i0 + 1
+    w0 = (1.0 - (pos - i0).abs()).clamp_min(0.0)
+    w1 = (1.0 - (pos - i1).abs()).clamp_min(0.0)
+    return i0.long(), i1.clamp(max=n_in - 1).long(), w0, w1
+
+
+def _resize_axis(img: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
+    n_in = img.shape[dim]
+    if n_in == 1:
+        return torch.repeat_interleave(img, n_out, dim=dim)
+    i0, i1, w0, w1 = _lerp_taps(n_out, n_in, img.device)
+    shape = [1] * img.dim()
+    shape[dim] = n_out
+    return (
+        img.index_select(dim, i0) * w0.view(shape)
+        + img.index_select(dim, i1) * w1.view(shape)
+    )
+
+
+def resize_bilinear(img: torch.Tensor, H_out: int, W_out: int) -> torch.Tensor:
+    """Align-corners bilinear resize of (..., H, W, C) to (..., H_out, W_out, C)
+    (``F.interpolate(mode='bilinear', align_corners=True)`` semantics), as
+    two separable 2-tap lerps: rows first, then columns."""
+    H, W = img.shape[-3], img.shape[-2]
+    if H == H_out and W == W_out:
+        return img
+    return _resize_axis(_resize_axis(img, img.dim() - 3, H_out), img.dim() - 2, W_out)
+
+
+def resize_bilinear_2d(x: torch.Tensor, H_out: int, W_out: int) -> torch.Tensor:
+    """Resize a (..., H, W) map (no channel axis)."""
+    return resize_bilinear(x[..., None], H_out, W_out)[..., 0]

@@ -1,0 +1,101 @@
+"""Synthetic multi-view scenes for smoke runs and tests: the port's copy of
+``boostmvsnerfs_tpu/utils/synthetic.py`` (same arrays for the same seed)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from boostmvsnerfs_torch.models.boost_enerf import view_combinations
+
+
+def look_at_ext(center, target=None, up=None):
+    """OpenCV-convention w2c: camera x right, y down, z forward (det=+1)."""
+    target = np.zeros(3) if target is None else target
+    up = np.array([0.0, 1.0, 0.0]) if up is None else up
+    fwd = target - center
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    R = np.stack([right, down, fwd], axis=0)
+    t = -R @ center
+    ext = np.eye(4, dtype=np.float32)
+    ext[:3, :3], ext[:3, 3] = R, t
+    return ext
+
+
+def make_scene_batch(
+    B: int = 1,
+    n_views: int = 3,
+    H: int = 128,
+    W: int = 192,
+    render_scales=(0.25, 1.0),
+    seed: int = 0,
+    boost: bool = False,
+    k_best: int = 4,
+    input_views: int = 3,
+    with_targets: bool = False,
+    ray_subsample: dict | None = None,
+    rig: str = "orbit",
+):
+    """A synthetic batch in the package convention (numpy arrays).
+
+    ``ray_subsample``: optional {level: num_rays} for random ray subsets;
+    by default full-image ray grids per level. ``rig`` is ``orbit`` (an
+    inward-facing circular rig, wide baselines) or ``forward`` (a
+    forward-walking handheld path with the target amid the sources, the
+    Free-dataset evaluation geometry).
+    """
+    rng = np.random.default_rng(seed)
+    radius = 3.0
+    ixt = np.array(
+        [[W * 1.1, 0.0, W / 2], [0.0, W * 1.1, H / 2], [0.0, 0.0, 1.0]],
+        dtype=np.float32,
+    )
+    if rig == "forward":
+        def walk(t):
+            return np.array([0.15 * np.sin(0.5 * t), 0.04 * np.cos(0.9 * t), 0.25 * t])
+
+        exts = np.stack([
+            look_at_ext(walk(s), target=walk(s) + np.array([0.0, 0.0, 5.0]))
+            for s in range(n_views)
+        ])
+        t_mid = (n_views - 1) / 2.0 + 0.5  # target between source frames
+        tar_ext = look_at_ext(walk(t_mid), target=walk(t_mid) + np.array([0.0, 0.0, 5.0]))
+        near_far = np.array([2.0, 6.0], dtype=np.float32)
+    else:
+        exts = np.stack([
+            look_at_ext(np.array([
+                radius * np.sin(0.25 * s - 0.4),
+                0.3 * np.cos(0.9 * s),
+                radius * np.cos(0.25 * s - 0.4),
+            ]))
+            for s in range(n_views)
+        ])
+        tar_ext = look_at_ext(np.array([0.15, 0.1, radius]))
+        near_far = np.array([1.5, 6.0], dtype=np.float32)
+    batch = {
+        "src_inps": rng.uniform(-1, 1, (B, n_views, H, W, 3)).astype(np.float32),
+        "src_exts": np.tile(exts, (B, 1, 1, 1)),
+        "src_ixts": np.tile(ixt, (B, n_views, 1, 1)),
+        "tar_ext": np.tile(tar_ext, (B, 1, 1)),
+        "tar_ixt": np.tile(ixt, (B, 1, 1)),
+        "near_far": np.tile(near_far, (B, 1)),
+    }
+    for i, scale in enumerate(render_scales):
+        H_r, W_r = int(H * scale), int(W * scale)
+        if ray_subsample and i in ray_subsample:
+            idx = rng.integers(0, H_r * W_r, (B, ray_subsample[i])).astype(np.int32)
+        else:
+            idx = np.tile(np.arange(H_r * W_r, dtype=np.int32), (B, 1))
+        batch[f"ray_idx_{i}"] = idx
+        if with_targets:
+            batch[f"rgb_{i}"] = rng.uniform(0, 1, idx.shape + (3,)).astype(np.float32)
+    if boost:
+        batch["all_src_inps"] = batch["src_inps"]
+        batch["all_src_exts"] = batch["src_exts"]
+        batch["all_src_ixts"] = batch["src_ixts"]
+        combos = view_combinations(n_views, input_views)
+        batch["combos"] = combos
+        batch["k_best"] = np.tile(np.arange(k_best, dtype=np.int32) % len(combos), (B, 1))
+    return batch

@@ -1,0 +1,90 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``cuda``; each test skips without a CUDA device. The file imports
+torch and the port only, so it also runs on a GPU machine without JAX,
+where tests/conftest.py (which imports JAX) is left out:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: the warp and sampler kernels round their coordinates and tap
+sums in the plain versions' order, so they agree to a few ulps
+(rtol 1e-5 / atol 1e-6); the head sums ~100-term dot products in another
+order than the plain matmuls (rtol 1e-4 / atol 1e-5).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from boostmvsnerfs_torch.models.nerf_head import NeRFHead
+from boostmvsnerfs_torch.ops import geometry
+from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+from boostmvsnerfs_torch.ops.cuda.enerf_head import fused_nerf_head, nerf_head_plain
+from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample, row_sample_plain
+from boostmvsnerfs_torch.ops.cuda.warp_variance import fused_warp_variance, warp_variance_plain
+from boostmvsnerfs_torch.utils.port_weights import random_state_dict
+from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launch_counts()
+    return torch.device("cuda")
+
+
+def _close(got, want, rtol, atol):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("rig,C", [("orbit", 8), ("forward", 16), ("orbit", 32)])
+def test_warp_variance_kernel(dev, rig, C):
+    B, S, Hs, Ws, Ht, Wt, D = 2, 3, 40, 56, 20, 28, 7
+    b = make_scene_batch(B=B, n_views=S, H=Hs, W=Ws, seed=C, rig=rig)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in b.items() if k != "src_inps"}
+    pm = geometry.proj_mats(t["src_ixts"], t["src_exts"], t["tar_ixt"], t["tar_ext"],
+                            1.0, Ht / Hs).contiguous()
+    rng = np.random.default_rng(C)
+    feats = torch.from_numpy(rng.standard_normal((B, S, Hs, Ws, C)).astype(np.float32)).to(dev)
+    dv = torch.from_numpy(rng.uniform(0.2, 8.0, (B, D, Ht, Wt)).astype(np.float32)).to(dev)
+    _close(fused_warp_variance(feats, pm, dv), warp_variance_plain(feats, pm, dv), 1e-5, 1e-6)
+    assert launch_counts()["warp_variance"] == 1
+
+
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+def test_img_sample_kernel(dev, padding_mode):
+    rng = np.random.default_rng(1)
+    V, H, W, C, P = 6, 30, 44, 11, 5000
+    imgs = torch.from_numpy(rng.standard_normal((V, H, W, C)).astype(np.float32)).to(dev)
+    x = rng.uniform(-4, W + 3, (V, P)).astype(np.float32)
+    y = rng.uniform(-4, H + 3, (V, P)).astype(np.float32)
+    x[:, :3], y[:, :3] = [0.0, W - 1, 1e10], [H - 1, 0.0, -1e10]
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    _close(fused_row_sample(imgs, x, y, padding_mode), row_sample_plain(imgs, x, y, padding_mode),
+           1e-5, 1e-6)
+    assert launch_counts()["img_sample"] == 1
+
+
+@pytest.mark.parametrize("C,viewdir_agg", [(11, True), (11, False), (35, True)])
+def test_enerf_head_kernel(dev, C, viewdir_agg):
+    head = NeRFHead(C, viewdir_agg=viewdir_agg)
+    head.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(head, C).items()})
+    head = head.to(dev)
+    rng = np.random.default_rng(2)
+    B, S, P = 2, 3, 3000
+    vox = torch.from_numpy(rng.standard_normal((B, P, 8)).astype(np.float32)).to(dev)
+    feat = rng.standard_normal((B, S, P, C)).astype(np.float32)
+    feat[..., -3:] = rng.uniform(0, 1, (B, S, P, 3))
+    feat = torch.from_numpy(feat).to(dev)
+    dirs = torch.from_numpy(rng.standard_normal((B, S, P, 4)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        params = head.head_params()
+        _close(fused_nerf_head(params, vox, feat, dirs), nerf_head_plain(params, vox, feat, dirs),
+               1e-4, 1e-5)
+    assert launch_counts()["enerf_head"] == 1

@@ -1,0 +1,280 @@
+"""The three kernel modules of boostmvsnerfs_torch.ops.cuda on the CPU.
+
+Each kernel's plain PyTorch version is held (a) against the JAX exact op
+and (b) against the Pallas kernel in interpret mode with a window that
+covers every tap, at rtol 1e-4 / atol 1e-5 (the JAX kernel tests' bar;
+tests/test_pallas_warp.py). The CUDA kernels themselves are compared with
+these plain versions on the card by chip_smoke.py and
+tests/test_torch_cuda.py.
+"""
+
+import ast
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from boostmvsnerfs_torch.ops.cuda import _build, launch_counts, reset_launch_counts
+from boostmvsnerfs_torch.ops.cuda.enerf_head import fused_nerf_head, nerf_head_plain
+from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample, row_sample_plain
+from boostmvsnerfs_torch.ops.cuda.warp_variance import fused_warp_variance, warp_variance_plain
+from boostmvsnerfs_torch.models.nerf_head import NeRFHead as TorchHead
+from boostmvsnerfs_torch.utils.port_weights import random_state_dict
+from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
+from boostmvsnerfs_tpu.models.nerf_head import NeRFHead as FlaxHead
+from boostmvsnerfs_tpu.ops import cost_volume, geometry, sampling
+from boostmvsnerfs_tpu.ops.pallas.img_sample import fused_row_sample as pallas_row_sample
+from boostmvsnerfs_tpu.ops.pallas.warp_variance import fused_warp_variance as pallas_warp
+from boostmvsnerfs_tpu.utils import port_weights as jpw
+
+RTOL, ATOL = 1e-4, 1e-5
+REPO = Path(__file__).resolve().parents[1]
+
+
+def close(got, want, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=atol)
+
+
+# ------------------------------------------------------------ warp_variance
+
+
+def _warp_inputs(seed, B=2, S=3, C=8, Hs=24, Ws=36, Ht=12, Wt=18, D=5, rig="orbit"):
+    """Real cascade geometry (volume at half the feature scale), random
+    features; the orbit rig's wide baselines put taps out of range."""
+    b = make_scene_batch(B=B, n_views=S, H=Hs, W=Ws, seed=seed, rig=rig)
+    pm = np.array(geometry.proj_mats(
+        jnp.asarray(b["src_ixts"]), jnp.asarray(b["src_exts"]),
+        jnp.asarray(b["tar_ixt"]), jnp.asarray(b["tar_ext"]), 1.0, Ht / Hs,
+    ))
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((B, S, Hs, Ws, C)).astype(np.float32)
+    near, far = b["near_far"][0]
+    dv = rng.uniform(near, far, (B, D, Ht, Wt)).astype(np.float32)
+    return feats, pm, dv
+
+
+@pytest.mark.parametrize("rig,C", [("orbit", 8), ("forward", 4)])
+def test_warp_plain_matches_jax_exact(rig, C):
+    feats, pm, dv = _warp_inputs(1, C=C, rig=rig)
+    got = warp_variance_plain(*map(torch.from_numpy, (feats, pm, dv)))
+    want = jax.vmap(cost_volume.variance_volume)(*map(jnp.asarray, (feats, pm, dv)))
+    close(got, want)
+
+
+def test_warp_plain_matches_pallas_interpret():
+    feats, pm, dv = _warp_inputs(2)
+    got = warp_variance_plain(*map(torch.from_numpy, (feats, pm, dv)))
+    want = pallas_warp(*map(jnp.asarray, (feats, pm, dv)), window_h=feats.shape[2],
+                       compute_dtype=jnp.float32, interpret=True)
+    close(got, want)
+
+
+# --------------------------------------------------------------- img_sample
+
+
+def _sample_inputs(seed, V=4, H=10, W=14, C=11, P=120):
+    rng = np.random.default_rng(seed)
+    imgs = rng.standard_normal((V, H, W, C)).astype(np.float32)
+    x = rng.uniform(-3, W + 2, (V, P)).astype(np.float32)
+    y = rng.uniform(-3, H + 2, (V, P)).astype(np.float32)
+    x[:, :3] = [0.0, W - 1, 1e10]  # edges and a behind-camera projection
+    y[:, :3] = [H - 1, 0.0, -1e10]
+    return imgs, x, y
+
+
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+def test_sample_plain_matches_jax_exact(padding_mode):
+    imgs, x, y = _sample_inputs(3)
+    got = row_sample_plain(*map(torch.from_numpy, (imgs, x, y)), padding_mode)
+    want = jax.vmap(lambda im, c: sampling.grid_sample_2d(im, c, padding_mode))(
+        jnp.asarray(imgs), jnp.stack([jnp.asarray(x), jnp.asarray(y)], -1))
+    close(got, want)
+
+
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+def test_sample_plain_matches_pallas_interpret(padding_mode):
+    imgs, x, y = _sample_inputs(4, P=6 * 20)
+    x, y = np.clip(x, -50, 50), np.clip(y, -50, 50)  # finite rows for the band origin
+    V, H = imgs.shape[:2]
+    got = row_sample_plain(*map(torch.from_numpy, (imgs, x, y)), padding_mode)
+    want = pallas_row_sample(
+        jnp.asarray(imgs), jnp.asarray(x.reshape(V, 6, 20)), jnp.asarray(y.reshape(V, 6, 20)),
+        window_h=H, padding_mode=padding_mode, compute_dtype=jnp.float32, interpret=True,
+    ).reshape(V, 6 * 20, -1)
+    close(got, want)
+
+
+# --------------------------------------------------------------- enerf_head
+
+
+def _heads(seed, feat_ch, viewdir_agg=True):
+    sd = random_state_dict(TorchHead(feat_ch, viewdir_agg=viewdir_agg), seed, "nerf_0.")
+    params = {}
+    jpw.port_nerf_head(sd, params, "nerf_0", "head", viewdir_agg)
+    head = TorchHead(feat_ch, viewdir_agg=viewdir_agg)
+    head.load_state_dict({k[len("nerf_0."):]: torch.from_numpy(v) for k, v in sd.items()})
+    return head, FlaxHead(feat_ch=feat_ch, viewdir_agg=viewdir_agg), {"params": params["head"]}
+
+
+def _head_inputs(seed, B=2, S=3, P=60, C=11):
+    rng = np.random.default_rng(seed)
+    vox = rng.standard_normal((B, P, 8)).astype(np.float32)
+    feat = rng.standard_normal((B, S, P, C)).astype(np.float32)
+    feat[..., -3:] = rng.uniform(0, 1, (B, S, P, 3))  # RGB
+    dirs = rng.standard_normal((B, S, P, 4)).astype(np.float32)
+    return vox, feat, dirs
+
+
+@pytest.mark.parametrize("feat_ch,viewdir_agg", [(11, True), (35, True), (11, False)])
+def test_head_plain_matches_flax(feat_ch, viewdir_agg):
+    head, fhead, variables = _heads(5, feat_ch, viewdir_agg)
+    vox, feat, dirs = _head_inputs(6, C=feat_ch)
+    with torch.no_grad():
+        got = nerf_head_plain(head.head_params(), *map(torch.from_numpy, (vox, feat, dirs)))
+    ifrd = np.concatenate([feat, dirs], -1).transpose(0, 2, 1, 3)  # (B, P, S, C+4)
+    want = fhead.apply(variables, jnp.asarray(vox), jnp.asarray(ifrd))
+    close(got, want)
+
+
+def test_head_plain_matches_pallas_interpret():
+    head, fhead, variables = _heads(7, 11)
+    B, S, R, T, C = 2, 3, 3, 40, 11
+    vox, feat, dirs = _head_inputs(8, B=B, S=S, P=R * T, C=C)
+    with torch.no_grad():
+        got = nerf_head_plain(head.head_params(), *map(torch.from_numpy, (vox, feat, dirs)))
+    rows = lambda a: jnp.asarray(np.moveaxis(a.reshape(*a.shape[:-2], R, T, a.shape[-1]), -1, -2))
+    out = fhead.apply(variables, rows(vox), rows(feat), rows(dirs), interpret=True,
+                      method=FlaxHead.fused)  # (B, R, 4, T)
+    close(got, jnp.moveaxis(out, 2, 3).reshape(B, R * T, 4))
+
+
+# ------------------------------------------------------------ wrapper rules
+
+
+def test_wrappers_take_plain_on_cpu_and_do_not_count():
+    reset_launch_counts()
+    feats, pm, dv = _warp_inputs(9)
+    t = lambda *a: map(torch.from_numpy, a)  # noqa: E731
+    assert torch.equal(fused_warp_variance(*t(feats, pm, dv)), warp_variance_plain(*t(feats, pm, dv)))
+    imgs, x, y = _sample_inputs(10)
+    assert torch.equal(fused_row_sample(*t(imgs, x, y), "border"),
+                       row_sample_plain(*t(imgs, x, y), "border"))
+    head, _, _ = _heads(11, 11)
+    vox, feat, dirs = _head_inputs(12)
+    with torch.no_grad():
+        assert torch.equal(head(*t(vox, feat, dirs)),
+                           nerf_head_plain(head.head_params(), *t(vox, feat, dirs)))
+    assert launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("call,error", [
+    (lambda: fused_warp_variance(_meta(1, 3, 8, 8, 6), _meta(1, 3, 3, 4), _meta(1, 2, 4, 4)),
+     ValueError),  # channels not a multiple of 4
+    (lambda: fused_warp_variance(_meta(1, 3, 8, 8, 8), _meta(1, 2, 3, 4), _meta(1, 2, 4, 4)),
+     ValueError),  # proj_mats shape
+    (lambda: fused_warp_variance(_meta(1, 3, 8, 8, 8, dtype=torch.float64),
+                                 _meta(1, 3, 3, 4), _meta(1, 2, 4, 4)), TypeError),
+    (lambda: fused_row_sample(_meta(2, 8, 8, 5), _meta(2, 10), _meta(2, 11)), ValueError),
+    (lambda: fused_row_sample(_meta(2, 8, 8, 5), _meta(2, 10), _meta(2, 10), "reflect"),
+     ValueError),
+    (lambda: fused_row_sample(_meta(2, 8, 8, 5, dtype=torch.float16), _meta(2, 10),
+                              _meta(2, 10)), TypeError),
+    (lambda: TorchHead(11)(_meta(1, 7, 8), _meta(1, 3, 6, 11), _meta(1, 3, 6, 4)), ValueError),
+    (lambda: TorchHead(13)(_meta(1, 6, 8), _meta(1, 3, 6, 13), _meta(1, 3, 6, 4)), ValueError),
+])
+def test_wrappers_reject_bad_inputs_off_cpu(call, error):
+    """Off the CPU a wrapper launches its kernel or raises; malformed
+    inputs raise before any launch (meta tensors stand in for CUDA ones)."""
+    with torch.no_grad(), pytest.raises(error):
+        call()
+    assert launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+# ----------------------------------------------------------- import hygiene
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["triton"] = None  # importing triton would raise
+import boostmvsnerfs_torch
+names = [m.name for m in pkgutil.walk_packages(boostmvsnerfs_torch.__path__, "boostmvsnerfs_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "boostmvsnerfs_tpu"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_package_imports_without_jax_nvcc_or_triton():
+    """Every module imports in a fresh interpreter with no nvcc on PATH and
+    triton blocked, and none pulls in JAX or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
+    env["PATH"] = os.path.dirname(sys.executable)
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 16
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "boostmvsnerfs_torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "boostmvsnerfs_tpu"}
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_kernel_inputs_rehearse_on_cpu():
+    """chip_smoke.py's per-kernel inputs, taken from the model's stages, at
+    a small geometry on the CPU: each kernel's wrapper accepts them (taking
+    its plain version here), and the bytes/operations counts are positive."""
+    from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
+
+    smoke = _load_chip_smoke()
+    model = BoostENeRF(CascadeConfig(k_best=2, volume_planes=(8, 8), render_if=(False, True)),
+                       device="cpu")
+    model.load_state_dict(smoke.random_weights(model, 0), strict=True)
+    batch = make_scene_batch(B=1, n_views=4, H=32, W=64, boost=True, k_best=2, rig="forward")
+    with torch.no_grad():
+        inputs = smoke.main_path_kernel_inputs(model, to_tensors(batch, torch.device("cpu")))
+        (l0, (f0, _, d0)), (l1, (f1, _, d1)) = inputs["warp_variance"]
+        assert (l0, l1) == ("level0", "level1")
+        assert f0.shape == (2, 3, 8, 16, 32) and d0.shape == (2, 8, 4, 8)
+        assert f1.shape == (2, 3, 16, 32, 16) and d1.shape == (2, 8, 16, 32)
+        (_, (imgs, x, _)), = inputs["img_sample"]
+        assert imgs.shape == (6, 32, 64, 11) and x.shape == (6, 32 * 64 * 2)
+        (_, (params, vox, feat, dirs)), = inputs["enerf_head"]
+        assert vox.shape == (2, 4096, 8) and feat.shape == (2, 3, 4096, 11)
+        assert dirs.shape == (2, 3, 4096, 4)
+        work = {"warp_variance": (fused_warp_variance, smoke.warp_work),
+                "img_sample": (fused_row_sample, smoke.sample_work),
+                "enerf_head": (fused_nerf_head, smoke.head_work)}
+        for name, (wrapper, count) in work.items():
+            for _, args in inputs[name]:
+                assert torch.isfinite(wrapper(*args)).all(), name
+                assert min(count(*args)) > 0, name
