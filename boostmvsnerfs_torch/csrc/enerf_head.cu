@@ -238,17 +238,52 @@ int launch(const void* weights, int n_weights, const void* vox, const void* feat
 
 // The (S, C) pairs instantiated: 3-view cost volumes over the level-1
 // (8 + RGB) and level-0 (32 + RGB) feature maps (ops/cuda/enerf_head.py
-// SUPPORTED).
-extern "C" int enerf_head_launch(const void* weights, int n_weights, const void* vox,
-                                 const void* feat, const void* dirs, void* out, int B, int S,
-                                 long long P, int C, int viewdir, int grid, void* stream) {
+// SUPPORTED), each with and without view-direction conditioning, each with
+// its own C entry point. Compiled with -DENERF_HEAD_UNIT=0..3 a translation
+// unit holds one instance, and with 4 the dispatcher, so the slow unrolled
+// instances build in parallel (ops/cuda/_build.py UNITS); without the
+// macro one unit holds everything.
+#define HEAD_ARGS                                                                          \
+  const void *weights, int n_weights, const void *vox, const void *feat, const void *dirs, \
+      void *out, int B, long long P, int grid, cudaStream_t st
+#define HEAD_CALL weights, n_weights, vox, feat, dirs, out, B, P, grid, st
+#ifndef ENERF_HEAD_UNIT
+#define ENERF_HEAD_ALL 1
+#define ENERF_HEAD_UNIT -1
+#else
+#define ENERF_HEAD_ALL 0
+#endif
+
+extern "C" {
+int enerf_head_3_11_v(HEAD_ARGS);
+int enerf_head_3_11(HEAD_ARGS);
+int enerf_head_3_35_v(HEAD_ARGS);
+int enerf_head_3_35(HEAD_ARGS);
+
+#if ENERF_HEAD_ALL || ENERF_HEAD_UNIT == 0
+int enerf_head_3_11_v(HEAD_ARGS) { return launch<3, 11, true>(HEAD_CALL); }
+#endif
+#if ENERF_HEAD_ALL || ENERF_HEAD_UNIT == 1
+int enerf_head_3_11(HEAD_ARGS) { return launch<3, 11, false>(HEAD_CALL); }
+#endif
+#if ENERF_HEAD_ALL || ENERF_HEAD_UNIT == 2
+int enerf_head_3_35_v(HEAD_ARGS) { return launch<3, 35, true>(HEAD_CALL); }
+#endif
+#if ENERF_HEAD_ALL || ENERF_HEAD_UNIT == 3
+int enerf_head_3_35(HEAD_ARGS) { return launch<3, 35, false>(HEAD_CALL); }
+#endif
+
+#if ENERF_HEAD_ALL || ENERF_HEAD_UNIT == 4
+int enerf_head_launch(const void* weights, int n_weights, const void* vox, const void* feat,
+                      const void* dirs, void* out, int B, int S, long long P, int C, int viewdir,
+                      int grid, void* stream) {
   if ((long long)B * P == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (S == 3 && C == 11)
-    return viewdir ? launch<3, 11, true>(weights, n_weights, vox, feat, dirs, out, B, P, grid, st)
-                   : launch<3, 11, false>(weights, n_weights, vox, feat, dirs, out, B, P, grid, st);
+    return viewdir ? enerf_head_3_11_v(HEAD_CALL) : enerf_head_3_11(HEAD_CALL);
   if (S == 3 && C == 35)
-    return viewdir ? launch<3, 35, true>(weights, n_weights, vox, feat, dirs, out, B, P, grid, st)
-                   : launch<3, 35, false>(weights, n_weights, vox, feat, dirs, out, B, P, grid, st);
+    return viewdir ? enerf_head_3_35_v(HEAD_CALL) : enerf_head_3_35(HEAD_CALL);
   return (int)cudaErrorInvalidValue;
 }
+#endif
+}  // extern "C"

@@ -35,3 +35,18 @@ class DeconvBn(nn.Sequential):
             nn.ConvTranspose3d(cin, cout, 3, stride=2, padding=1, output_padding=1, bias=False),
             nn.BatchNorm3d(cout, eps=1e-5),
         )
+
+
+class ConvBnLeaky(ConvBnReLU):
+    """``ConvBnReLU`` with leaky-ReLU(0.01) after the BatchNorm: the
+    reference's InPlaceABN blocks of MVSNeRF (its default activation)."""
+
+    def forward(self, x):
+        return nn.functional.leaky_relu(self.bn(self.conv(x)), 0.01)
+
+
+class DeconvBnLeaky(DeconvBn):
+    """``DeconvBn`` followed by leaky-ReLU(0.01)."""
+
+    def forward(self, x):
+        return nn.functional.leaky_relu(super().forward(x), 0.01)

@@ -3,10 +3,13 @@
 Each ``csrc/<name>.cu`` exposes a plain C launch function. It is compiled
 with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``boostmvsnerfs_torch/_build/`` (ignored by git), keyed by a hash of the
-source and the flags so an unchanged kernel is never rebuilt, and bound
-with ``ctypes``. Nothing is built at import: the first CUDA call of a
-wrapper builds its kernel, and ``build()`` compiles several at once (one
-``nvcc`` process per source, all started together).
+source, the flags and its units so an unchanged kernel is never rebuilt,
+and bound with ``ctypes``. A source with slow template instances is
+compiled as several translation units (``UNITS``: one set of ``-D``
+flags each) and linked into the one library. Nothing is built at import:
+the first CUDA call of a wrapper builds its kernel, and ``build()``
+compiles several at once (one ``nvcc`` process per unit, all started
+together).
 
 Each wrapper calls ``count_launch`` exactly where it launches its kernel,
 so a run can show which kernels the main path went through.
@@ -27,11 +30,13 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("warp_variance", "img_sample", "enerf_head")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+KERNELS = ("warp_variance", "img_sample", "enerf_head", "tri_sample", "renderer_mlp")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Translation units of a source, one set of -D flags each (default: one
+# unit, no flags). enerf_head's four fully unrolled (S, C, view-dir)
+# instances build in parallel, with the dispatcher as a fifth unit.
+UNITS = {"enerf_head": tuple((f"-DENERF_HEAD_UNIT={i}",) for i in range(5))}
 
 _launches = dict.fromkeys(KERNELS, 0)
 _libs: dict[str, ctypes.CDLL] = {}
@@ -67,36 +72,63 @@ def nvcc() -> str:
     )
 
 
+def units(name: str) -> tuple:
+    return UNITS.get(name, ((),))
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(
         (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        + repr(units(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+def _run_all(jobs) -> list[str]:
+    """Start every ``(label, cmd, log path)`` job at once and wait for all;
+    returns the labels of those that failed."""
+    procs = []
+    for label, cmd, log in jobs:
+        with open(log, "w") as f:
+            procs.append((label, log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    rcs = [(label, log, p.wait()) for label, log, p in procs]
+    return [f"{label} (rc {rc}, log {log})" for label, log, rc in rcs if rc]
+
+
 def build(names=KERNELS) -> None:
-    """Compile every named kernel that is not built yet, all in parallel.
-    The compiler's report (registers, spills) goes to ``_build/<lib>.log``."""
-    jobs = []
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        log = open(out.with_suffix(".log"), "w")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs.append((name, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, out, log))
-    failed = []
-    for name, proc, tmp, out, log in jobs:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out)
-        else:
-            failed.append(f"{name} (rc {rc}, log {out.with_suffix('.log')})")
+    """Compile every named kernel that is not built yet: all their units in
+    parallel, then one link per library. The compiler's report (registers,
+    spills) of all units goes to ``_build/<lib>.log``."""
+    libs = {n: library_path(n) for n in names if not library_path(n).exists()}
+    if not libs:
+        return
+    BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    # nvcc tells an object from a source by its suffix: keep ".o" last
+    objs = {name: [lib.with_name(f"{lib.stem}.{i}.{os.getpid()}.o") for i in range(len(units(name)))]
+            for name, lib in libs.items()}
+    logs = {name: [lib.with_name(f"{lib.stem}.{i}.log") for i in range(len(units(name)))]
+            for name, lib in libs.items()}
+    failed = _run_all([
+        (f"{name} unit {i}",
+         [nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(objs[name][i]), str(CSRC / f"{name}.cu")],
+         logs[name][i])
+        for name in libs for i, defines in enumerate(units(name))
+    ])
     if failed:
         raise RuntimeError("nvcc failed: " + ", ".join(failed))
+    failed = _run_all([
+        (f"{name} link", [nvcc(), *ARCH, "-shared", "-o", f"{lib}.{tag}", *map(str, objs[name])],
+         lib.with_suffix(".link.log"))
+        for name, lib in libs.items()
+    ])
+    if failed:
+        raise RuntimeError("nvcc link failed: " + ", ".join(failed))
+    for name, lib in libs.items():
+        lib.with_suffix(".log").write_text("".join(log.read_text() for log in logs[name]))
+        for path in (*objs[name], *logs[name], lib.with_suffix(".link.log")):
+            path.unlink()
+        os.replace(f"{lib}.{tag}", lib)
 
 
 def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:

@@ -170,6 +170,15 @@ def resize_bilinear(img: torch.Tensor, H_out: int, W_out: int) -> torch.Tensor:
     return _resize_axis(_resize_axis(img, img.dim() - 3, H_out), img.dim() - 2, W_out)
 
 
+def resize_antialiased(img: torch.Tensor, H_out: int, W_out: int) -> torch.Tensor:
+    """Half-pixel bilinear resize of (N, H, W, C) with an antialiasing
+    filter when shrinking: ``jax.image.resize(..., "bilinear")``, whose
+    default is ``antialias=True``."""
+    out = torch.nn.functional.interpolate(img.permute(0, 3, 1, 2), (H_out, W_out),
+                                          mode="bilinear", align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1)
+
+
 def resize_bilinear_2d(x: torch.Tensor, H_out: int, W_out: int) -> torch.Tensor:
     """Resize a (..., H, W) map (no channel axis)."""
     return resize_bilinear(x[..., None], H_out, W_out)[..., 0]

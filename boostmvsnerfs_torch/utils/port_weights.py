@@ -1,10 +1,11 @@
 """JAX parameter trees -> the port's ``state_dict``.
 
-The inverse of ``boostmvsnerfs_tpu/utils/port_weights.py::port_enerf``,
-with its own copy of the name map: the port's modules carry the reference
-checkpoints' names, so a reference ``state_dict`` goes into JAX through
-``port_enerf`` and a JAX ``{'params', 'batch_stats'}`` tree comes back here
-for ``load_state_dict(strict=True)``. ``random_state_dict`` makes seeded
+The inverses of ``boostmvsnerfs_tpu/utils/port_weights.py::port_enerf`` and
+``port_mvsnerf``, with their own copies of the name maps: the port's
+modules carry the reference checkpoints' names, so a reference
+``state_dict`` goes into JAX through ``port_enerf`` / ``port_mvsnerf`` and a
+JAX ``{'params', 'batch_stats'}`` tree comes back here for
+``load_state_dict(strict=True)``. ``random_state_dict`` makes seeded
 weights in that form for smoke runs and tests. Layout conversions:
 
 * flax Conv (kh,kw,I,O) / (kd,kh,kw,I,O) -> torch (O,I,kh,kw) / (O,I,kd,kh,kw)
@@ -88,6 +89,43 @@ def enerf_state_dict_from_jax(variables: dict) -> dict:
             path = (f"nerf_heads_{lvl}",) + path
             sd[f"nerf_{lvl}.{t}.weight"] = _get(params, path + ("kernel",)).T
             sd[f"nerf_{lvl}.{t}.bias"] = _get(params, path + ("bias",))
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+_MVS_FEATURE_BLOCKS = ("conv0.0", "conv0.1", "conv1.0", "conv1.1", "conv1.2",
+                       "conv2.0", "conv2.1", "conv2.2")
+_MVS_HEADS = (("pts_bias", "pts_bias"), ("alpha_linear", "alpha"),
+              ("feature_linear", "feature"), ("views_linears.0", "views_0"), ("rgb_linear", "rgb"))
+
+
+def mvsnerf_state_dict_from_jax(variables: dict) -> dict:
+    """A JAX MVSNeRF/BoostMVSNeRF (``v0`` renderer) ``{'params',
+    'batch_stats'}`` tree -> the port's ``state_dict`` (CPU tensors); the
+    inverse of ``boostmvsnerfs_tpu/utils/port_weights.py::port_mvsnerf``.
+    The MLP depth is read from the tree."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    for i, t in enumerate(_MVS_FEATURE_BLOCKS):
+        path = ("feature", f"ConvBnLeaky_{i}")
+        sd[f"feature.{t}.conv.weight"] = _conv(_get(params, path + ("Conv_0", "kernel")))
+        _bn(sd, f"feature.{t}.bn", params, stats, path + ("BatchNorm_0",))
+    sd["feature.toplayer.weight"] = _conv(_get(params, ("feature", "toplayer", "kernel")))
+    sd["feature.toplayer.bias"] = _get(params, ("feature", "toplayer", "bias"))
+    for i in range(7):
+        path = ("cost_reg", f"ConvBnLeaky_{i}")
+        sd[f"cost_reg_2.conv{i}.conv.weight"] = _conv(_get(params, path + ("Conv_0", "kernel")))
+        _bn(sd, f"cost_reg_2.conv{i}.bn", params, stats, path + ("BatchNorm_0",))
+    for i, t in enumerate(("conv7", "conv9", "conv11")):
+        path = ("cost_reg", f"DeconvBnLeaky_{i}")
+        # (kd,kh,kw,O,I) -> (I,O,kd,kh,kw)
+        sd[f"cost_reg_2.{t}.0.weight"] = _get(
+            params, path + ("ConvTranspose_0", "kernel")).transpose(4, 3, 0, 1, 2)
+        _bn(sd, f"cost_reg_2.{t}.1", params, stats, path + ("BatchNorm_0",))
+    mlp = params["renderer"]
+    depth = sum(k.startswith("pts_") and k != "pts_bias" for k in mlp)
+    for t, name in _MVS_HEADS + tuple((f"pts_linears.{i}", f"pts_{i}") for i in range(depth)):
+        sd[f"nerf.nerf.{t}.weight"] = np.asarray(mlp[name]["kernel"]).T
+        sd[f"nerf.nerf.{t}.bias"] = np.asarray(mlp[name]["bias"])
     return {k: torch.tensor(v) for k, v in sd.items()}
 
 

@@ -99,3 +99,19 @@ def make_scene_batch(
         batch["combos"] = combos
         batch["k_best"] = np.tile(np.arange(k_best, dtype=np.int32) % len(combos), (B, 1))
     return batch
+
+
+def mvsnerf_batch(batch: dict, k_best=(0, 5, 9, 14), input_views: int = 3) -> dict:
+    """A ``make_scene_batch(boost=True)`` batch completed for (Boost)MVSNeRF,
+    as ``scripts/bench_mvsnerf.py`` completes it: every view's depth range
+    is the scene's ``near_far``, ``combos`` is the C(N, ``input_views``)
+    table, ``k_best`` the given combination ids for every batch entry, and
+    ``ray_idx_0`` covers every pixel."""
+    B, n_views, H, W = batch["all_src_inps"].shape[:4]
+    out = dict(batch)
+    out["depth_ranges"] = np.tile(np.asarray(batch["near_far"], np.float32)[:, None, :],
+                                  (1, n_views, 1))
+    out["combos"] = view_combinations(n_views, input_views)
+    out["k_best"] = np.tile(np.asarray(k_best, np.int32), (B, 1))
+    out["ray_idx_0"] = np.tile(np.arange(H * W, dtype=np.int32), (B, 1))
+    return out

@@ -6,11 +6,12 @@ toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ and prints one JSON line per
-phase:
+phase. Two main paths are driven, each with its kernels checked first:
 
 1. device  - the card, from torch and nvidia-smi.
-2. build   - nvcc of every kernel (in parallel) and its register report.
-3. kernels - each kernel against its plain PyTorch version on the main
+2. build   - nvcc of every kernel (all translation units in parallel) and
+   its register report.
+3. kernels - each kernel against its plain PyTorch version on its main
    path's real inputs at full width (taken from the model's own stages):
    max abs error, median time, the plain version's time, the time of one
    PyTorch call computing the same function where one exists, and the
@@ -18,12 +19,16 @@ phase:
    SXM's published peaks, whichever is larger).
 4. frame   - a reduced-geometry BoostENeRF frame on the card against the
    port on the CPU (plain versions): rgb PSNR must exceed 45 dB.
-5. main    - the main path, bench.py's workload: BoostENeRF K=4 of
+5. main    - the first main path, bench.py's workload: BoostENeRF K=4 of
    C(6,3), 480x736, planes (64, 8), only level 1 rendered, seeded random
    weights, f32 with TF32 off. Three batches checked, launches per frame
    counted, then frame times over back-to-back frames.
 6. profile - where a main-path frame's device time goes (torch.profiler):
    device-busy share, cuDNN convolutions, the ported kernels, top kernels.
+7. kernels, frame_mvsnerf, main_mvsnerf, profile_mvsnerf - the same for
+   the second main path, scripts/bench_mvsnerf.py's workload: BoostMVSNeRF
+   K=4 of C(6,3) (combinations 0, 5, 9, 14), 224x352, 32 samples per ray,
+   the published widths (pad 24, 8-ch volume, MLP 6x128), every pixel.
 
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and a last status line. Any failed check raises,
@@ -49,6 +54,10 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 # output's largest magnitude (at least 1).
 KERNEL_RTOL = 1e-4
 MAIN_RAYS = 480 * 736
+MVS_HW = (224, 352)
+MVS_K_BEST = (0, 5, 9, 14)
+NO_LAUNCHES = {"warp_variance": 0, "img_sample": 0, "enerf_head": 0, "tri_sample": 0,
+               "renderer_mlp": 0}
 
 
 def emit(**record) -> None:
@@ -92,7 +101,7 @@ def warp_work(feats, pm, dv):
     return nbytes, n * (S * (35 + 11 * C) + 4 * C)
 
 
-def sample_work(imgs, x, y):
+def sample_work(imgs, x, y, padding_mode="border"):
     C, n = imgs.shape[-1], x.numel()
     return 4 * (imgs.numel() + 2 * n + n * C), n * (20 + 7 * C)
 
@@ -104,6 +113,21 @@ def head_work(params, vox, feat, dirs):
     n_weights = sum(w.numel() + b.numel() for w, b in params.values())
     nbytes = 4 * (vox.numel() + feat.numel() + dirs.numel() + 4 * B * P + n_weights)
     return nbytes, 2 * macs * B * P
+
+
+def tri_work(vol, xyz):
+    C, n = vol.shape[-1], xyz.numel() // 3
+    return 4 * (vol.numel() + xyz.numel() + n * C), n * (8 * (2 + 2 * C) + 12)
+
+
+def mlp_work(params, pts, feat, dirs, encode_freqs=0):
+    """Multiply-adds of every layer (the weights' size) per sample, plus
+    the sines and cosines of an in-kernel encoding."""
+    n = pts.shape[0] * pts.shape[1]
+    macs = sum(w.numel() for w, _ in params.values())
+    n_weights = sum(w.numel() + b.numel() for w, b in params.values())
+    nbytes = 4 * (pts.numel() + feat.numel() + dirs.numel() + 4 * n + n_weights)
+    return nbytes, n * (2 * macs + 2 * 3 * encode_freqs)
 
 
 def random_weights(model, seed: int) -> dict:
@@ -143,6 +167,25 @@ def main_path_kernel_inputs(model, batch) -> dict:
     }
 
 
+def mvs_kernel_inputs(model, batch) -> dict:
+    """Each kernel's inputs on the MVSNeRF main path, from the model's own
+    stages: {entry: [(label, args), ...]}. The MLP's encoded instance takes
+    the raw-coordinate instance's samples, encoded by the port's
+    positional_encoding."""
+    from boostmvsnerfs_torch.ops.cuda.renderer_mlp import positional_encoding
+
+    sub, volume, near, far = model.fused_volumes(batch)
+    calls, _, _ = model.render_stages(sub, volume, sub["ray_idx_0"], near, far)
+    params, uvd, feat, dirs, freqs = calls["renderer_mlp"]
+    return {
+        "tri_sample": [("render", calls["tri_sample"])],
+        "img_sample": [("render", calls["img_sample"])],
+        "renderer_mlp": [("render", calls["renderer_mlp"])],
+        "renderer_mlp/encoded": [("render", (params, positional_encoding(uvd, freqs), feat,
+                                             dirs, 0))],
+    }
+
+
 def grid_sample_library_ms(imgs, x, y) -> float:
     """One ``F.grid_sample`` (bilinear, border, align-corners) on the same
     work, for scale; the port never calls it."""
@@ -155,35 +198,84 @@ def grid_sample_library_ms(imgs, x, y) -> float:
                                            align_corners=True), 10)
 
 
-def phase_kernels(model, batch) -> dict:
-    from boostmvsnerfs_torch.ops.cuda import enerf_head, img_sample, warp_variance
+def grid_sample_3d_library_ms(vol, xyz) -> float:
+    """One 5-D ``F.grid_sample`` (trilinear, zeros, align-corners, NCDHW) on
+    the same work, for scale; the port never calls it."""
+    import torch.nn.functional as F
 
-    table = {
-        "warp_variance": (warp_variance.fused_warp_variance, warp_variance.warp_variance_plain,
-                          warp_work, "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:38"),
-        "img_sample": (img_sample.fused_row_sample, img_sample.row_sample_plain,
-                       sample_work, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106"),
-        "enerf_head": (enerf_head.fused_nerf_head, enerf_head.nerf_head_plain,
-                       head_work, "boostmvsnerfs_tpu/ops/pallas/enerf_head.py:45"),
-    }
-    inputs = main_path_kernel_inputs(model, batch)
+    B, D, H, W, C = vol.shape
+    ncdhw = vol.permute(0, 4, 1, 2, 3).contiguous()
+    scale = torch.tensor([W - 1, H - 1, D - 1], dtype=torch.float32, device=xyz.device)
+    grid = (xyz / scale * 2 - 1)[:, None, None]  # (B, 1, 1, P, 3)
+    return median_ms(lambda: F.grid_sample(ncdhw, grid, mode="bilinear", padding_mode="zeros",
+                                           align_corners=True), 10)
+
+
+# entry -> (kernel name, instance or None, its Pallas kernel, work, library yardstick or None)
+ENERF_KERNELS = {
+    "warp_variance": ("warp_variance", None, "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:38",
+                      warp_work, None),
+    "img_sample": ("img_sample", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106",
+                   sample_work, grid_sample_library_ms),
+    "enerf_head": ("enerf_head", None, "boostmvsnerfs_tpu/ops/pallas/enerf_head.py:45",
+                   head_work, None),
+}
+MVS_KERNELS = {
+    "tri_sample": ("tri_sample", None, "boostmvsnerfs_tpu/ops/pallas/tri_sample.py:37",
+                   tri_work, grid_sample_3d_library_ms),
+    "img_sample": ("img_sample", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106",
+                   sample_work, grid_sample_library_ms),
+    "renderer_mlp": ("renderer_mlp", "raw coordinates, encoded in the kernel",
+                     "boostmvsnerfs_tpu/ops/pallas/mlp.py:169", mlp_work, None),
+    "renderer_mlp/encoded": ("renderer_mlp", "encoded input",
+                             "boostmvsnerfs_tpu/ops/pallas/mlp.py:37", mlp_work, None),
+}
+
+
+def kernel_pair(name):
+    """(wrapper, plain version) of a kernel."""
+    from boostmvsnerfs_torch.ops.cuda import (
+        enerf_head,
+        img_sample,
+        renderer_mlp,
+        tri_sample,
+        warp_variance,
+    )
+
+    return {
+        "warp_variance": (warp_variance.fused_warp_variance, warp_variance.warp_variance_plain),
+        "img_sample": (img_sample.fused_row_sample, img_sample.row_sample_plain),
+        "enerf_head": (enerf_head.fused_nerf_head, enerf_head.nerf_head_plain),
+        "tri_sample": (tri_sample.fused_tri_sample, tri_sample.tri_sample_plain),
+        "renderer_mlp": (renderer_mlp.fused_renderer_mlp, renderer_mlp.renderer_mlp_plain),
+    }[name]
+
+
+def phase_kernels(table: dict, inputs: dict, path: str) -> dict:
+    """Every kernel of ``table`` against its plain version on ``inputs``;
+    returns the summary record of each entry."""
     summary = {}
-    for name, (kernel, plain, work, replaces) in table.items():
+    for entry, (name, instance, replaces, work, library) in table.items():
+        kernel, plain = kernel_pair(name)
         rec = {"name": name, "route": "cuda", "source": f"boostmvsnerfs_torch/csrc/{name}.cu",
-               "replaces": replaces, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "library_ms": None}
+               "replaces": replaces, "path": path, "max_abs_err": 0.0, "ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+        if instance:
+            rec["instance"] = instance
         ops_total = bytes_total = 0.0
-        for label, args in inputs[name]:
+        for label, args in inputs[entry]:
             got, want = kernel(*args), plain(*args)
             err = float((got - want).abs().max())
             scale = max(1.0, float(want.abs().max()))
+            del got, want
             ms = median_ms(lambda: kernel(*args), 20)
             plain_ms = median_ms(lambda: plain(*args), 3, warmup=1)
             nbytes, ops = work(*args)
             bms, by = bound(nbytes, ops)
-            lib_ms = grid_sample_library_ms(*args) if name == "img_sample" else None
-            emit(phase="kernels", kernel=name, at=label,
-                 shapes=[list(a.shape) for a in args if torch.is_tensor(a)],
+            tensors = [a for a in args if torch.is_tensor(a)]
+            lib_ms = library(*tensors) if library else None
+            emit(phase="kernels", path=path, kernel=name, instance=instance, at=label,
+                 shapes=[list(a.shape) for a in tensors],
                  max_abs_err=err, tolerance=KERNEL_RTOL * scale, ms=ms, plain_ms=plain_ms,
                  library_ms=lib_ms, bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
                  roofline_share=bms / ms)
@@ -195,10 +287,13 @@ def phase_kernels(model, batch) -> dict:
                 rec["library_ms"] = lib_ms
             bytes_total += nbytes
             ops_total += ops
-            del got, want
         rec["bound_ms"], rec["bound_by"] = bound(bytes_total, ops_total)
-        summary[name] = rec
+        summary[entry] = rec
     return summary
+
+
+def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
+    return float(-10 * np.log10(np.mean((a - b) ** 2)))
 
 
 def phase_frame(state: dict) -> None:
@@ -218,31 +313,54 @@ def phase_frame(state: dict) -> None:
         outs[device] = {k: v.cpu().numpy() for k, v in model(batch).items()}
     g, c = outs["cuda"], outs["cpu"]
     require(g.keys() == c.keys(), "output keys differ between card and CPU")
-    psnr = float(-10 * np.log10(np.mean((g["rgb_level1"] - c["rgb_level1"]) ** 2)))
+    psnr = psnr_db(g["rgb_level1"], c["rgb_level1"])
     depth_err = float(np.abs(g["depth_mvs_level1"] - c["depth_mvs_level1"]).max())
     emit(phase="frame", geometry=[128, 192], views=4, k_best=2, rgb_psnr_db=psnr,
          depth_mvs_max_abs_err=depth_err)
     require(psnr > 45.0, f"card vs CPU rgb PSNR {psnr} dB <= 45")
 
 
-def phase_main(model, make_batch) -> dict:
-    from boostmvsnerfs_torch.models.enerf import to_tensors
+def phase_frame_mvsnerf(state: dict) -> None:
+    """Reduced geometry (128x192, 4 views, K=2 of C(4,3), 32 samples): the
+    port on the card against the port on the CPU, same weights and batch."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch, mvsnerf_batch
+
+    batch = mvsnerf_batch(make_scene_batch(B=1, n_views=4, H=128, W=192, boost=True, seed=3,
+                                           rig="forward", render_scales=(1.0,)), k_best=(0, 3))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = BoostMVSNeRF(MVSNeRFConfig(k_best=2), device=device)
+        model.load_state_dict(state, strict=True)
+        outs[device] = {k: v.cpu().numpy() for k, v in model(batch).items()}
+    g, c = outs["cuda"], outs["cpu"]
+    require(g.keys() == c.keys(), "output keys differ between card and CPU")
+    psnr = psnr_db(g["rgb_level0"], c["rgb_level0"])
+    depth_err = float(np.abs(g["depth_level0"] - c["depth_level0"]).max())
+    emit(phase="frame_mvsnerf", geometry=[128, 192], views=4, k_best=2, samples=32,
+         rgb_psnr_db=psnr, depth_max_abs_err=depth_err)
+    require(psnr > 45.0, f"card vs CPU rgb PSNR {psnr} dB <= 45")
+
+
+def phase_main(model, batches, phase: str, expect: dict, rgb_key: str, n_rays: int,
+               **describe) -> dict:
+    """Launches per frame (counts reset just before, read just after one
+    frame), three batches checked, then frame times over back-to-back
+    frames."""
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    dev = model.device
-    batches = [to_tensors(make_batch(seed), dev) for seed in (0, 1, 2)]
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     out = model(batches[0])
     torch.cuda.synchronize()
     launches = launch_counts()
-    require(launches == {"warp_variance": 2, "img_sample": 1, "enerf_head": 1},
-            f"launches per frame {launches}")
+    require(launches == {**NO_LAUNCHES, **expect}, f"{phase}: launches per frame {launches}")
     for seed, b in enumerate(batches):
         if seed:
             out = model(b)
-        rgb = out["rgb_level1"]
-        require(tuple(rgb.shape) == (1, MAIN_RAYS, 3), f"rgb shape {tuple(rgb.shape)}")
+        rgb = out[rgb_key]
+        require(tuple(rgb.shape) == (1, n_rays, 3), f"rgb shape {tuple(rgb.shape)}")
         for k, v in out.items():
             require(bool(torch.isfinite(v).all()), f"non-finite {k} (seed {seed})")
         require(float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0, f"rgb outside [0, 1] (seed {seed})")
@@ -263,14 +381,14 @@ def phase_main(model, make_batch) -> dict:
     wall = (time.perf_counter() - t0) / n
     frame_ms = [s.elapsed_time(e) for s, e in events]
     med = statistics.median(frame_ms)
-    emit(phase="main", geometry=[480, 736], views=6, k_best=4, planes=[64, 8],
-         launches_per_frame=launches, frame_ms_median=med, frame_ms_min=min(frame_ms),
-         frame_ms_max=max(frame_ms), host_wall_ms_per_frame=wall * 1e3,
-         rays_per_s=MAIN_RAYS / (med / 1e3), peak_mem_gib=peak_gib, frames=n)
+    emit(phase=phase, **describe, launches_per_frame=launches, frame_ms_median=med,
+         frame_ms_min=min(frame_ms), frame_ms_max=max(frame_ms),
+         host_wall_ms_per_frame=wall * 1e3, rays_per_s=n_rays / (med / 1e3),
+         peak_mem_gib=peak_gib, frames=n)
     return launches
 
 
-def phase_profile(model, batch, frames: int = 2) -> None:
+def phase_profile(model, batch, phase: str, kernels, frames: int = 2) -> None:
     """Where a main-path frame's device time goes, from torch.profiler:
     per frame, the device-busy time (sum of kernel times; one stream, so
     they do not overlap) against the frame's CUDA-event time, the busy time
@@ -287,16 +405,16 @@ def phase_profile(model, batch, frames: int = 2) -> None:
         end.record()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     per_frame = lambda us: us / 1e3 / frames  # noqa: E731
-    busy = per_frame(sum(e.device_time_total for e in kernels))
+    busy = per_frame(sum(e.device_time_total for e in kernel_events))
     wall = start.elapsed_time(end) / frames
     by_op = {e.key: per_frame(e.device_time_total) for e in events}
-    ported = {name: per_frame(sum(e.device_time_total for e in kernels
+    ported = {name: per_frame(sum(e.device_time_total for e in kernel_events
                                   if f"{name}_kernel" in e.key))
-              for name in ("warp_variance", "img_sample", "enerf_head")}
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
-    emit(phase="profile", frames=frames, frame_ms=wall, device_busy_ms=busy,
+              for name in kernels}
+    top = sorted(kernel_events, key=lambda e: -e.device_time_total)[:12]
+    emit(phase=phase, frames=frames, frame_ms=wall, device_busy_ms=busy,
          device_idle_share=1.0 - busy / wall,
          convolution_ms=by_op.get("aten::convolution", 0.0),
          batch_norm_ms=by_op.get("aten::batch_norm", 0.0), ported_kernels_ms=ported,
@@ -304,14 +422,73 @@ def phase_profile(model, batch, frames: int = 2) -> None:
                        "calls": e.count / frames} for e in top])
 
 
+def run_enerf() -> list:
+    """The first main path: BoostENeRF at 480x736. Returns its summary
+    records."""
+    from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
+    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
+
+    model = BoostENeRF(CascadeConfig(k_best=4, render_if=(False, True)))
+    state = random_weights(model, 0)
+    model.load_state_dict(state, strict=True)
+
+    def make_batch(seed):
+        return to_tensors(make_scene_batch(B=1, n_views=6, H=480, W=736, boost=True, k_best=4,
+                                           seed=seed, rig="forward"), model.device)
+
+    with torch.no_grad():
+        summary = phase_kernels(ENERF_KERNELS, main_path_kernel_inputs(model, make_batch(0)),
+                                "boost_enerf")
+    torch.cuda.empty_cache()
+    phase_frame(state)
+    launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main",
+                          {"warp_variance": 2, "img_sample": 1, "enerf_head": 1}, "rgb_level1",
+                          MAIN_RAYS, geometry=[480, 736], views=6, k_best=4, planes=[64, 8])
+    phase_profile(model, make_batch(0), "profile", ("warp_variance", "img_sample", "enerf_head"))
+    for rec in summary.values():
+        rec["launches"] = launches[rec["name"]]
+    return list(summary.values())
+
+
+def run_mvsnerf() -> list:
+    """The second main path: BoostMVSNeRF at 224x352. Returns its summary
+    records."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+    from boostmvsnerfs_torch.models.enerf import to_tensors
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch, mvsnerf_batch
+
+    model = BoostMVSNeRF(MVSNeRFConfig(k_best=len(MVS_K_BEST)))
+    state = random_weights(model, 0)
+    model.load_state_dict(state, strict=True)
+    H, W = MVS_HW
+
+    def make_batch(seed):
+        batch = make_scene_batch(B=1, n_views=6, H=H, W=W, boost=True, seed=seed, rig="forward",
+                                 render_scales=(1.0,))
+        return to_tensors(mvsnerf_batch(batch, k_best=MVS_K_BEST), model.device)
+
+    with torch.no_grad():
+        summary = phase_kernels(MVS_KERNELS, mvs_kernel_inputs(model, make_batch(0)),
+                                "boost_mvsnerf")
+    torch.cuda.empty_cache()
+    phase_frame_mvsnerf(state)
+    kernels = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
+    launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main_mvsnerf", kernels,
+                          "rgb_level0", H * W, geometry=[H, W], views=6,
+                          k_best=list(MVS_K_BEST), samples=model.cfg.num_samples)
+    phase_profile(model, make_batch(0), "profile_mvsnerf", tuple(kernels))
+    for rec in summary.values():
+        rec["launches"] = launches[rec["name"]]
+    return list(summary.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
-    from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
-    from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
     from boostmvsnerfs_torch.ops.cuda import _build
-    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -330,24 +507,10 @@ def main() -> int:
         ptxas[k] = [ln.split("info    : ")[-1] for ln in lines if "registers" in ln or "spill" in ln]
     emit(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
-    cas = CascadeConfig(k_best=4, render_if=(False, True))
-    model = BoostENeRF(cas)
-    state = random_weights(model, 0)
-    model.load_state_dict(state, strict=True)
-
-    def make_batch(seed):
-        return make_scene_batch(B=1, n_views=6, H=480, W=736, boost=True, k_best=4, seed=seed,
-                                rig="forward")
-
-    with torch.no_grad():
-        summary = phase_kernels(model, to_tensors(make_batch(0), model.device))
+    records = run_enerf()
     torch.cuda.empty_cache()
-    phase_frame(state)
-    launches = phase_main(model, make_batch)
-    phase_profile(model, to_tensors(make_batch(0), model.device))
-    for k, rec in summary.items():
-        rec["launches"] = launches[k]
-    print(json.dumps({"kernels": list(summary.values())}))
+    records += run_mvsnerf()
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

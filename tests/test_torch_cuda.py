@@ -9,18 +9,23 @@ where tests/conftest.py (which imports JAX) is left out:
 Tolerances: the warp and sampler kernels round their coordinates and tap
 sums in the plain versions' order, so they agree to a few ulps
 (rtol 1e-5 / atol 1e-6); the head sums ~100-term dot products in another
-order than the plain matmuls (rtol 1e-4 / atol 1e-5).
+order than the plain matmuls (rtol 1e-4 / atol 1e-5); the renderer MLP sums
+up to 191-term dot products through six layers in another order than
+cuBLAS, and is held at 1e-4 of its output's largest magnitude.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig, RendererMLP
 from boostmvsnerfs_torch.models.nerf_head import NeRFHead
 from boostmvsnerfs_torch.ops import geometry
 from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 from boostmvsnerfs_torch.ops.cuda.enerf_head import fused_nerf_head, nerf_head_plain
 from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample, row_sample_plain
+from boostmvsnerfs_torch.ops.cuda.renderer_mlp import fused_renderer_mlp, renderer_mlp_plain
+from boostmvsnerfs_torch.ops.cuda.tri_sample import fused_tri_sample, tri_sample_plain
 from boostmvsnerfs_torch.ops.cuda.warp_variance import fused_warp_variance, warp_variance_plain
 from boostmvsnerfs_torch.utils.port_weights import random_state_dict
 from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
@@ -88,3 +93,48 @@ def test_enerf_head_kernel(dev, C, viewdir_agg):
         _close(fused_nerf_head(params, vox, feat, dirs), nerf_head_plain(params, vox, feat, dirs),
                1e-4, 1e-5)
     assert launch_counts()["enerf_head"] == 1
+
+
+def test_img_sample_kernel_rgb(dev):
+    """C = 3, border: the MVSNeRF colour lookup (no 16-byte rows)."""
+    rng = np.random.default_rng(3)
+    V, H, W, P = 12, 30, 44, 5001
+    imgs = torch.from_numpy(rng.uniform(0, 1, (V, H, W, 3)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.uniform(-4, W + 3, (V, P)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.uniform(-4, H + 3, (V, P)).astype(np.float32)).to(dev)
+    _close(fused_row_sample(imgs, x, y, "border"), row_sample_plain(imgs, x, y, "border"),
+           1e-5, 1e-6)
+    assert launch_counts()["img_sample"] == 1
+
+
+def test_tri_sample_kernel(dev):
+    rng = np.random.default_rng(4)
+    B, D, H, W, C, P = 2, 9, 13, 17, 8, 7001
+    vol = torch.from_numpy(rng.standard_normal((B, D, H, W, C)).astype(np.float32)).to(dev)
+    xyz = np.stack([rng.uniform(-3, W + 2, (B, P)), rng.uniform(-3, H + 2, (B, P)),
+                    rng.uniform(-3, D + 2, (B, P))], -1).astype(np.float32)
+    xyz[0, :3] = [[1e10, -1e10, 2.0], [0.0, 0.0, 0.0], [W - 1, H - 1, D - 1]]
+    xyz = torch.from_numpy(xyz).to(dev)
+    _close(fused_tri_sample(vol, xyz), tri_sample_plain(vol, xyz), 1e-5, 1e-6)
+    assert launch_counts()["tri_sample"] == 1
+
+
+@pytest.mark.parametrize("encode_freqs", [0, 10])
+def test_renderer_mlp_kernel(dev, encode_freqs):
+    mlp = RendererMLP(MVSNeRFConfig(), 20)
+    mlp.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(mlp, 5).items()})
+    mlp = mlp.to(dev)
+    rng = np.random.default_rng(6)
+    B, N = 2, 3001  # a ragged last block
+    width = 3 if encode_freqs else 63
+    pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (B, N, width)).astype(np.float32)).to(dev)
+    feat = torch.from_numpy(rng.standard_normal((B, N, 20)).astype(np.float32)).to(dev)
+    dirs = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        params = mlp.mlp_params()
+        got = fused_renderer_mlp(params, pts, feat, dirs, encode_freqs)
+        want = renderer_mlp_plain(params, pts, feat, dirs, encode_freqs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+    assert launch_counts()["renderer_mlp"] == 1
