@@ -6,7 +6,35 @@ networks that use them convert at their public boundary.
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class _FlaxStats:
+    """Train-mode BatchNorm with flax ``nn.BatchNorm(momentum=0.9)``'s
+    running statistics: the batch's *biased* variance goes into
+    ``running_var`` (torch's own BatchNorm puts in the unbiased one, n/(n-1)
+    larger, as the original PyTorch code does). Normalisation and the eval
+    mode are torch's. Momentum 0.1 = flax's 0.9 on the old value."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=[0, *range(2, x.dim())], correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxStats, nn.BatchNorm3d):
+    pass
 
 
 class ConvBnReLU(nn.Module):
@@ -17,7 +45,7 @@ class ConvBnReLU(nn.Module):
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1, dims: int = 2):
         super().__init__()
         conv = nn.Conv2d if dims == 2 else nn.Conv3d
-        bn = nn.BatchNorm2d if dims == 2 else nn.BatchNorm3d
+        bn = BatchNorm2d if dims == 2 else BatchNorm3d
         self.conv = conv(cin, cout, k, stride=stride, padding=k // 2, bias=False)
         self.bn = bn(cout, eps=1e-5)
 
@@ -33,7 +61,7 @@ class DeconvBn(nn.Sequential):
     def __init__(self, cin: int, cout: int):
         super().__init__(
             nn.ConvTranspose3d(cin, cout, 3, stride=2, padding=1, output_padding=1, bias=False),
-            nn.BatchNorm3d(cout, eps=1e-5),
+            BatchNorm3d(cout, eps=1e-5),
         )
 
 

@@ -1,5 +1,6 @@
 """BoostENeRF: multi cost-volume fusion on the ENeRF backbone (counterpart of
-``boostmvsnerfs_tpu/models/boost_enerf.py``, fused eval forward).
+``boostmvsnerfs_tpu/models/boost_enerf.py``, fused forward, eval and
+training).
 
 Batch convention adds:
   all_src_inps (B, N, H, W, 3), all_src_exts (B, N, 4, 4),
@@ -71,24 +72,32 @@ class BoostENeRF(ENeRF):
         def fold(x):
             return _take_views(x, views).reshape(B * K, I, *x.shape[2:])
 
-        feats = {lvl: fold(f) for lvl, f in self.extract_features(batch["all_src_inps"]).items()}
+        feats = {lvl: fold(f)
+                 for lvl, f in self.extract_features(batch["all_src_inps"]).items()}
         sub = {k: fold(batch[f"all_{k}"]) for k in ("src_inps", "src_exts", "src_ixts")}
         for k in ["tar_ext", "tar_ixt", "near_far"] + [f"ray_idx_{i}" for i in range(self.cas.num)]:
             if k in batch:
                 sub[k] = batch[k].repeat_interleave(K, dim=0)
         return feats, sub
 
-    @torch.no_grad()
-    def forward(self, batch: dict) -> dict:
-        """Fused multi-cost-volume render: the K radiance fields blend with
-        normalised visibility weights in one transmittance integral."""
-        batch = to_tensors(batch, self.device)
-        cas = self.cas
-        B, K = batch["all_src_inps"].shape[0], cas.k_best
+    def blend(self, raw: dict, B: int) -> dict:
+        """The K radiance fields of ``render_rays(..., return_raw=True)``
+        (batch B*K) blended with normalised visibility weights in one
+        transmittance integral: {'rgb', 'weights', 'depth'} per batch entry."""
+        K = self.cas.k_best
 
         def unfold(x):  # (B*K, ...) -> (B, K, ...)
             return x.reshape(B, K, *x.shape[1:])
 
+        return render.composite_blend(unfold(raw["net_output"]),
+                                      render.normalize_blend_masks(unfold(raw["mask"])),
+                                      unfold(raw["z_vals"]))
+
+    def render(self, batch: dict) -> dict:
+        """Fused multi-cost-volume forward on a batch of tensors on the
+        model's device, in the module's mode. Differentiable."""
+        cas = self.cas
+        B, K = batch["all_src_inps"].shape[0], cas.k_best
         feats, sub = self.fold_combinations(batch)
         ret = {}
         prev = None
@@ -102,13 +111,15 @@ class BoostENeRF(ENeRF):
                 continue
             raw = self.render_level(i, feats, feat_vol, depth, std, nf_map, sub,
                                     sub[f"ray_idx_{i}"], return_raw=True)
-            out = render.composite_blend(
-                unfold(raw["net_output"]),
-                render.normalize_blend_masks(unfold(raw["mask"])),
-                unfold(raw["z_vals"]),
-            )
-            depth0, std0 = unfold(depth)[:, 0], unfold(std)[:, 0]
+            out = self.blend(raw, B)
+            depth0 = depth.reshape(B, K, *depth.shape[1:])[:, 0]
             out["depth_mvs"] = 1.0 / depth0 if cas.depth_inv[i] else depth0
-            out["std"] = std0
+            out["std"] = std.reshape(B, K, *std.shape[1:])[:, 0]
             ret.update({f"{key}_level{i}": v for key, v in out.items()})
         return ret
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> dict:
+        """The render of a batch (numpy arrays or tensors) without
+        gradients; the eval render after ``model.eval()``."""
+        return self.render(to_tensors(batch, self.device))

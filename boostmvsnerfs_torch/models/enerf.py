@@ -1,5 +1,5 @@
 """ENeRF backbone: cascade cost volumes + depth-guided radiance rendering
-(counterpart of ``boostmvsnerfs_tpu/models/enerf.py``, eval path).
+(counterpart of ``boostmvsnerfs_tpu/models/enerf.py``, eval and training).
 
 Batch convention (numpy arrays or tensors, JAX layouts):
   src_inps   (B, S, H, W, 3)  source images in [-1, 1]
@@ -13,7 +13,13 @@ Batch convention (numpy arrays or tensors, JAX layouts):
 The three hot loops go through ``ops.cuda``: the cost volume
 (``fused_warp_variance``), the per-view feature sampling
 (``fused_row_sample``) and the head (``NeRFHead``). Each runs its CUDA
-kernel on a CUDA device and its plain PyTorch version on the CPU.
+kernel on a CUDA device and its plain PyTorch version on the CPU. The
+module's own mode takes the place of the JAX module's ``train`` argument:
+after ``model.train()`` the stages use the differentiable warp and sampler
+(forward and backward kernels), the plain head (the head kernel has no
+backward, in JAX either) and batch-statistics BatchNorm; after
+``model.eval()`` the forward kernels, the head kernel and the running
+statistics.
 """
 
 from __future__ import annotations
@@ -29,8 +35,11 @@ from boostmvsnerfs_torch.models.cost_reg_net import CostRegNet, MinCostRegNet
 from boostmvsnerfs_torch.models.feature_net import FeatureNet
 from boostmvsnerfs_torch.models.nerf_head import NeRFHead
 from boostmvsnerfs_torch.ops import cost_volume, geometry, render, sampling
-from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample
-from boostmvsnerfs_torch.ops.cuda.warp_variance import fused_warp_variance
+from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample, fused_row_sample_diff
+from boostmvsnerfs_torch.ops.cuda.warp_variance import (
+    fused_warp_variance,
+    fused_warp_variance_diff,
+)
 
 # channels of the FPN's level_0/1/2 maps, the cost-volume inputs per level
 FPN_CHANNELS = (32, 16, 8)
@@ -38,7 +47,7 @@ FPN_CHANNELS = (32, 16, 8)
 
 @dataclasses.dataclass(frozen=True)
 class CascadeConfig:
-    """Cascade settings that change the eval math (reference
+    """Cascade settings that change the math (reference
     configs/exps/pretrain/enerf/dtu_pretrain.yaml, enerf_ours for the boost
     fields). The JAX config's TPU-only knobs (Pallas/windowed/structured
     paths, windows, tilings, warp dtype) have no counterpart."""
@@ -54,17 +63,21 @@ class CascadeConfig:
     nerf_model_feat_ch: tuple = (32, 8)
     render_if: tuple = (True, True)
     num_samples: tuple = (8, 2)
+    # training: levels that train on full images, and each level's weight
+    # in the loss
+    train_img: tuple = (True, True)
+    loss_weight: tuple = (0.1, 1.0)
     viewdir_agg: bool = True
     k_best: int = 4
 
 
-def to_tensors(batch: dict, device: torch.device) -> dict:
-    """A batch of numpy arrays or tensors on ``device``: floats as float32,
-    integers as int64 (index tensors)."""
+def to_tensors(batch: dict, device: torch.device, dtype=torch.float32) -> dict:
+    """A batch of numpy arrays or tensors on ``device``: floats as ``dtype``
+    (the model's), integers as int64 (index tensors)."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-        t = t.to(device, torch.float32 if t.is_floating_point() else torch.int64)
+        t = t.to(device, dtype if t.is_floating_point() else torch.int64)
         out[k] = t
     return out
 
@@ -72,7 +85,7 @@ def to_tensors(batch: dict, device: torch.device) -> dict:
 class ENeRF(nn.Module):
     """Cascade ENeRF network. Parameter names follow the reference
     (``feature_net.*``, ``cost_reg_{i}.*``, ``nerf_{i}.*``). Runs on CUDA
-    unless ``device`` says otherwise; BatchNorm is in eval mode."""
+    unless ``device`` says otherwise. Built in eval mode."""
 
     def __init__(self, cas: CascadeConfig = CascadeConfig(), device=None):
         super().__init__()
@@ -129,33 +142,42 @@ class ENeRF(nn.Module):
     def build_level_volume(self, level, feats, src_exts, src_ixts, tar_ext, tar_ixt,
                            near_far, prev):
         """Cost volume -> regularised feature volume and regressed depth:
-        (feat_vol (B, D, Hv, Wv, 8), depth (B, Hv, Wv), std, nf_map)."""
+        (feat_vol (B, D, Hv, Wv, 8), depth (B, Hv, Wv), std, nf_map). In
+        train mode the warp is differentiable (kernels #1 and #2)."""
         dv, nf_map, pm = self.volume_inputs(
             level, feats, src_exts, src_ixts, tar_ext, tar_ixt, near_far, prev
         )
-        vol = fused_warp_variance(feats[f"level_{level}"], pm, dv)
+        warp = fused_warp_variance_diff if self.training else fused_warp_variance
+        vol = warp(feats[f"level_{level}"], pm, dv)
         feat_vol, logits = getattr(self, f"cost_reg_{level}")(vol)
         depth, std = render.depth_regression(logits, dv, self.cas.depth_inv[level])
         return feat_vol, depth, std, nf_map
 
-    def sample_rays(self, level, depth, std, nf_map, batch, ray_idx):
-        """Depth-guided samples of the rays at ``ray_idx`` (B, N):
-        (world_xyz (B, N, Ns, 3), uvd (B, N, Ns, 3), z_vals (B, N, Ns))."""
+    def level_maps(self, level, feats, depth, std, nf_map, src_inps) -> tuple:
+        """The ray-independent inputs of a level's render: the per-pixel ray
+        bounds (B, H_r, W_r, 4) and each view's image features + RGB at
+        render scale (B, S, H_r, W_r, C+3)."""
         cas = self.cas
-        H, W = batch["src_inps"].shape[2:4]
+        H, W = src_inps.shape[2:4]
         rs = cas.render_scale[level]
-        H_r, W_r = int(H * rs), int(W * rs)
-        inv = cas.depth_inv[level]
-        bounds_map = render.ray_bounds_maps(depth, std, nf_map, H_r, W_r, inv)
-        bounds = torch.gather(
-            bounds_map.reshape(depth.shape[0], H_r * W_r, 4), 1,
-            ray_idx[..., None].expand(-1, -1, 4),
-        )
-        xy = geometry.flat_idx_to_xy(ray_idx, W_r)
+        bounds_map = render.ray_bounds_maps(depth, std, nf_map, int(H * rs), int(W * rs),
+                                            cas.depth_inv[level])
+        return bounds_map, self.view_maps(level, feats, src_inps)
+
+    def sample_rays(self, level, bounds_map, batch, ray_idx):
+        """Depth-guided samples of the rays at ``ray_idx`` (B, N) within
+        ``bounds_map`` (B, H_r, W_r, 4): (world_xyz (B, N, Ns, 3), uvd
+        (B, N, Ns, 3), z_vals (B, N, Ns))."""
+        cas = self.cas
+        B, H_r, W_r = bounds_map.shape[:3]
+        bounds = torch.gather(bounds_map.reshape(B, H_r * W_r, 4), 1,
+                              ray_idx[..., None].expand(-1, -1, 4))
+        xy = geometry.flat_idx_to_xy(ray_idx, W_r).to(bounds_map.dtype)
         ray_o, ray_d = geometry.rays_from_pixels(
-            geometry.scale_ixt(batch["tar_ixt"], rs), batch["tar_ext"], xy
+            geometry.scale_ixt(batch["tar_ixt"], cas.render_scale[level]), batch["tar_ext"], xy
         )
-        return render.sample_along_depth(ray_o, ray_d, bounds, xy, cas.num_samples[level], inv)
+        return render.sample_along_depth(ray_o, ray_d, bounds, xy, cas.num_samples[level],
+                                         cas.depth_inv[level])
 
     def voxel_features(self, feat_vol, uvd, H_r: int, W_r: int) -> torch.Tensor:
         """Trilinear lookup of the feature volume at the samples' volume
@@ -211,49 +233,60 @@ class ENeRF(nn.Module):
     def _gather_view_features(self, world_xyz, img_feat_rgb, batch, render_scale: float):
         """Project every sample into every source view and sample features +
         RGB there (border padding), plus the ray-difference descriptors.
-        Any ray set works (gather semantics). Returns S-major
-        (feat (B, S, N*Ns, C+3), dirs (B, S, N*Ns, 4))."""
+        Any ray set works (gather semantics). In train mode the sampler is
+        differentiable (kernels #3 and #4): gradients reach the maps and,
+        through the projected coordinates, the samples' depths. Returns
+        S-major (feat (B, S, N*Ns, C+3), dirs (B, S, N*Ns, 4))."""
         B, S, Hf, Wf, Cf = img_feat_rgb.shape
         pts = world_xyz.reshape(B, -1, 3)
         x, y = self.project_to_views(pts, batch, render_scale)
-        feat = fused_row_sample(
+        sample = fused_row_sample_diff if self.training else fused_row_sample
+        feat = sample(
             img_feat_rgb.reshape(B * S, Hf, Wf, Cf),
             x.reshape(B * S, -1), y.reshape(B * S, -1), "border",
         ).reshape(B, S, -1, Cf)
         return feat, self.ray_diff_dirs(pts, batch)
 
-    def render_level(self, level, feats, feat_vol, depth, std, nf_map, batch, ray_idx,
-                     return_raw: bool = False) -> dict:
-        """Depth-guided rendering of the rays at ``ray_idx``. With
-        ``return_raw`` the per-sample radiance, z values and visibility mask
-        come back un-composited, for the boost blend."""
+    def render_rays(self, level, maps, feat_vol, batch, ray_idx,
+                    return_raw: bool = False) -> dict:
+        """Depth-guided rendering of the rays at ``ray_idx`` from a level's
+        ``level_maps``. With ``return_raw`` the per-sample radiance, z values
+        and visibility mask come back un-composited, for the boost blend;
+        the mask carries no gradient."""
         cas = self.cas
-        B, S, H, W = batch["src_inps"].shape[:4]
-        rs = cas.render_scale[level]
-        H_r, W_r = int(H * rs), int(W * rs)
-        world_xyz, uvd, z_vals = self.sample_rays(level, depth, std, nf_map, batch, ray_idx)
+        bounds_map, img_feat_rgb = maps
+        B, H_r, W_r = bounds_map.shape[:3]
+        world_xyz, uvd, z_vals = self.sample_rays(level, bounds_map, batch, ray_idx)
         N, Ns = world_xyz.shape[1:3]
         vox = self.voxel_features(feat_vol, uvd, H_r, W_r)
-        img_feat_rgb = self.view_maps(level, feats, batch["src_inps"])
-        feat, dirs = self._gather_view_features(world_xyz, img_feat_rgb, batch, rs)
+        feat, dirs = self._gather_view_features(world_xyz, img_feat_rgb, batch,
+                                                cas.render_scale[level])
         raw = getattr(self, f"nerf_{level}")(vox, feat, dirs).reshape(B, N, Ns, 4)
         if return_raw:
             inv_scale = torch.tensor([W_r - 1, H_r - 1], dtype=torch.float32,
                                      device=raw.device).expand(B, 2)
             mask = render.mask_viewport(world_xyz, batch["src_exts"], batch["src_ixts"], inv_scale)
-            return {"net_output": raw, "z_vals": z_vals, "mask": mask}
-        out = render.composite(raw, z_vals)
-        out["depth_mvs"] = 1.0 / depth if cas.depth_inv[level] else depth
-        out["std"] = std
+            return {"net_output": raw, "z_vals": z_vals, "mask": mask.detach()}
+        return render.composite(raw, z_vals)
+
+    def render_level(self, level, feats, feat_vol, depth, std, nf_map, batch, ray_idx,
+                     return_raw: bool = False) -> dict:
+        """``render_rays`` after ``level_maps``; composited outputs also
+        carry the level's regressed depth (``depth_mvs``) and ``std``."""
+        maps = self.level_maps(level, feats, depth, std, nf_map, batch["src_inps"])
+        out = self.render_rays(level, maps, feat_vol, batch, ray_idx, return_raw)
+        if not return_raw:
+            out["depth_mvs"] = 1.0 / depth if self.cas.depth_inv[level] else depth
+            out["std"] = std
         return out
 
     # ------------------------------------------------------------------
     # full forward
     # ------------------------------------------------------------------
 
-    @torch.no_grad()
-    def forward(self, batch: dict) -> dict:
-        batch = to_tensors(batch, self.device)
+    def render(self, batch: dict) -> dict:
+        """The full forward on a batch of tensors on the model's device
+        (``to_tensors``), in the module's mode. Differentiable."""
         feats = self.extract_features(batch["src_inps"])
         ret = {}
         prev = None
@@ -269,3 +302,9 @@ class ENeRF(nn.Module):
                                     batch[f"ray_idx_{i}"])
             ret.update({f"{k}_level{i}": v for k, v in out.items()})
         return ret
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> dict:
+        """The render of a batch (numpy arrays or tensors) without
+        gradients; the eval render after ``model.eval()``."""
+        return self.render(to_tensors(batch, self.device))

@@ -5,7 +5,8 @@ The layers are plain ``nn.Linear``s under the reference checkpoint names
 (``agg.view_fc.0``, ``agg.global_fc.0``, ``agg.agg_w_fc.0``, ``agg.fc.0``,
 ``lr0.0``, ``sigma.0``, ``color.0``, ``color.2``). ``forward`` runs the
 head through ``ops.cuda.enerf_head.fused_nerf_head``: the CUDA kernel for
-CUDA tensors, the plain PyTorch math for CPU tensors.
+CUDA tensors, the plain PyTorch math for CPU tensors; in train mode, the
+plain math on either.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from boostmvsnerfs_torch.ops.cuda.enerf_head import fused_nerf_head
+from boostmvsnerfs_torch.ops.cuda.enerf_head import fused_nerf_head, nerf_head_plain
 
 
 class Agg(nn.Module):
@@ -32,7 +33,7 @@ class Agg(nn.Module):
 class NeRFHead(nn.Module):
     """Sigma from a softplus head on [voxel feature, pooled image feature];
     color as a softmax blend of the source views' RGB (the last 3 of the
-    ``feat_ch`` per-view channels)."""
+    ``feat_ch`` per-view channels). Built in eval mode, as the models are."""
 
     def __init__(self, feat_ch: int, hid_n: int = 64, viewdir_agg: bool = True):
         super().__init__()
@@ -43,6 +44,7 @@ class NeRFHead(nn.Module):
             nn.Linear(hid_n + 24 + feat_ch + 4, hid_n), nn.ReLU(),
             nn.Linear(hid_n, 1), nn.ReLU(),
         )
+        self.eval()
 
     def head_params(self) -> dict:
         """Layer name -> (weight, bias), the form the head kernel takes."""
@@ -61,5 +63,9 @@ class NeRFHead(nn.Module):
 
     def forward(self, vox: torch.Tensor, feat: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
         """vox (B, P, 8), feat (B, S, P, feat_ch), dirs (B, S, P, 4) ->
-        raw (rgb, sigma) (B, P, 4)."""
+        raw (rgb, sigma) (B, P, 4). In train mode the head is the plain
+        PyTorch math under autograd, as the JAX package runs its XLA head
+        when training (the head kernel has no backward there either)."""
+        if self.training:
+            return nerf_head_plain(self.head_params(), vox, feat, dirs)
         return fused_nerf_head(self.head_params(), vox, feat, dirs)

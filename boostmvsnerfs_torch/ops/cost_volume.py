@@ -65,21 +65,22 @@ def refined_depth_values(
 
 def depth_values_near_far(depth_values: torch.Tensor, inverse: bool) -> torch.Tensor:
     """(B, 2, H, W) bounds map from the first and last hypotheses; in
-    disparity space when ``inverse`` (channel 0 = 1/near)."""
+    disparity space when ``inverse`` (channel 0 = 1/near). It carries no
+    gradient, as in the JAX package (``stop_gradient``)."""
     nf = depth_values[:, [0, -1]]
     if inverse:
         nf = 1.0 / nf.clamp_min(1e-6)
-    return nf
+    return nf.detach()
 
 
-def warp_coords(
+def projected_rows(
     proj_mat: torch.Tensor,  # ([B,] 3, 4) target-pixel+depth -> source-pixel
     depth_values: torch.Tensor,  # ([B,] D, Ht, Wt)
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Source-pixel (x, y) of every plane-sweep voxel, each ([B,] D, Ht, Wt):
-    ``R @ [u, v, 1] + T / depth``, then the perspective division with z
-    clamped at 1e-6. Written elementwise, in the order the CUDA kernel
-    (csrc/warp_variance.cu) rounds it, so both give the same coordinates."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sx, sy, sz) = ``R @ [u, v, 1] + T / depth`` for every plane-sweep
+    voxel, each ([B,] D, Ht, Wt), before the perspective division. Written
+    elementwise, in the order the CUDA kernels (csrc/warp_variance*.cu)
+    round it, so both give the same coordinates."""
     Ht, Wt = depth_values.shape[-2:]
     u = torch.arange(Wt, dtype=torch.float32, device=depth_values.device)
     v = torch.arange(Ht, dtype=torch.float32, device=depth_values.device)[:, None]
@@ -89,8 +90,18 @@ def warp_coords(
         base = P[..., i, 0] * u + P[..., i, 1] * v + P[..., i, 2]
         return base + P[..., i, 3] / depth_values
 
-    z = row(2).clamp_min(1e-6)
-    return row(0) / z, row(1) / z
+    return row(0), row(1), row(2)
+
+
+def warp_coords(
+    proj_mat: torch.Tensor,  # ([B,] 3, 4)
+    depth_values: torch.Tensor,  # ([B,] D, Ht, Wt)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Source-pixel (x, y) of every plane-sweep voxel, each ([B,] D, Ht, Wt):
+    ``projected_rows`` with the perspective division's z clamped at 1e-6."""
+    sx, sy, sz = projected_rows(proj_mat, depth_values)
+    z = sz.clamp_min(1e-6)
+    return sx / z, sy / z
 
 
 def warp_src_view(

@@ -30,7 +30,11 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("warp_variance", "img_sample", "enerf_head", "tri_sample", "renderer_mlp")
+KERNELS = ("warp_variance", "img_sample", "enerf_head", "tri_sample", "renderer_mlp",
+           "warp_variance_bwd", "img_sample_bwd")
+# forward kernels that have no backward kernel (none in the JAX package
+# either): their wrappers refuse autograd
+NO_BACKWARD = ("enerf_head", "tri_sample", "renderer_mlp")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Translation units of a source, one set of -D flags each (default: one
@@ -152,8 +156,10 @@ def check(name: str, rc: int) -> None:
 
 
 def check_inputs(name: str, device: torch.device, **tensors) -> None:
-    """Shared wrapper checks: one CUDA device, float32, contiguous, 16-byte
-    aligned, and no autograd (the kernels have no backward yet)."""
+    """Shared wrapper checks: one CUDA device, float32, contiguous and
+    16-byte aligned. A wrapper is called on tensors that need no gradient:
+    ``warp_variance`` and ``img_sample`` get theirs through the autograd
+    Functions around them (``*_diff``), the others have no backward."""
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
@@ -164,7 +170,11 @@ def check_inputs(name: str, device: torch.device, **tensors) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
         if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it under torch.no_grad()")
+            raise RuntimeError(
+                f"{name}: the CUDA wrappers are not differentiable; call it under "
+                "torch.no_grad(), or use fused_warp_variance_diff / fused_row_sample_diff "
+                f"for gradients ({', '.join(NO_BACKWARD)} have no backward kernel)"
+            )
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -86,7 +86,8 @@ def composite(
 ) -> dict:
     """Alpha compositing with an exclusive transmittance cumprod; the depth
     map softmax-normalises the weights (ENeRF) unless ``softmax_depth`` is
-    False (MVSNeRF)."""
+    False (MVSNeRF). The depth map's z values carry no gradient, as in the
+    JAX package."""
     alpha = 1.0 - torch.exp(-raw[..., 3])
     T = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
     T = torch.cat([torch.ones_like(T[..., :1]), T[..., :-1]], dim=-1)
@@ -94,7 +95,7 @@ def composite(
     out = {"rgb": torch.sum(weights[..., None] * raw[..., :3], dim=-2), "weights": weights}
     if z_vals is not None:
         w = torch.softmax(weights, dim=-1) if softmax_depth else weights
-        out["depth"] = torch.sum(w * z_vals, dim=-1)
+        out["depth"] = torch.sum(w * z_vals.detach(), dim=-1)
     return out
 
 
@@ -106,7 +107,8 @@ def composite_blend(
     """Multi cost-volume fused rendering, the paper's contribution: the K
     volumes' per-sample alphas blend with visibility weights into ONE
     transmittance integral, and radiance accumulates per volume against the
-    shared transmittance."""
+    shared transmittance. As in ``composite``, the depth map's z values
+    carry no gradient."""
     alpha_all = 1.0 - torch.exp(-raws[..., 3])  # (B, K, N, S)
     alphas = torch.sum(alpha_all * masks, dim=1)  # (B, N, S)
     T = torch.cumprod(
@@ -119,7 +121,7 @@ def composite_blend(
     out = {"rgb": rgb, "weights": weights}
     if z_vals is not None:
         w = torch.softmax(weights, dim=-1)
-        out["depth"] = torch.sum(w * torch.mean(z_vals, dim=1), dim=-1)
+        out["depth"] = torch.sum(w * torch.mean(z_vals, dim=1).detach(), dim=-1)
     return out
 
 

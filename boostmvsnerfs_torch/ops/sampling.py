@@ -12,17 +12,18 @@ from __future__ import annotations
 import torch
 
 
-def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
-    """float32 ``jnp.linspace``, by its formula: ``start * (1 - t) + stop * t``
-    with ``t = i / (num-1)``, endpoint exact. XLA rounds some entries 1-2
+def linspace(start: float, stop: float, num: int, device=None,
+             dtype=torch.float32) -> torch.Tensor:
+    """``jnp.linspace``, by its formula: ``start * (1 - t) + stop * t`` with
+    ``t = i / (num-1)``, endpoint exact. XLA rounds some float32 entries 1-2
     ulps away from this (it folds the constant arithmetic its own way), as
     ``torch.linspace`` does with another formula; the tests allow for it."""
     if num == 1:
-        return torch.full((1,), start, dtype=torch.float32, device=device)
+        return torch.full((1,), start, dtype=dtype, device=device)
     div = num - 1
-    step = torch.arange(div, dtype=torch.float32, device=device) / div
+    step = torch.arange(div, dtype=dtype, device=device) / div
     out = start * (1 - step) + stop * step
-    end = torch.full((1,), stop, dtype=torch.float32, device=device)
+    end = torch.full((1,), stop, dtype=dtype, device=device)
     return torch.cat([out, end])
 
 
@@ -39,57 +40,93 @@ def _take(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return flat[b, idx]
 
 
-def grid_sample_2d(
-    img: torch.Tensor,  # ([B,] H, W, C)
-    xy: torch.Tensor,  # ([B,] N, 2) pixel coords (x, y)
-    padding_mode: str = "zeros",
-) -> torch.Tensor:
-    """Bilinear sample, ([B,] N, C).
+def bilinear_taps(x: torch.Tensor, y: torch.Tensor, H: int, W: int, padding_mode: str):
+    """The four bilinear taps of pixel coordinates ``x``, ``y`` (any shape)
+    in an H x W image: (flat indices [00, 01, 10, 11] clamped into the
+    image, their weights (0 for a tap outside the image with ``zeros``
+    padding), their validity (bool), tx, ty, and whether x and y lie inside
+    the clamp range, bounds included).
 
-    ``zeros``: out-of-range taps contribute 0. ``border``: coordinates are
-    clamped to the image rectangle first. In ``zeros`` mode the coordinates
-    are clamped to [-2, size+1] before ``floor`` (taps that far out carry
-    zero weight either way), which keeps the float->int conversion of
+    ``border`` clamps the coordinates to the image rectangle first;
+    ``zeros`` clamps them to [-2, size+1] before ``floor`` (taps that far out
+    carry zero weight either way), which keeps the float->int conversion of
     behind-camera projections (~1e10) defined.
     """
-    img, xy, batched = _batched(img, xy, 3)
-    B, H, W, C = img.shape
-    x, y = xy[..., 0], xy[..., 1]
     if padding_mode == "border":
-        x = x.clamp(0.0, W - 1)
-        y = y.clamp(0.0, H - 1)
+        lo_x, hi_x, lo_y, hi_y = 0.0, W - 1, 0.0, H - 1
     elif padding_mode == "zeros":
-        x = x.clamp(-2.0, W + 1.0)
-        y = y.clamp(-2.0, H + 1.0)
+        lo_x, hi_x, lo_y, hi_y = -2.0, W + 1.0, -2.0, H + 1.0
     else:
         raise ValueError(f"padding_mode {padding_mode!r}")
+    in_x, in_y = (x >= lo_x) & (x <= hi_x), (y >= lo_y) & (y <= hi_y)
+    x, y = x.clamp(lo_x, hi_x), y.clamp(lo_y, hi_y)
     x0f, y0f = torch.floor(x), torch.floor(y)
     tx, ty = x - x0f, y - y0f
     x0, y0 = x0f.long(), y0f.long()
     x1, y1 = x0 + 1, y0 + 1
 
-    w00 = (1 - ty) * (1 - tx)
-    w01 = (1 - ty) * tx
-    w10 = ty * (1 - tx)
-    w11 = ty * tx
+    w = [(1 - ty) * (1 - tx), (1 - ty) * tx, ty * (1 - tx), ty * tx]
     if padding_mode == "zeros":
         vx0, vx1 = (x0 >= 0) & (x0 <= W - 1), (x1 >= 0) & (x1 <= W - 1)
         vy0, vy1 = (y0 >= 0) & (y0 <= H - 1), (y1 >= 0) & (y1 <= H - 1)
-        w00 = torch.where(vy0 & vx0, w00, 0.0)
-        w01 = torch.where(vy0 & vx1, w01, 0.0)
-        w10 = torch.where(vy1 & vx0, w10, 0.0)
-        w11 = torch.where(vy1 & vx1, w11, 0.0)
+        valid = [vy0 & vx0, vy0 & vx1, vy1 & vx0, vy1 & vx1]
+        w = [torch.where(v, wi, 0.0) for v, wi in zip(valid, w)]
+    else:
+        valid = [torch.ones_like(in_x)] * 4
     x0, x1 = x0.clamp(0, W - 1), x1.clamp(0, W - 1)
     y0, y1 = y0.clamp(0, H - 1), y1.clamp(0, H - 1)
+    idx = [y0 * W + x0, y0 * W + x1, y1 * W + x0, y1 * W + x1]
+    return idx, w, valid, tx, ty, in_x, in_y
 
+
+def grid_sample_2d(
+    img: torch.Tensor,  # ([B,] H, W, C)
+    xy: torch.Tensor,  # ([B,] N, 2) pixel coords (x, y)
+    padding_mode: str = "zeros",
+) -> torch.Tensor:
+    """Bilinear sample, ([B,] N, C). ``zeros``: out-of-range taps
+    contribute 0; ``border``: coordinates clamped to the image rectangle
+    (``bilinear_taps``)."""
+    img, xy, batched = _batched(img, xy, 3)
+    B, H, W, C = img.shape
+    idx, w, *_ = bilinear_taps(xy[..., 0], xy[..., 1], H, W, padding_mode)
     flat = img.reshape(B, H * W, C)
     out = (
-        _take(flat, y0 * W + x0) * w00[..., None]
-        + _take(flat, y0 * W + x1) * w01[..., None]
-        + _take(flat, y1 * W + x0) * w10[..., None]
-        + _take(flat, y1 * W + x1) * w11[..., None]
+        _take(flat, idx[0]) * w[0][..., None]
+        + _take(flat, idx[1]) * w[1][..., None]
+        + _take(flat, idx[2]) * w[2][..., None]
+        + _take(flat, idx[3]) * w[3][..., None]
     )
     return out if batched else out[0]
+
+
+def grid_sample_2d_bwd(
+    img: torch.Tensor,  # (B, H, W, C)
+    x: torch.Tensor,  # (B, N)
+    y: torch.Tensor,  # (B, N)
+    g: torch.Tensor,  # (B, N, C) cotangent of grid_sample_2d's output
+    padding_mode: str,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d img, d x, d y) of ``grid_sample_2d``, with the Pallas backward
+    kernels' conventions (``ops/pallas/img_sample.py:625-642``): a triangle
+    weight max(0, 1 - |j - x|) has derivative sign(j - x) where |j - x| < 1
+    and 0 elsewhere, so d x is 0 at an integer x, and a coordinate carries a
+    gradient only inside its clamp range, bounds included. (Autodiff of the
+    floor-based forward would take a one-sided difference at integers and
+    half the gradient at clamp bounds.)"""
+    B, H, W, C = img.shape
+    idx, w, valid, tx, ty, in_x, in_y = bilinear_taps(x, y, H, W, padding_mode)
+    flat = img.reshape(B, H * W, C)
+    p00, p01, p10, p11 = (_take(flat, i) * v[..., None] for i, v in zip(idx, valid))
+    offset = (torch.arange(B, device=img.device) * (H * W))[:, None]
+    d_img = torch.zeros(B * H * W, C, dtype=img.dtype, device=img.device)
+    for i, wi in zip(idx, w):
+        d_img.index_add_(0, (i + offset).reshape(-1), (g * wi[..., None]).reshape(-1, C))
+    gx = torch.sum(g * ((1 - ty)[..., None] * (p01 - p00) + ty[..., None] * (p11 - p10)), -1)
+    gy = torch.sum(g * ((1 - tx)[..., None] * (p10 - p00) + tx[..., None] * (p11 - p01)), -1)
+    dx = torch.where(in_x & (tx != 0), gx, 0.0)
+    dy = torch.where(in_y & (ty != 0), gy, 0.0)
+    return d_img.reshape(B, H, W, C), dx, dy
 
 
 def grid_sample_3d(
@@ -136,10 +173,11 @@ def grid_sample_3d(
     return out if batched else out[0]
 
 
-def _lerp_taps(n_out: int, n_in: int, device):
+def _lerp_taps(n_out: int, n_in: int, device, dtype):
     """Align-corners linear interpolation from n_in to n_out samples: the
-    two taps of each output and their triangle weights max(0, 1-|pos-j|)."""
-    pos = linspace(0.0, n_in - 1, n_out, device=device)
+    two taps of each output and their triangle weights max(0, 1-|pos-j|),
+    in the image's float type (as the JAX resize builds its matrices)."""
+    pos = linspace(0.0, n_in - 1, n_out, device=device, dtype=dtype)
     i0 = torch.floor(pos).clamp(0, n_in - 1)
     i1 = i0 + 1
     w0 = (1.0 - (pos - i0).abs()).clamp_min(0.0)
@@ -151,7 +189,7 @@ def _resize_axis(img: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
     n_in = img.shape[dim]
     if n_in == 1:
         return torch.repeat_interleave(img, n_out, dim=dim)
-    i0, i1, w0, w1 = _lerp_taps(n_out, n_in, img.device)
+    i0, i1, w0, w1 = _lerp_taps(n_out, n_in, img.device, img.dtype)
     shape = [1] * img.dim()
     shape[dim] = n_out
     return (

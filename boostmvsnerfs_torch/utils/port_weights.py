@@ -1,11 +1,14 @@
-"""JAX parameter trees -> the port's ``state_dict``.
+"""JAX parameter trees <-> the port's ``state_dict``.
 
 The inverses of ``boostmvsnerfs_tpu/utils/port_weights.py::port_enerf`` and
 ``port_mvsnerf``, with their own copies of the name maps: the port's
 modules carry the reference checkpoints' names, so a reference
 ``state_dict`` goes into JAX through ``port_enerf`` / ``port_mvsnerf`` and a
 JAX ``{'params', 'batch_stats'}`` tree comes back here for
-``load_state_dict(strict=True)``. ``random_state_dict`` makes seeded
+``load_state_dict(strict=True)``. For ENeRF the carrier also runs the other
+way (``enerf_variables_from_state_dict``), so trained weights and BatchNorm
+statistics move between the packages in both directions (optimizer
+moments start at zero in both). ``random_state_dict`` makes seeded
 weights in that form for smoke runs and tests. Layout conversions:
 
 * flax Conv (kh,kw,I,O) / (kd,kh,kw,I,O) -> torch (O,I,kh,kw) / (O,I,kd,kh,kw)
@@ -40,56 +43,106 @@ def _get(tree: dict, path) -> np.ndarray:
     return np.asarray(tree)
 
 
+def _put(tree: dict, path, value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
 def _conv(k: np.ndarray) -> np.ndarray:
     return k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.transpose(4, 3, 0, 1, 2)
 
 
+def _conv_back(w: np.ndarray) -> np.ndarray:
+    return w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.transpose(2, 3, 4, 1, 0)
+
+
+# layout of each kind of leaf: JAX -> torch, torch -> JAX
+_LAYOUT = {
+    "conv": (_conv, _conv_back),
+    # flax ConvTranspose, transpose_kernel (kd,kh,kw,O,I) <-> torch (I,O,kd,kh,kw)
+    "deconv": (lambda k: k.transpose(4, 3, 0, 1, 2), lambda w: w.transpose(2, 3, 4, 1, 0)),
+    "dense": (lambda k: k.T, lambda w: w.T),
+    "same": (lambda a: a, lambda a: a),
+}
+
+
+def _bn_leaves(prefix, path):
+    return [(f"{prefix}.weight", "params", path + ("scale",), "same"),
+            (f"{prefix}.bias", "params", path + ("bias",), "same"),
+            (f"{prefix}.running_mean", "batch_stats", path + ("mean",), "same"),
+            (f"{prefix}.running_var", "batch_stats", path + ("var",), "same")]
+
+
 def _bn(sd, prefix, params, stats, path):
-    sd[f"{prefix}.weight"] = _get(params, path + ("scale",))
-    sd[f"{prefix}.bias"] = _get(params, path + ("bias",))
-    sd[f"{prefix}.running_mean"] = _get(stats, path + ("mean",))
-    sd[f"{prefix}.running_var"] = _get(stats, path + ("var",))
+    for key, col, p, _ in _bn_leaves(prefix, path):
+        sd[key] = _get(params if col == "params" else stats, p)
     sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
 
 
-def enerf_state_dict_from_jax(variables: dict) -> dict:
-    """A JAX ENeRF/BoostENeRF ``{'params', 'batch_stats'}`` tree (numpy or
-    jax arrays) -> the port's ``state_dict`` (CPU tensors). The number of
-    cascade levels and the view-direction conditioning are read from the
-    tree."""
-    params, stats = variables["params"], variables["batch_stats"]
-    num_levels = sum(k.startswith("cost_regs_") for k in params)
-    viewdir_agg = "view_fc" in params["nerf_heads_0"]["agg"]
-    sd: dict = {}
+def _enerf_leaves(num_levels: int, viewdir_agg: bool) -> list:
+    """Every leaf of an ENeRF/BoostENeRF: (torch key, JAX collection, JAX
+    path, layout kind)."""
+    out = []
     for i, t in enumerate(_FPN_CBRS):
         path = ("feature_net", f"ConvBnReLU_{i}")
-        sd[f"feature_net.{t}.conv.weight"] = _conv(_get(params, path + ("Conv_0", "kernel")))
-        _bn(sd, f"feature_net.{t}.bn", params, stats, path + ("BatchNorm_0",))
+        out.append((f"feature_net.{t}.conv.weight", "params", path + ("Conv_0", "kernel"), "conv"))
+        out += _bn_leaves(f"feature_net.{t}.bn", path + ("BatchNorm_0",))
     for name in _FPN_CONVS:
-        sd[f"feature_net.{name}.weight"] = _conv(_get(params, ("feature_net", name, "kernel")))
-        sd[f"feature_net.{name}.bias"] = _get(params, ("feature_net", name, "bias"))
+        out.append((f"feature_net.{name}.weight", "params", ("feature_net", name, "kernel"), "conv"))
+        out.append((f"feature_net.{name}.bias", "params", ("feature_net", name, "bias"), "same"))
     for lvl in range(num_levels):
         base, jax_name = f"cost_reg_{lvl}", f"cost_regs_{lvl}"
         n_cbr, deconvs = (5, ("conv9", "conv11")) if lvl == 0 else (7, ("conv7", "conv9", "conv11"))
         for j in range(n_cbr):
             path = (jax_name, f"ConvBnReLU_{j}")
-            sd[f"{base}.conv{j}.conv.weight"] = _conv(_get(params, path + ("Conv_0", "kernel")))
-            _bn(sd, f"{base}.conv{j}.bn", params, stats, path + ("BatchNorm_0",))
+            out.append((f"{base}.conv{j}.conv.weight", "params", path + ("Conv_0", "kernel"), "conv"))
+            out += _bn_leaves(f"{base}.conv{j}.bn", path + ("BatchNorm_0",))
         for j, t in enumerate(deconvs):
             path = (jax_name, f"DeconvBn_{j}")
-            # (kd,kh,kw,O,I) -> (I,O,kd,kh,kw)
-            sd[f"{base}.{t}.0.weight"] = _get(
-                params, path + ("ConvTranspose_0", "kernel")).transpose(4, 3, 0, 1, 2)
-            _bn(sd, f"{base}.{t}.1", params, stats, path + ("BatchNorm_0",))
+            out.append((f"{base}.{t}.0.weight", "params", path + ("ConvTranspose_0", "kernel"),
+                        "deconv"))
+            out += _bn_leaves(f"{base}.{t}.1", path + ("BatchNorm_0",))
         for head in ("feat_conv", "depth_conv"):
-            sd[f"{base}.{head}.0.weight"] = _conv(_get(params, (jax_name, head, "kernel")))
+            out.append((f"{base}.{head}.0.weight", "params", (jax_name, head, "kernel"), "conv"))
         for t, path in _HEAD_DENSES:
             if t.startswith("agg.view_fc") and not viewdir_agg:
                 continue
             path = (f"nerf_heads_{lvl}",) + path
-            sd[f"nerf_{lvl}.{t}.weight"] = _get(params, path + ("kernel",)).T
-            sd[f"nerf_{lvl}.{t}.bias"] = _get(params, path + ("bias",))
-    return {k: torch.tensor(v) for k, v in sd.items()}
+            out.append((f"nerf_{lvl}.{t}.weight", "params", path + ("kernel",), "dense"))
+            out.append((f"nerf_{lvl}.{t}.bias", "params", path + ("bias",), "same"))
+    return out
+
+
+def enerf_state_dict_from_jax(variables: dict) -> dict:
+    """A JAX ENeRF/BoostENeRF ``{'params', 'batch_stats'}`` tree (numpy or
+    jax arrays; a JAX ``TrainState``'s ``params`` and ``batch_stats`` after
+    training steps as well) -> the port's ``state_dict`` (CPU tensors). The
+    number of cascade levels and the view-direction conditioning are read
+    from the tree."""
+    params = variables["params"]
+    num_levels = sum(k.startswith("cost_regs_") for k in params)
+    viewdir_agg = "view_fc" in params["nerf_heads_0"]["agg"]
+    sd = {}
+    for key, col, path, kind in _enerf_leaves(num_levels, viewdir_agg):
+        sd[key] = torch.tensor(_LAYOUT[kind][0](_get(variables[col], path)))
+        if key.endswith(".running_var"):
+            sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return sd
+
+
+def enerf_variables_from_state_dict(state_dict: dict) -> dict:
+    """The inverse of ``enerf_state_dict_from_jax``: the port's ENeRF /
+    BoostENeRF ``state_dict`` (after training steps too) -> a JAX
+    ``{'params', 'batch_stats'}`` tree of numpy arrays."""
+    sd = {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+          for k, v in state_dict.items()}
+    num_levels = sum(k.startswith("cost_reg_") and k.endswith("conv0.conv.weight") for k in sd)
+    viewdir_agg = "nerf_0.agg.view_fc.0.weight" in sd
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for key, col, path, kind in _enerf_leaves(num_levels, viewdir_agg):
+        _put(tree[col], path, np.ascontiguousarray(_LAYOUT[kind][1](sd[key])))
+    return tree
 
 
 _MVS_FEATURE_BLOCKS = ("conv0.0", "conv0.1", "conv1.0", "conv1.1", "conv1.2",

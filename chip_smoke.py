@@ -6,7 +6,7 @@ toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ and prints one JSON line per
-phase. Two main paths are driven, each with its kernels checked first:
+phase. Three main paths are driven, each with its kernels checked first:
 
 1. device  - the card, from torch and nvidia-smi.
 2. build   - nvcc of every kernel (all translation units in parallel) and
@@ -29,6 +29,16 @@ phase. Two main paths are driven, each with its kernels checked first:
    the second main path, scripts/bench_mvsnerf.py's workload: BoostMVSNeRF
    K=4 of C(6,3) (combinations 0, 5, 9, 14), 224x352, 32 samples per ray,
    the published widths (pad 24, 8-ch volume, MLP 6x128), every pixel.
+8. kernels_train, train_step_check, train, profile_train - the third main
+   path, the BoostENeRF fine-tuning step of scripts/bench_train.py
+   (--modes fast --ray-blocks 16): K=4 of C(6,3), 480x736, forward rig,
+   both levels rendered on full images, Adam (lr 5e-5, ep_iter 500) after
+   the clip at 40, the ray-blocked step with 16 blocks. The sampler and
+   the backward kernels against their plain versions on the step's own
+   inputs; one plain and one blocked step at 128x192 on the card against
+   the CPU port, with faults planted in the CPU port to show the bars
+   catch them;
+   launches per step, step times over three batches; one profiled step.
 
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and a last status line. Any failed check raises,
@@ -38,6 +48,7 @@ result, without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -57,7 +68,12 @@ MAIN_RAYS = 480 * 736
 MVS_HW = (224, 352)
 MVS_K_BEST = (0, 5, 9, 14)
 NO_LAUNCHES = {"warp_variance": 0, "img_sample": 0, "enerf_head": 0, "tri_sample": 0,
-               "renderer_mlp": 0}
+               "renderer_mlp": 0, "warp_variance_bwd": 0, "img_sample_bwd": 0}
+TRAIN_HW = (480, 736)
+TRAIN_RAYS = 120 * 184 + 480 * 736  # both levels' full images
+TRAIN_CFG = {"lr": 5e-5, "optim": "adam", "eps": 1e-8}
+TRAIN_EP_ITER = 500
+RAY_BLOCKS = 16
 
 
 def emit(**record) -> None:
@@ -91,14 +107,33 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 # Work of each kernel on given inputs: bytes (each input read once, each
-# output written once) and f32 operations. The warp counts all four taps
-# of every view (out-of-image taps are skipped at run time, but the bytes
-# bound dominates either way).
+# output written once) and f32 operations. The warp kernels skip the taps
+# that fall outside the source image, so their tap work counts only the
+# taps of these inputs that land inside (``live_tap_share``).
+def live_tap_share(feats, pm, dv) -> float:
+    """The share of the plane-sweep warp's bilinear taps (4 per voxel and
+    view) that land inside the source image, from the voxels' coordinates
+    as the kernels compute them."""
+    from boostmvsnerfs_torch.ops import cost_volume
+
+    Hs, Ws = feats.shape[2:4]
+    live = 0
+    for s in range(feats.shape[1]):
+        x, y = cost_volume.warp_coords(pm[:, s], dv)
+        x0, y0 = torch.floor(x.clamp(-2.0, Ws + 1.0)), torch.floor(y.clamp(-2.0, Hs + 1.0))
+        in_x = [(x0 + d >= 0) & (x0 + d <= Ws - 1) for d in (0, 1)]
+        in_y = [(y0 + d >= 0) & (y0 + d <= Hs - 1) for d in (0, 1)]
+        live += sum(int((a & b).sum()) for a in in_x for b in in_y)
+    return live / (4 * feats.shape[1] * dv.numel())
+
+
 def warp_work(feats, pm, dv):
+    """Per voxel and view the projection, 4 taps x C multiply-adds and the
+    sums of w and w^2; per voxel the variance."""
     B, S, Hs, Ws, C = feats.shape
     n = dv.numel()
     nbytes = 4 * (feats.numel() + pm.numel() + n + n * C)
-    return nbytes, n * (S * (35 + 11 * C) + 4 * C)
+    return nbytes, n * (S * (35 + 3 * C) + 4 * C) + live_tap_share(feats, pm, dv) * n * S * 8 * C
 
 
 def sample_work(imgs, x, y, padding_mode="border"):
@@ -113,6 +148,25 @@ def head_work(params, vox, feat, dirs):
     n_weights = sum(w.numel() + b.numel() for w, b in params.values())
     nbytes = 4 * (vox.numel() + feat.numel() + dirs.numel() + 4 * B * P + n_weights)
     return nbytes, 2 * macs * B * P
+
+
+def warp_bwd_work(feats, pm, dv, g):
+    """Reads the features, matrices, depths and cotangent, writes d feats
+    and d depth; per voxel and view the projection, the per-view cotangent
+    and the coordinate derivatives, and per live tap the loads for the mean
+    and for the cotangent and the scatter (3 x 8 C operations)."""
+    B, S, Hs, Ws, C = feats.shape
+    n = dv.numel()
+    nbytes = 4 * (2 * feats.numel() + pm.numel() + 2 * n + n * C)
+    return nbytes, n * S * (80 + 21 * C) + live_tap_share(feats, pm, dv) * n * S * 24 * C
+
+
+def sample_bwd_work(imgs, x, y, g, padding_mode="border"):
+    """Reads the maps, coordinates and cotangent, writes d imgs, d x, d y;
+    per sample and channel four scattered products and the two
+    derivatives."""
+    C, n = imgs.shape[-1], x.numel()
+    return 4 * (2 * imgs.numel() + 4 * n + n * C), n * (20 + 18 * C)
 
 
 def tri_work(vol, xyz):
@@ -150,10 +204,10 @@ def main_path_kernel_inputs(model, batch) -> dict:
         feat_vol, *prev = model.build_level_volume(level, feats, *stage, prev)
     depth, std, nf_map = prev
     H, W = sub["src_inps"].shape[2:4]
-    world_xyz, uvd, _ = model.sample_rays(1, depth, std, nf_map, sub, sub["ray_idx_1"])
+    bounds_map, maps = model.level_maps(1, feats, depth, std, nf_map, sub["src_inps"])
+    world_xyz, uvd, _ = model.sample_rays(1, bounds_map, sub, sub["ray_idx_1"])
     BK = world_xyz.shape[0]
     vox = model.voxel_features(feat_vol, uvd, H, W)
-    maps = model.view_maps(1, feats, sub["src_inps"])
     S, C = maps.shape[1], maps.shape[-1]
     pts = world_xyz.reshape(BK, -1, 3)
     x, y = model.project_to_views(pts, sub, 1.0)
@@ -244,7 +298,10 @@ def kernel_pair(name):
 
     return {
         "warp_variance": (warp_variance.fused_warp_variance, warp_variance.warp_variance_plain),
+        "warp_variance_bwd": (warp_variance.warp_variance_bwd,
+                              warp_variance.warp_variance_bwd_plain),
         "img_sample": (img_sample.fused_row_sample, img_sample.row_sample_plain),
+        "img_sample_bwd": (img_sample.row_sample_bwd, img_sample.row_sample_bwd_plain),
         "enerf_head": (enerf_head.fused_nerf_head, enerf_head.nerf_head_plain),
         "tri_sample": (tri_sample.fused_tri_sample, tri_sample.tri_sample_plain),
         "renderer_mlp": (renderer_mlp.fused_renderer_mlp, renderer_mlp.renderer_mlp_plain),
@@ -388,12 +445,13 @@ def phase_main(model, batches, phase: str, expect: dict, rgb_key: str, n_rays: i
     return launches
 
 
-def phase_profile(model, batch, phase: str, kernels, frames: int = 2) -> None:
-    """Where a main-path frame's device time goes, from torch.profiler:
-    per frame, the device-busy time (sum of kernel times; one stream, so
-    they do not overlap) against the frame's CUDA-event time, the busy time
-    under cuDNN convolutions, batch norm and each ported kernel, and the
-    top kernels by time."""
+def phase_profile(run, phase: str, kernels, frames: int = 2, unit: str = "frame") -> None:
+    """Where the device time of ``run()`` (one frame or train step) goes,
+    from torch.profiler: per run, the device-busy time (sum of kernel times;
+    one stream, so they do not overlap) against the run's CUDA-event time,
+    the busy time under cuDNN convolutions and batch norm (forward and
+    backward), under each ported kernel and in the rest (the glue), and
+    the top kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -401,24 +459,28 @@ def phase_profile(model, batch, phase: str, kernels, frames: int = 2) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(frames):
-            model(batch)
+            run()
         end.record()
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    per_frame = lambda us: us / 1e3 / frames  # noqa: E731
-    busy = per_frame(sum(e.device_time_total for e in kernel_events))
+    per_run = lambda us: us / 1e3 / frames  # noqa: E731
+    busy = per_run(sum(e.device_time_total for e in kernel_events))
     wall = start.elapsed_time(end) / frames
-    by_op = {e.key: per_frame(e.device_time_total) for e in events}
-    ported = {name: per_frame(sum(e.device_time_total for e in kernel_events
-                                  if f"{name}_kernel" in e.key))
+    by_op = {e.key: per_run(e.device_time_total) for e in events}
+    ported = {name: per_run(sum(e.device_time_total for e in kernel_events
+                                if f"{name}_kernel" in e.key))
               for name in kernels}
+    parts = {"convolution_ms": by_op.get("aten::convolution", 0.0),
+             "convolution_backward_ms": by_op.get("aten::convolution_backward", 0.0),
+             "batch_norm_ms": by_op.get("aten::batch_norm", 0.0),
+             "batch_norm_backward_ms": sum(v for k, v in by_op.items()
+                                           if k.endswith("batch_norm_backward"))}
     top = sorted(kernel_events, key=lambda e: -e.device_time_total)[:12]
-    emit(phase=phase, frames=frames, frame_ms=wall, device_busy_ms=busy,
-         device_idle_share=1.0 - busy / wall,
-         convolution_ms=by_op.get("aten::convolution", 0.0),
-         batch_norm_ms=by_op.get("aten::batch_norm", 0.0), ported_kernels_ms=ported,
-         top_kernels=[{"kernel": e.key[:120], "device_ms": per_frame(e.device_time_total),
+    emit(phase=phase, **{f"{unit}s": frames, f"{unit}_ms": wall}, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / wall, **parts, ported_kernels_ms=ported,
+         glue_ms=busy - sum(parts.values()) - sum(ported.values()),
+         top_kernels=[{"kernel": e.key[:120], "device_ms": per_run(e.device_time_total),
                        "calls": e.count / frames} for e in top])
 
 
@@ -445,7 +507,8 @@ def run_enerf() -> list:
     launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main",
                           {"warp_variance": 2, "img_sample": 1, "enerf_head": 1}, "rgb_level1",
                           MAIN_RAYS, geometry=[480, 736], views=6, k_best=4, planes=[64, 8])
-    phase_profile(model, make_batch(0), "profile", ("warp_variance", "img_sample", "enerf_head"))
+    batch = make_batch(0)
+    phase_profile(lambda: model(batch), "profile", ("warp_variance", "img_sample", "enerf_head"))
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
     return list(summary.values())
@@ -478,7 +541,444 @@ def run_mvsnerf() -> list:
     launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main_mvsnerf", kernels,
                           "rgb_level0", H * W, geometry=[H, W], views=6,
                           k_best=list(MVS_K_BEST), samples=model.cfg.num_samples)
-    phase_profile(model, make_batch(0), "profile_mvsnerf", tuple(kernels))
+    batch = make_batch(0)
+    phase_profile(lambda: model(batch), "profile_mvsnerf", tuple(kernels))
+    for rec in summary.values():
+        rec["launches"] = launches[rec["name"]]
+    return list(summary.values())
+
+
+# ----------------------------------------------------------------- training
+
+
+def train_kernel_inputs(model, batch, seed: int = 7) -> dict:
+    """The training path's sampler inputs and the backward kernels' inputs,
+    from the model's own train-mode stages, each backward with a seeded
+    normal cotangent of its output's shape: #2 at both levels, #3 and #4 at
+    level 0 (all rays, C=35) and at the first level-1 ray block of the
+    blocked step (C=11). {name: [(label, args)]}."""
+    from boostmvsnerfs_torch.parallel.train import level_ray_blocks
+
+    gen = torch.Generator(device=batch["all_src_inps"].device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    cas = model.cas
+    model.train()
+    feats, sub = model.fold_combinations(batch)
+    stage = (sub["src_exts"], sub["src_ixts"], sub["tar_ext"], sub["tar_ixt"], sub["near_far"])
+    H, W = batch["all_src_inps"].shape[2:4]
+    n_max = max(batch[f"ray_idx_{i}"].shape[1] for i in range(cas.num))
+    warp, sample, sample_bwd, prev = [], [], [], None
+    for level in range(cas.num):
+        dv, _, pm = model.volume_inputs(level, feats, *stage, prev)
+        f = feats[f"level_{level}"]
+        warp.append((f"level{level}", (f, pm, dv, normal(*dv.shape, f.shape[-1]))))
+        _, depth, std, nf_map = model.build_level_volume(level, feats, *stage, prev)
+        prev = (depth, std, nf_map)
+        rs = cas.render_scale[level]
+        H_r, W_r = int(H * rs), int(W * rs)
+        ray_idx = sub[f"ray_idx_{level}"]
+        nb = level_ray_blocks(RAY_BLOCKS, ray_idx.shape[1], n_max, H_r, True)
+        ridx = ray_idx[:, : ray_idx.shape[1] // nb]
+        bounds_map, maps = model.level_maps(level, feats, depth, std, nf_map, sub["src_inps"])
+        world_xyz, _, _ = model.sample_rays(level, bounds_map, sub, ridx)
+        BK, S = maps.shape[:2]
+        x, y = model.project_to_views(world_xyz.reshape(BK, -1, 3), sub, rs)
+        imgs = maps.reshape(BK * S, H_r, W_r, maps.shape[-1])
+        x, y = x.reshape(BK * S, -1), y.reshape(BK * S, -1)
+        label = f"level{level}" + (f" block 1 of {nb}" if nb > 1 else "")
+        sample.append((label, (imgs, x, y)))
+        sample_bwd.append((label, (imgs, x, y, normal(*x.shape, imgs.shape[-1]))))
+    return {"warp_variance_bwd": warp, "img_sample": sample, "img_sample_bwd": sample_bwd}
+
+
+def grid_sample_bwd_library_ms(imgs, x, y, g) -> float:
+    """The backward of one ``F.grid_sample`` (bilinear, border,
+    align-corners) on the same inputs and cotangent, for scale: gradients
+    of the maps and of the grid; the port never calls it."""
+    import torch.nn.functional as F
+
+    V, H, W, C = imgs.shape
+    nchw = imgs.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    grid = torch.stack([x / (W - 1) * 2 - 1, y / (H - 1) * 2 - 1], -1)[:, None].requires_grad_()
+    with torch.enable_grad():
+        out = F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                            align_corners=True)
+    g_nchw = g.permute(0, 2, 1)[:, :, None].contiguous()  # (V, C, 1, P)
+
+    def backward():
+        with torch.enable_grad():
+            return torch.autograd.grad(out, (nchw, grid), g_nchw, retain_graph=True)
+
+    return median_ms(backward, 10)
+
+
+# entry -> (kernel, instance or None, its Pallas kernel, work, library yardstick or None)
+TRAIN_KERNELS = {
+    "warp_variance_bwd": ("warp_variance_bwd", None,
+                          "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:244", warp_bwd_work, None),
+    "img_sample": ("img_sample", "forward on the training path",
+                   "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106", sample_work,
+                   grid_sample_library_ms),
+    "img_sample_bwd": ("img_sample_bwd", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:458",
+                       sample_bwd_work, grid_sample_bwd_library_ms),
+}
+
+
+def phase_kernels_train(inputs: dict) -> dict:
+    """Each kernel of TRAIN_KERNELS against its plain version on the
+    training path's inputs: every output's max abs error within KERNEL_RTOL
+    of that output's largest magnitude (the backward kernels' scatters are
+    atomic, in an order that changes from run to run); the times and
+    bounds as in ``phase_kernels``. Returns the summary record of each
+    entry."""
+    summary = {}
+    for entry, (name, instance, replaces, work, library) in TRAIN_KERNELS.items():
+        kernel, plain = kernel_pair(name)
+        rec = {"name": name, "route": "cuda", "source": f"boostmvsnerfs_torch/csrc/{name}.cu",
+               "replaces": replaces, "path": "train", "max_abs_err": 0.0, "ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+        if instance:
+            rec["instance"] = instance
+        ops_total = bytes_total = 0.0
+        for label, args in inputs[entry]:
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            if torch.is_tensor(got):
+                got, want = (got,), (want,)
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            scales = [float(b.abs().max()) for b in want]
+            del got, want
+            ms = median_ms(lambda: kernel(*args), 20)
+            plain_ms = median_ms(lambda: plain(*args), 3, warmup=1)
+            lib_ms = library(*args) if library else None
+            nbytes, ops = work(*args)
+            bms, by = bound(nbytes, ops)
+            emit(phase="kernels_train", kernel=name, instance=instance, at=label,
+                 shapes=[list(a.shape) for a in args], max_abs_err=errs, largest=scales,
+                 relative_err=[e / max(c, 1e-30) for e, c in zip(errs, scales)],
+                 tolerance=KERNEL_RTOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops, roofline_share=bms / ms)
+            for e, c in zip(errs, scales):
+                require(e <= KERNEL_RTOL * c, f"{name} at {label}: error {e} vs largest {c}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
+            rec["ms"] += ms
+            rec["plain_ms"] += plain_ms
+            if lib_ms is not None:
+                rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
+            bytes_total += nbytes
+            ops_total += ops
+        rec["bound_ms"], rec["bound_by"] = bound(bytes_total, ops_total)
+        summary[entry] = rec
+    return summary
+
+
+def smooth_scene_batch(H: int, W: int, seed: int) -> dict:
+    """A forward-rig batch (4 views, K=2) whose target sits between source
+    frames 1 and 2 (not on frame 2, where the ray difference to that view is
+    the zero vector) and whose source images are smooth (a few seeded
+    sinusoids), as photographs are and the synthetic noise images are not."""
+    from boostmvsnerfs_torch.utils.synthetic import look_at_ext, make_scene_batch
+
+    batch = make_scene_batch(B=1, n_views=4, H=H, W=W, boost=True, k_best=2, seed=seed,
+                             rig="forward", with_targets=True)
+    pos = np.array([0.15 * np.sin(0.75), 0.04 * np.cos(1.35), 0.375])  # the rig's path at 1.5
+    batch["tar_ext"] = look_at_ext(pos, target=pos + np.array([0.0, 0.0, 5.0]))[None]
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(H) / H, np.arange(W) / W, indexing="ij")
+    img = np.zeros(batch["src_inps"].shape)
+    for _ in range(6):
+        fx, fy, phase = rng.uniform(0.5, 3.0), rng.uniform(0.5, 3.0), rng.uniform(0, 2 * np.pi)
+        wave = np.sin(2 * np.pi * (fx * xx + fy * yy) + phase)[None, None, :, :, None]
+        img += rng.uniform(-0.25, 0.25, (*img.shape[:2], 1, 1, 3)) * wave
+    batch["src_inps"] = batch["all_src_inps"] = img.astype(np.float32)
+    return batch
+
+
+def grad_rel_errors(got: dict, want: dict, floor: float = 1e-5) -> dict:
+    """Per tensor |g - w| / max(|w|, floor * the largest |w|) (L2 norms):
+    a few gradients are ~0 by symmetry, and there the relative error is
+    rounding noise."""
+    top = max(float(torch.linalg.norm(w)) for w in want.values())
+    return {k: float(torch.linalg.norm(got[k] - w)) / max(float(torch.linalg.norm(w)), floor * top)
+            for k, w in want.items()}
+
+
+def train_step_grads(state: dict, batch: dict, device: str, dtype, kind: str):
+    """One plain or blocked Adam step of BoostENeRF (K=2) from ``state``:
+    (loss, gradients as float64 CPU tensors)."""
+    from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+    from boostmvsnerfs_torch.parallel.train import (
+        create_train_state,
+        make_blocked_train_step,
+        make_train_step,
+    )
+    from boostmvsnerfs_torch.train.schedule import make_optimizer
+
+    model = BoostENeRF(CascadeConfig(k_best=2), device=device).to(dtype)
+    model.load_state_dict(state, strict=True)
+    train_state = create_train_state(model, make_optimizer(TRAIN_CFG, TRAIN_EP_ITER))
+    step = make_blocked_train_step(model, 4) if kind == "blocked" else make_train_step(model)
+    loss = float(step(train_state, batch)["loss"])
+    return loss, {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+
+
+def global_rel_error(got: dict, want: dict) -> float:
+    """Relative L2 error of all gradients together."""
+    flat = lambda g: {"all": torch.cat([v.flatten() for v in g.values()])}  # noqa: E731
+    return grad_rel_errors(flat(got), flat(want))["all"]
+
+
+# Card gradients against the float64 CPU port, relative L2. Float32 alone
+# moves them by several 1e-3 at 128x192, on the CPU as on the card: a ulp of
+# the inputs flips a few ReLUs and moves a few samples across pixel lines,
+# where the sampler's coordinate derivative jumps, and through the FPN's and
+# the U-Nets' batch-statistics BatchNorms (whose innermost levels hold few
+# voxels) each flip moves a whole channel's gradient. Every run measures
+# both sides of the bars on the CPU port, against float64: float32's spread
+# (its steps on the batch and on copies whose images moved by ~1 ulp) must
+# pass them, and each fault of PLANTED_FAULTS must fail them.
+GRAD_RTOL_TENSOR = 2e-2
+GRAD_RTOL_GLOBAL = 2.5e-3
+ULP_PERTURBATIONS = 4
+
+
+def _outputs_changed(change):
+    """A fault: the function, with ``change`` applied to its outputs."""
+    return lambda fn: lambda *args, **kw: change(*fn(*args, **kw))
+
+
+def _first_zeroed(t, dim: int):
+    """``t`` with its first entry along ``dim`` set to 0 (a lost scatter)."""
+    t = t.clone()
+    t.select(dim, 0).zero_()
+    return t
+
+
+def _near_far_with_gradient(fn):
+    """A fault: ``depth_values_near_far`` without its stop-gradient."""
+
+    def near_far(depth_values, inverse):
+        nf = depth_values[:, [0, -1]]
+        return 1.0 / nf.clamp_min(1e-6) if inverse else nf
+
+    return near_far
+
+
+# Faults planted, one at a time, into the CPU port's float32 step, each a
+# wiring fault the card check exists to catch: name -> (module of
+# boostmvsnerfs_torch.ops, function, replacement of the function).
+PLANTED_FAULTS = {
+    "img_sample_bwd: d x = d y = 0": (
+        "cuda.img_sample", "row_sample_bwd_plain",
+        _outputs_changed(lambda di, dx, dy: (di, torch.zeros_like(dx), torch.zeros_like(dy)))),
+    "img_sample_bwd: the first map's d imgs lost": (
+        "cuda.img_sample", "row_sample_bwd_plain",
+        _outputs_changed(lambda di, dx, dy: (_first_zeroed(di, 0), dx, dy))),
+    "warp_variance_bwd: d depth = 0": (
+        "cuda.warp_variance", "warp_variance_bwd_plain",
+        _outputs_changed(lambda df, dd: (df, torch.zeros_like(dd)))),
+    "warp_variance_bwd: the first view's d feats lost": (
+        "cuda.warp_variance", "warp_variance_bwd_plain",
+        _outputs_changed(lambda df, dd: (_first_zeroed(df, 1), dd))),
+    "depth_values_near_far: no stop-gradient": (
+        "cost_volume", "depth_values_near_far", _near_far_with_gradient),
+}
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """Run the block with ``fault`` of PLANTED_FAULTS in place."""
+    import importlib
+
+    module, attr, replace = PLANTED_FAULTS[fault]
+    mod = importlib.import_module(f"boostmvsnerfs_torch.ops.{module}")
+    original = getattr(mod, attr)
+    setattr(mod, attr, replace(original))
+    try:
+        yield
+    finally:
+        setattr(mod, attr, original)
+
+
+def grad_readings(grads: dict, ref: dict) -> dict:
+    """The worst tensor's and all tensors' relative L2 errors against ``ref``."""
+    return {"worst": max(grad_rel_errors(grads, ref).values()),
+            "global": global_rel_error(grads, ref)}
+
+
+def within_bars(r: dict) -> bool:
+    return r["worst"] <= GRAD_RTOL_TENSOR and r["global"] <= GRAD_RTOL_GLOBAL
+
+
+def cpu_bar_readings(state: dict, batch: dict, ref: dict, float32: list) -> dict:
+    """Both sides of the gradient bars on the CPU port against the float64
+    gradients ``ref``: 'spread', float32's own errors (the ``float32``
+    gradients already taken, then plain steps on ULP_PERTURBATIONS copies
+    of the batch whose images moved by ~1 ulp), and 'faults', the plain
+    float32 step with each planted fault."""
+    spread = list(float32)
+    rng = np.random.default_rng(11)
+    for _ in range(ULP_PERTURBATIONS):
+        moved = dict(batch)
+        imgs = batch["src_inps"] * (1 + 2**-23 * rng.standard_normal(batch["src_inps"].shape))
+        moved["src_inps"] = moved["all_src_inps"] = imgs.astype(np.float32)
+        spread.append(train_step_grads(state, moved, "cpu", torch.float32, "plain")[1])
+    faults = {}
+    for fault in PLANTED_FAULTS:
+        with planted(fault):
+            faults[fault] = grad_readings(
+                train_step_grads(state, batch, "cpu", torch.float32, "plain")[1], ref)
+    return {"spread": [grad_readings(g, ref) for g in spread], "faults": faults}
+
+
+def phase_train_step_check(state: dict) -> None:
+    """One plain and one blocked Adam step at 128x192 (4 views, K=2) with
+    the same weights and batch on the card (kernels, float32) and on the
+    CPU port (plain versions, float32, and float64 as the reference).
+
+    The losses must agree to 1e-4 and the card's blocked and plain losses
+    to 1e-5. Each card gradient must lie within GRAD_RTOL_TENSOR of the
+    float64 one, and all of them together within GRAD_RTOL_GLOBAL. The
+    bars are tested in the same run (``cpu_bar_readings``): float32's own
+    spread must pass them, and every planted fault must fail them."""
+    batch = smooth_scene_batch(128, 192, seed=3)
+    runs = {(dev, kind): train_step_grads(state, batch, dev, torch.float32, kind)
+            for dev in ("cuda", "cpu") for kind in ("plain", "blocked")}
+    ref_loss, ref = train_step_grads(state, batch, "cpu", torch.float64, "plain")
+    bars = cpu_bar_readings(state, batch, ref, [runs["cpu", k][1] for k in ("plain", "blocked")])
+    record = {"geometry": [128, 192], "views": 4, "k_best": 2, "loss_cpu_float64": ref_loss,
+              "bars": {"tensor": GRAD_RTOL_TENSOR, "global": GRAD_RTOL_GLOBAL},
+              "cpu_float32_vs_float64": bars["spread"], "cpu_planted_faults": bars["faults"]}
+    for kind in ("plain", "blocked"):
+        (lg, gg), (lc, gc) = runs["cuda", kind], runs["cpu", kind]
+        vs_ref = grad_rel_errors(gg, ref)
+        worst = sorted(vs_ref, key=vs_ref.get, reverse=True)[:3]
+        record[kind] = {"loss_card": lg, "loss_cpu": lc, "loss_rel_err": abs(lg - lc) / abs(lc),
+                        "card_vs_float64_worst": {k: vs_ref[k] for k in worst},
+                        "card_vs_float64_global": global_rel_error(gg, ref),
+                        "card_vs_cpu_worst": max(grad_rel_errors(gg, gc).values()),
+                        "card_vs_cpu_global": global_rel_error(gg, gc)}
+    lb, lp = runs["cuda", "blocked"][0], runs["cuda", "plain"][0]
+    record["card_blocked_vs_plain_loss_rel_err"] = abs(lb - lp) / abs(lp)
+    emit(phase="train_step_check", **record)
+    require(all(within_bars(r) for r in bars["spread"]), "float32's own spread fails the bars")
+    for fault, r in bars["faults"].items():
+        require(not within_bars(r), f"planted fault {fault!r} passes the bars: {r}")
+    for kind in ("plain", "blocked"):
+        r = record[kind]
+        require(r["loss_rel_err"] <= 1e-4, f"{kind} step: card vs CPU loss")
+        require(max(r["card_vs_float64_worst"].values()) <= GRAD_RTOL_TENSOR,
+                f"{kind} step: card gradients {r['card_vs_float64_worst']}")
+        require(r["card_vs_float64_global"] <= GRAD_RTOL_GLOBAL,
+                f"{kind} step: card gradients together {r['card_vs_float64_global']}")
+    require(record["card_blocked_vs_plain_loss_rel_err"] <= 1e-5, "card: blocked vs plain loss")
+
+
+def expected_train_launches(model, batch) -> dict:
+    """Launches of one blocked step, from the code: per level one warp and
+    its backward; per rendered level one sampler launch per ray block, one
+    more per block for the checkpoint's recomputation when the level has
+    more than one block, and one backward per block."""
+    from boostmvsnerfs_torch.parallel.train import level_ray_blocks
+
+    cas = model.cas
+    H, W = batch["all_src_inps"].shape[2:4]
+    n_max = max(batch[f"ray_idx_{i}"].shape[1] for i in range(cas.num) if cas.render_if[i])
+    out = dict(NO_LAUNCHES, warp_variance=cas.num, warp_variance_bwd=cas.num)
+    for i in range(cas.num):
+        if not cas.render_if[i]:
+            continue
+        H_r, W_r = int(H * cas.render_scale[i]), int(W * cas.render_scale[i])
+        N = batch[f"ray_idx_{i}"].shape[1]
+        nb = level_ray_blocks(RAY_BLOCKS, N, n_max, H_r, N == H_r * W_r and cas.train_img[i])
+        out["img_sample"] += nb + (nb if nb > 1 else 0)
+        out["img_sample_bwd"] += nb
+    return out
+
+
+def phase_train(model, batches: list, steps: int = 6):
+    """The fine-tuning step at full width: launches per step (counts reset
+    just before one step, read just after), the loss finite and the
+    parameters moved, then step times over ``steps`` more steps cycling
+    the batches (after 2 warm-up steps in all). Returns (launches, the
+    train state, the step function)."""
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+    from boostmvsnerfs_torch.parallel.train import create_train_state, make_blocked_train_step
+    from boostmvsnerfs_torch.train.schedule import make_optimizer
+
+    state = create_train_state(model, make_optimizer(TRAIN_CFG, TRAIN_EP_ITER))
+    step = make_blocked_train_step(model, RAY_BLOCKS)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    expect = expected_train_launches(model, batches[0])
+    require(expect == dict(NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2, img_sample=33,
+                           img_sample_bwd=17), f"expected launches per step {expect}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stats = step(state, batches[0])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    require(launches == expect, f"train: launches per step {launches}, expected {expect}")
+    losses = [float(stats["loss"])]
+    require(np.isfinite(losses[0]), f"train: loss {losses[0]}")
+    moved = sum(not torch.equal(p.detach(), before[k]) for k, p in model.named_parameters())
+    require(moved == len(before), f"train: {len(before) - moved} parameters did not change")
+    step(state, batches[1])  # second warm-up step
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(steps)]
+    stats_all = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (start, end) in enumerate(events):
+        start.record()
+        stats_all.append(step(state, batches[i % len(batches)]))
+        end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    losses += [float(st["loss"]) for st in stats_all]
+    require(all(np.isfinite(losses)), f"train: losses {losses}")
+    med = statistics.median(step_ms)
+    emit(phase="train", geometry=list(TRAIN_HW), views=6, k_best=4, planes=[64, 8],
+         samples=[8, 2], ray_blocks=RAY_BLOCKS, rays_per_step=TRAIN_RAYS,
+         launches_per_step=launches, step_ms_median=med, step_ms_min=min(step_ms),
+         step_ms_max=max(step_ms), host_wall_ms_per_step=wall * 1e3,
+         rays_per_s=TRAIN_RAYS / (med / 1e3), peak_mem_gib=peak_gib, steps=steps,
+         losses=losses, parameters_moved=moved)
+    return launches, state, step
+
+
+def run_train_path() -> list:
+    """The third main path: the BoostENeRF fine-tuning step at 480x736.
+    Returns its summary records."""
+    from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
+    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
+
+    model = BoostENeRF(CascadeConfig(k_best=4))
+    state = random_weights(model, 0)
+
+    def make_batch(seed):
+        return to_tensors(make_scene_batch(B=1, n_views=6, H=TRAIN_HW[0], W=TRAIN_HW[1],
+                                           boost=True, k_best=4, seed=seed, rig="forward",
+                                           with_targets=True), model.device)
+
+    model.load_state_dict(state, strict=True)
+    with torch.no_grad():
+        summary = phase_kernels_train(train_kernel_inputs(model, make_batch(0)))
+    torch.cuda.empty_cache()
+    phase_train_step_check(state)
+    model.load_state_dict(state, strict=True)  # the kernel inputs moved the BN statistics
+    batches = [make_batch(s) for s in (0, 1, 2)]
+    launches, train_state, step = phase_train(model, batches)
+    phase_profile(lambda: step(train_state, batches[0]), "profile_train",
+                  ("warp_variance", "img_sample", "warp_variance_bwd", "img_sample_bwd"),
+                  frames=1, unit="step")
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
     return list(summary.values())
@@ -510,6 +1010,8 @@ def main() -> int:
     records = run_enerf()
     torch.cuda.empty_cache()
     records += run_mvsnerf()
+    torch.cuda.empty_cache()
+    records += run_train_path()
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

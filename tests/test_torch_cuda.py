@@ -11,7 +11,11 @@ sums in the plain versions' order, so they agree to a few ulps
 (rtol 1e-5 / atol 1e-6); the head sums ~100-term dot products in another
 order than the plain matmuls (rtol 1e-4 / atol 1e-5); the renderer MLP sums
 up to 191-term dot products through six layers in another order than
-cuBLAS, and is held at 1e-4 of its output's largest magnitude.
+cuBLAS, and is held at 1e-4 of its output's largest magnitude. The two
+backward kernels scatter their feature and image cotangents with atomics,
+whose order changes from run to run, and reduce the depth and coordinate
+cotangents in another order than the plain versions: each output is held
+at 1e-4 of its largest magnitude (chip_smoke.py's bar).
 """
 
 import numpy as np
@@ -23,10 +27,22 @@ from boostmvsnerfs_torch.models.nerf_head import NeRFHead
 from boostmvsnerfs_torch.ops import geometry
 from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 from boostmvsnerfs_torch.ops.cuda.enerf_head import fused_nerf_head, nerf_head_plain
-from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample, row_sample_plain
+from boostmvsnerfs_torch.ops.cuda.img_sample import (
+    fused_row_sample,
+    fused_row_sample_diff,
+    row_sample_bwd,
+    row_sample_bwd_plain,
+    row_sample_plain,
+)
 from boostmvsnerfs_torch.ops.cuda.renderer_mlp import fused_renderer_mlp, renderer_mlp_plain
 from boostmvsnerfs_torch.ops.cuda.tri_sample import fused_tri_sample, tri_sample_plain
-from boostmvsnerfs_torch.ops.cuda.warp_variance import fused_warp_variance, warp_variance_plain
+from boostmvsnerfs_torch.ops.cuda.warp_variance import (
+    fused_warp_variance,
+    fused_warp_variance_diff,
+    warp_variance_bwd,
+    warp_variance_bwd_plain,
+    warp_variance_plain,
+)
 from boostmvsnerfs_torch.utils.port_weights import random_state_dict
 from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
 
@@ -138,3 +154,72 @@ def test_renderer_mlp_kernel(dev, encode_freqs):
     err = float((got - want).abs().max())
     assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
     assert launch_counts()["renderer_mlp"] == 1
+
+
+def _close_scaled(got, want, name):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(float(want.abs().max()), 1e-30), (name, err)
+
+
+def _warp_case(dev, rig, C, seed):
+    B, S, Hs, Ws, Ht, Wt, D = 2, 3, 40, 56, 20, 28, 7
+    b = make_scene_batch(B=B, n_views=S, H=Hs, W=Ws, seed=seed, rig=rig)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in b.items() if k != "src_inps"}
+    pm = geometry.proj_mats(t["src_ixts"], t["src_exts"], t["tar_ixt"], t["tar_ext"],
+                            1.0, Ht / Hs).contiguous()
+    rng = np.random.default_rng(seed)
+    feats = torch.from_numpy(rng.standard_normal((B, S, Hs, Ws, C)).astype(np.float32)).to(dev)
+    dv = torch.from_numpy(rng.uniform(0.2, 8.0, (B, D, Ht, Wt)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((B, D, Ht, Wt, C)).astype(np.float32)).to(dev)
+    return feats, pm, dv, g
+
+
+@pytest.mark.parametrize("rig,C", [("orbit", 8), ("forward", 16), ("orbit", 32)])
+def test_warp_variance_bwd_kernel(dev, rig, C):
+    feats, pm, dv, g = _warp_case(dev, rig, C, 40 + C)
+    got = warp_variance_bwd(feats, pm, dv, g)
+    want = warp_variance_bwd_plain(feats, pm, dv, g)
+    for a, b, name in zip(got, want, ("d_feats", "d_depth")):
+        _close_scaled(a, b, name)
+    assert launch_counts()["warp_variance_bwd"] == 1
+
+
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+def test_img_sample_bwd_kernel(dev, padding_mode):
+    rng = np.random.default_rng(7)
+    V, H, W, C, P = 6, 30, 44, 11, 5000
+    imgs = torch.from_numpy(rng.standard_normal((V, H, W, C)).astype(np.float32)).to(dev)
+    x = rng.uniform(-4, W + 3, (V, P)).astype(np.float32)
+    y = rng.uniform(-4, H + 3, (V, P)).astype(np.float32)
+    x[:, :5], y[:, :5] = [0.0, W - 1, 1e10, 3.0, 7.5], [H - 1, 0.0, -1e10, 2.0, 4.0]
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    g = torch.from_numpy(rng.standard_normal((V, P, C)).astype(np.float32)).to(dev)
+    got = row_sample_bwd(imgs, x, y, g, padding_mode)
+    want = row_sample_bwd_plain(imgs, x, y, g, padding_mode)
+    for a, b, name in zip(got, want, ("d_imgs", "d_x", "d_y")):
+        _close_scaled(a, b, name)
+    assert launch_counts()["img_sample_bwd"] == 1
+
+
+def test_autograd_functions_launch_forward_and_backward_kernels(dev):
+    """On the card the autograd Functions launch the forward kernel, then
+    the backward kernel; their gradients match the plain backward versions."""
+    feats, pm, dv, g = _warp_case(dev, "forward", 16, 60)
+    f, d = feats.clone().requires_grad_(), dv.clone().requires_grad_()
+    got = torch.autograd.grad(torch.sum(fused_warp_variance_diff(f, pm, d) * g), (f, d))
+    for a, b, name in zip(got, warp_variance_bwd_plain(feats, pm, dv, g), ("d_feats", "d_depth")):
+        _close_scaled(a, b, name)
+    rng = np.random.default_rng(61)
+    imgs = torch.from_numpy(rng.standard_normal((4, 20, 30, 35)).astype(np.float32)).to(dev)
+    xy = [torch.from_numpy(rng.uniform(-2, n + 1, (4, 900)).astype(np.float32)).to(dev)
+          for n in (30, 20)]
+    ct = torch.from_numpy(rng.standard_normal((4, 900, 35)).astype(np.float32)).to(dev)
+    args = [a.clone().requires_grad_() for a in (imgs, *xy)]
+    got = torch.autograd.grad(torch.sum(fused_row_sample_diff(*args) * ct), args)
+    for a, b, name in zip(got, row_sample_bwd_plain(imgs, *xy, ct, "border"),
+                          ("d_imgs", "d_x", "d_y")):
+        _close_scaled(a, b, name)
+    counts = launch_counts()
+    assert [counts[k] for k in ("warp_variance", "warp_variance_bwd", "img_sample",
+                                "img_sample_bwd")] == [1, 1, 1, 1]

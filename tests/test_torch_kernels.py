@@ -1,11 +1,14 @@
-"""The three kernel modules of boostmvsnerfs_torch.ops.cuda on the CPU.
+"""The ENeRF kernel modules of boostmvsnerfs_torch.ops.cuda on the CPU.
 
-Each kernel's plain PyTorch version is held (a) against the JAX exact op
-and (b) against the Pallas kernel in interpret mode with a window that
-covers every tap, at rtol 1e-4 / atol 1e-5 (the JAX kernel tests' bar;
-tests/test_pallas_warp.py). The CUDA kernels themselves are compared with
-these plain versions on the card by chip_smoke.py and
-tests/test_torch_cuda.py.
+Each forward kernel's plain PyTorch version is held (a) against the JAX
+exact op and (b) against the Pallas kernel in interpret mode with a window
+that covers every tap, at rtol 1e-4 / atol 1e-5 (the JAX kernel tests'
+bar; tests/test_pallas_warp.py). The plain versions of the two backward
+kernels are held against JAX's custom VJPs (Pallas forward and backward in
+interpret mode) at the bars of tests/test_pallas_warp.py and
+tests/test_pallas_sample.py, and the autograd Functions around them pass
+torch's gradcheck. The CUDA kernels themselves are compared with these
+plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
 """
 
 import ast
@@ -23,15 +26,31 @@ import torch
 
 from boostmvsnerfs_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from boostmvsnerfs_torch.ops.cuda.enerf_head import fused_nerf_head, nerf_head_plain
-from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample, row_sample_plain
-from boostmvsnerfs_torch.ops.cuda.warp_variance import fused_warp_variance, warp_variance_plain
+from boostmvsnerfs_torch.ops.cuda.img_sample import (
+    fused_row_sample,
+    fused_row_sample_diff,
+    row_sample_bwd,
+    row_sample_bwd_plain,
+    row_sample_plain,
+)
+from boostmvsnerfs_torch.ops.cuda.warp_variance import (
+    fused_warp_variance,
+    fused_warp_variance_diff,
+    warp_variance_bwd,
+    warp_variance_bwd_plain,
+    warp_variance_plain,
+)
 from boostmvsnerfs_torch.models.nerf_head import NeRFHead as TorchHead
 from boostmvsnerfs_torch.utils.port_weights import random_state_dict
 from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
 from boostmvsnerfs_tpu.models.nerf_head import NeRFHead as FlaxHead
 from boostmvsnerfs_tpu.ops import cost_volume, geometry, sampling
 from boostmvsnerfs_tpu.ops.pallas.img_sample import fused_row_sample as pallas_row_sample
+from boostmvsnerfs_tpu.ops.pallas.img_sample import fused_row_sample_diff as pallas_row_sample_diff
 from boostmvsnerfs_tpu.ops.pallas.warp_variance import fused_warp_variance as pallas_warp
+from boostmvsnerfs_tpu.ops.pallas.warp_variance import (
+    fused_warp_variance_diff as pallas_warp_diff,
+)
 from boostmvsnerfs_tpu.utils import port_weights as jpw
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -109,6 +128,103 @@ def test_sample_plain_matches_pallas_interpret(padding_mode):
         window_h=H, padding_mode=padding_mode, compute_dtype=jnp.float32, interpret=True,
     ).reshape(V, 6 * 20, -1)
     close(got, want)
+
+
+# ------------------------------------------------ the two backward kernels
+
+
+def _scaled_close(got, want, atol=2e-5, name=""):
+    """Gradients after scaling both by the reference's largest magnitude
+    (tests/test_pallas_warp.py's bar)."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = np.abs(want).max() + 1e-6
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("rig,C", [("orbit", 8), ("forward", 4)])
+def test_warp_bwd_plain_matches_pallas_interpret(rig, C):
+    """Kernel #2: the plain backward against JAX's custom VJP (Pallas
+    forward and backward in interpret mode) with a window of every source
+    row, so every tap is held; spatially varying depths give a non-trivial
+    depth cotangent, and the orbit rig puts taps out of range."""
+    feats, pm, dv = _warp_inputs(13, C=C, rig=rig)
+    ct = np.random.default_rng(14).standard_normal(dv.shape + (C,)).astype(np.float32)
+    window = feats.shape[2]
+
+    def loss(f, d):
+        v = pallas_warp_diff(f, jnp.asarray(pm), d, window, jnp.float32, True)
+        return jnp.sum(v * jnp.asarray(ct))
+
+    want_loss, want = jax.value_and_grad(loss, argnums=(0, 1))(jnp.asarray(feats), jnp.asarray(dv))
+    t = [torch.from_numpy(a) for a in (feats, pm, dv, ct)]
+    got_loss = torch.sum(warp_variance_plain(*t[:3]) * t[3])
+    got = warp_variance_bwd_plain(*t)
+    np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-4)
+    for g, w, name in zip(got, want, ("d_src_feats", "d_depth_values")):
+        assert g.shape == w.shape, name
+        _scaled_close(g.numpy(), w, name=name)
+    assert np.abs(got[1].numpy()).max() > 0
+
+
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+def test_row_sample_bwd_plain_matches_pallas_interpret(padding_mode):
+    """Kernel #4: the plain backward against JAX's custom VJP in interpret
+    mode, a window of every row. The samples include the frame's edges and
+    integer points, where both follow the Pallas convention (dx = 0)."""
+    imgs, x, y = _sample_inputs(15, P=6 * 20)
+    x, y = np.clip(x, -50, 50), np.clip(y, -50, 50)
+    x[:, 3:6], y[:, 3:6] = [2.0, 5.0, 0.5], [3.0, 0.25, 7.0]
+    V, H, W, C = imgs.shape
+    ct = np.random.default_rng(16).standard_normal((V, 6 * 20, C)).astype(np.float32)
+
+    def loss(im, xx, yy):
+        out = pallas_row_sample_diff(im, xx, yy, H, padding_mode, True, 0)
+        return jnp.sum(out.reshape(V, 6 * 20, C) * jnp.asarray(ct))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(imgs), jnp.asarray(x.reshape(V, 6, 20)), jnp.asarray(y.reshape(V, 6, 20)))
+    got = row_sample_bwd_plain(*map(torch.from_numpy, (imgs, x, y, ct)), padding_mode)
+    for g, w, name in zip(got, want, ("d_imgs", "d_x", "d_y")):
+        close(g, np.asarray(w).reshape(g.shape), rtol=1e-4, atol=1e-4)
+
+
+def test_autograd_functions_pass_gradcheck_with_their_plain_backward():
+    """On CPU tensors the autograd Functions run the plain versions; in
+    float64 their backward passes torch's finite-difference gradcheck at
+    points off the integer lattice and inside the clamp ranges."""
+    rng = np.random.default_rng(17)
+    f64 = lambda a: torch.from_numpy(np.asarray(a, np.float64)).requires_grad_()  # noqa: E731
+    imgs = f64(rng.standard_normal((2, 5, 6, 3)))
+    x = f64(rng.uniform(0.1, 4.9, (2, 7)))
+    y = f64(rng.uniform(0.1, 3.9, (2, 7)))
+    for mode in ("border", "zeros"):
+        assert torch.autograd.gradcheck(lambda i, a, b: fused_row_sample_diff(i, a, b, mode),
+                                        (imgs, x, y), eps=1e-6, atol=1e-6)
+    feats, pm, _ = _warp_inputs(18, B=1, S=2, C=4, Hs=6, Ws=8, Ht=3, Wt=4, D=2, rig="forward")
+    dv = f64(rng.uniform(2.5, 5.0, (1, 2, 3, 4)))
+    pm = torch.from_numpy(pm.astype(np.float64))
+    assert torch.autograd.gradcheck(lambda f, d: fused_warp_variance_diff(f, pm, d),
+                                    (f64(feats), dv), eps=1e-6, atol=1e-6)
+
+
+def test_autograd_functions_backward_is_the_plain_backward():
+    """The Functions' float32 gradients on the CPU are exactly the plain
+    backward versions' outputs, and nothing counts a launch."""
+    reset_launch_counts()
+    feats, pm, dv = _warp_inputs(19)
+    ct = torch.from_numpy(np.random.default_rng(20).standard_normal(dv.shape + (8,)).astype(np.float32))
+    f, d = torch.from_numpy(feats).requires_grad_(), torch.from_numpy(dv).requires_grad_()
+    p = torch.from_numpy(pm)
+    got = torch.autograd.grad(torch.sum(fused_warp_variance_diff(f, p, d) * ct), (f, d))
+    want = warp_variance_bwd_plain(f.detach(), p, d.detach(), ct)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    imgs, x, y = _sample_inputs(21)
+    ct = torch.from_numpy(np.random.default_rng(22).standard_normal((4, 120, 11)).astype(np.float32))
+    args = [torch.from_numpy(a).requires_grad_() for a in (imgs, x, y)]
+    got = torch.autograd.grad(torch.sum(fused_row_sample_diff(*args) * ct), args)
+    want = row_sample_bwd_plain(*(a.detach() for a in args), ct, "border")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert launch_counts() == dict.fromkeys(_build.KERNELS, 0)
 
 
 # --------------------------------------------------------------- enerf_head
@@ -192,6 +308,14 @@ def _meta(*shape, dtype=torch.float32):
                               _meta(2, 10)), TypeError),
     (lambda: TorchHead(11)(_meta(1, 7, 8), _meta(1, 3, 6, 11), _meta(1, 3, 6, 4)), ValueError),
     (lambda: TorchHead(13)(_meta(1, 6, 8), _meta(1, 3, 6, 13), _meta(1, 3, 6, 4)), ValueError),
+    (lambda: warp_variance_bwd(_meta(1, 3, 8, 8, 8), _meta(1, 3, 3, 4), _meta(1, 2, 4, 4),
+                               _meta(1, 2, 4, 4, 4)), ValueError),  # cotangent shape
+    (lambda: warp_variance_bwd(_meta(1, 3, 8, 8, 6), _meta(1, 3, 3, 4), _meta(1, 2, 4, 4),
+                               _meta(1, 2, 4, 4, 6)), ValueError),  # channels
+    (lambda: row_sample_bwd(_meta(2, 8, 8, 5), _meta(2, 10), _meta(2, 10), _meta(2, 10, 4)),
+     ValueError),  # cotangent shape
+    (lambda: row_sample_bwd(_meta(2, 8, 8, 5), _meta(2, 10), _meta(2, 10), _meta(2, 10, 5),
+                            "reflect"), ValueError),
 ])
 def test_wrappers_reject_bad_inputs_off_cpu(call, error):
     """Off the CPU a wrapper launches its kernel or raises; malformed
