@@ -44,6 +44,7 @@ UNITS = {"enerf_head": tuple((f"-DENERF_HEAD_UNIT={i}",) for i in range(5))}
 
 _launches = dict.fromkeys(KERNELS, 0)
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -137,15 +138,20 @@ def build(names=KERNELS) -> None:
 
 def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C launch function ``symbol`` of kernel ``name``, building and
-    loading its library on first use."""
+    loading its library and declaring its arguments once: a wrapper's host
+    path adds to every launch, and a small grid runs in less time than it."""
+    fn = _fns.get((name, symbol))
+    if fn is not None:
+        return fn
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name, symbol] = fn
     return fn
 
 
@@ -178,4 +184,5 @@ def check_inputs(name: str, device: torch.device, **tensors) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    # by index: resolving a torch.device costs microseconds per launch
+    return torch.cuda.current_stream(device.index).cuda_stream

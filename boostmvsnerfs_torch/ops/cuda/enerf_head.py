@@ -106,7 +106,7 @@ def fused_nerf_head(
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = max(1, min(-(-B * P // _BLOCK), 4 * sms))
     fn = _build.kernel_function(NAME, "enerf_head_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev.index):
         rc = fn(weights.data_ptr(), weights.numel(), vox.data_ptr(), feat.data_ptr(),
                 dirs.data_ptr(), out.data_ptr(), B, S, P, C, int("view_fc" in params), grid,
                 _build.stream_ptr(dev))

@@ -65,7 +65,7 @@ def fused_row_sample(
     _build.check_inputs(NAME, dev, imgs=imgs, x=x, y=y)
     out = torch.empty((V, P, C), dtype=torch.float32, device=dev)
     fn = _build.kernel_function(NAME, "img_sample_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev.index):
         rc = fn(imgs.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), V, H, W, C, P,
                 int(padding_mode == "border"), _build.stream_ptr(dev))
     _build.check(NAME, rc)
@@ -101,7 +101,7 @@ def row_sample_bwd(
     d_imgs = torch.zeros_like(imgs)
     dx, dy = torch.empty_like(x), torch.empty_like(y)
     fn = _build.kernel_function(BWD_NAME, "img_sample_bwd_launch", _BWD_ARGTYPES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev.index):
         rc = fn(imgs.data_ptr(), x.data_ptr(), y.data_ptr(), g.data_ptr(), d_imgs.data_ptr(),
                 dx.data_ptr(), dy.data_ptr(), V, H, W, C, P, int(padding_mode == "border"),
                 _build.stream_ptr(dev))

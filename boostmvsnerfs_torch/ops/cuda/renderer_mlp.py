@@ -130,7 +130,7 @@ def fused_renderer_mlp(
     B, N = pts.shape[:2]
     out = torch.empty((B, N, 4), dtype=torch.float32, device=dev)
     fn = _build.kernel_function(NAME, "renderer_mlp_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev.index):
         rc = fn(weights.data_ptr(), weights.numel(), pts.data_ptr(), feat.data_ptr(),
                 dirs.data_ptr(), out.data_ptr(), B * N, n_feat, pin, _build.stream_ptr(dev))
     _build.check(NAME, rc)

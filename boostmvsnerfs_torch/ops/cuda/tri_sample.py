@@ -46,7 +46,7 @@ def fused_tri_sample(
     _build.check_inputs(NAME, dev, vol=vol, xyz=xyz)
     out = torch.empty((B, P, C), dtype=torch.float32, device=dev)
     fn = _build.kernel_function(NAME, "tri_sample_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev.index):
         rc = fn(vol.data_ptr(), xyz.data_ptr(), out.data_ptr(), B, D, H, W, C, P,
                 _build.stream_ptr(dev))
     _build.check(NAME, rc)

@@ -60,7 +60,7 @@ def fused_warp_variance(
                         depth_values=depth_values)
     out = torch.empty((B, D, Ht, Wt, C), dtype=torch.float32, device=dev)
     fn = _build.kernel_function(NAME, "warp_variance_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev.index):
         rc = fn(src_feats.data_ptr(), proj_mats.data_ptr(), depth_values.data_ptr(),
                 out.data_ptr(), B, S, Hs, Ws, C, D, Ht, Wt, _build.stream_ptr(dev))
     _build.check(NAME, rc)
@@ -124,7 +124,7 @@ def warp_variance_bwd(
     d_feats = torch.zeros_like(src_feats)
     d_depth = torch.zeros_like(depth_values)
     fn = _build.kernel_function(BWD_NAME, "warp_variance_bwd_launch", _BWD_ARGTYPES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev.index):
         rc = fn(src_feats.data_ptr(), proj_mats.data_ptr(), depth_values.data_ptr(), g.data_ptr(),
                 d_feats.data_ptr(), d_depth.data_ptr(), B, S, Hs, Ws, C, D, Ht, Wt,
                 _build.stream_ptr(dev))

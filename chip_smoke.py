@@ -13,10 +13,12 @@ phase. Three main paths are driven, each with its kernels checked first:
    its register report.
 3. kernels - each kernel against its plain PyTorch version on its main
    path's real inputs at full width (taken from the model's own stages):
-   max abs error, median time, the plain version's time, the time of one
-   PyTorch call computing the same function where one exists, and the
-   bound (bytes over 3.35 TB/s or f32 flops over 67 TFLOP/s, the H100
-   SXM's published peaks, whichever is larger).
+   max abs error, median time of one call, the plain version's time, the
+   time of one PyTorch call computing the same function where one exists,
+   the device time of the kernel and of that call (torch.profiler: the
+   event time also counts the host's share of a call), and the bound
+   (bytes over 3.35 TB/s or f32 flops over 67 TFLOP/s, the H100 SXM's
+   published peaks, whichever is larger).
 4. frame   - a reduced-geometry BoostENeRF frame on the card against the
    port on the CPU (plain versions): rgb PSNR must exceed 45 dB.
 5. main    - the first main path, bench.py's workload: BoostENeRF K=4 of
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -101,6 +104,47 @@ def median_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 5) -> float:
+    """Device time of one call of ``fn``: the summed time of the kernels it
+    launches (torch.profiler), without the host's share of the call, which
+    ``median_ms`` counts and which rivals a small grid's kernel time. A
+    profile can miss some launches' records (two of five calls, once on the
+    H100), so each kernel counts its mean time as many times per call as it
+    was seen per call, rounded up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total / e.count * math.ceil(e.count / iters)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.count) / 1e3
+
+
+def timings(run, library=None) -> dict:
+    """Times of a kernel's wrapper ``run`` and of its library yardstick (a
+    zero-argument call, or None): one call's event time (median of 20, and
+    of 10 for the library) and its device time (``device_ms``)."""
+    out = {"ms": median_ms(run, 20), "device_ms": device_ms(run),
+           "library_ms": None, "library_device_ms": None}
+    if library is not None:
+        out["library_ms"], out["library_device_ms"] = median_ms(library, 10), device_ms(library)
+    return out
+
+
+SHARE_NAMES = {"ms": "roofline_share", "device_ms": "device_roofline_share",
+               "library_ms": "library_roofline_share",
+               "library_device_ms": "library_device_roofline_share"}
+
+
+def shares(bms: float, t: dict) -> dict:
+    """The bound's share of each time in ``t`` (``timings``)."""
+    return {SHARE_NAMES[k]: None if v is None else bms / v for k, v in t.items()}
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -109,7 +153,8 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 # Work of each kernel on given inputs: bytes (each input read once, each
 # output written once) and f32 operations. The warp kernels skip the taps
 # that fall outside the source image, so their tap work counts only the
-# taps of these inputs that land inside (``live_tap_share``).
+# taps of these inputs that land inside (``live_tap_share``); the image
+# samplers read only the map pixels their taps touch (``touched_pixels``).
 def live_tap_share(feats, pm, dv) -> float:
     """The share of the plane-sweep warp's bilinear taps (4 per voxel and
     view) that land inside the source image, from the voxels' coordinates
@@ -136,9 +181,30 @@ def warp_work(feats, pm, dv):
     return nbytes, n * (S * (35 + 3 * C) + 4 * C) + live_tap_share(feats, pm, dv) * n * S * 8 * C
 
 
+def touched_pixels(imgs, x, y, padding_mode="border") -> int:
+    """The distinct in-image pixels among the four bilinear taps of every
+    sample, from the coordinates as the sampler kernels clamp them: the map
+    pixels a sampler has to read (at most all of them). A ray block of the
+    fine-tuning step samples a band of each map, not the whole map."""
+    V, H, W = imgs.shape[:3]
+    lo, hi_x, hi_y = (0.0, W - 1, H - 1) if padding_mode == "border" else (-2.0, W + 1, H + 1)
+    x0 = torch.floor(x.clamp(lo, hi_x)).long()
+    y0 = torch.floor(y.clamp(lo, hi_y)).long()
+    view = torch.arange(V, device=x.device)[:, None] * (H * W)
+    hit = torch.zeros(V * H * W, dtype=torch.bool, device=x.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            inside = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+            hit[(view + yi * W + xi)[inside]] = True
+    return int(hit.sum())
+
+
 def sample_work(imgs, x, y, padding_mode="border"):
+    """Reads the map pixels the taps touch and the coordinates, writes the
+    samples; per sample the taps, per channel four products and three sums."""
     C, n = imgs.shape[-1], x.numel()
-    return 4 * (imgs.numel() + 2 * n + n * C), n * (20 + 7 * C)
+    return 4 * (touched_pixels(imgs, x, y, padding_mode) * C + 2 * n + n * C), n * (20 + 7 * C)
 
 
 def head_work(params, vox, feat, dirs):
@@ -162,11 +228,13 @@ def warp_bwd_work(feats, pm, dv, g):
 
 
 def sample_bwd_work(imgs, x, y, g, padding_mode="border"):
-    """Reads the maps, coordinates and cotangent, writes d imgs, d x, d y;
-    per sample and channel four scattered products and the two
+    """Reads the map pixels the taps touch, the coordinates and the
+    cotangent, writes the whole of d imgs (zero-filled, then scattered into),
+    d x and d y; per sample and channel four scattered products and the two
     derivatives."""
     C, n = imgs.shape[-1], x.numel()
-    return 4 * (2 * imgs.numel() + 4 * n + n * C), n * (20 + 18 * C)
+    maps = touched_pixels(imgs, x, y, padding_mode) * C
+    return 4 * (maps + imgs.numel() + 4 * n + n * C), n * (20 + 18 * C)
 
 
 def tri_work(vol, xyz):
@@ -240,29 +308,29 @@ def mvs_kernel_inputs(model, batch) -> dict:
     }
 
 
-def grid_sample_library_ms(imgs, x, y) -> float:
-    """One ``F.grid_sample`` (bilinear, border, align-corners) on the same
-    work, for scale; the port never calls it."""
+# Library yardsticks: each returns one PyTorch call computing the same
+# function on the same work, for scale; the port never calls them.
+def grid_sample_library(imgs, x, y):
+    """``F.grid_sample`` (bilinear, border, align-corners, NCHW)."""
     import torch.nn.functional as F
 
     V, H, W, C = imgs.shape
     nchw = imgs.permute(0, 3, 1, 2).contiguous()
     grid = torch.stack([x / (W - 1) * 2 - 1, y / (H - 1) * 2 - 1], -1)[:, None]  # (V, 1, P, 2)
-    return median_ms(lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
-                                           align_corners=True), 10)
+    return lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
 
 
-def grid_sample_3d_library_ms(vol, xyz) -> float:
-    """One 5-D ``F.grid_sample`` (trilinear, zeros, align-corners, NCDHW) on
-    the same work, for scale; the port never calls it."""
+def grid_sample_3d_library(vol, xyz):
+    """5-D ``F.grid_sample`` (trilinear, zeros, align-corners, NCDHW)."""
     import torch.nn.functional as F
 
     B, D, H, W, C = vol.shape
     ncdhw = vol.permute(0, 4, 1, 2, 3).contiguous()
     scale = torch.tensor([W - 1, H - 1, D - 1], dtype=torch.float32, device=xyz.device)
     grid = (xyz / scale * 2 - 1)[:, None, None]  # (B, 1, 1, P, 3)
-    return median_ms(lambda: F.grid_sample(ncdhw, grid, mode="bilinear", padding_mode="zeros",
-                                           align_corners=True), 10)
+    return lambda: F.grid_sample(ncdhw, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
 
 
 # entry -> (kernel name, instance or None, its Pallas kernel, work, library yardstick or None)
@@ -270,15 +338,15 @@ ENERF_KERNELS = {
     "warp_variance": ("warp_variance", None, "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:38",
                       warp_work, None),
     "img_sample": ("img_sample", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106",
-                   sample_work, grid_sample_library_ms),
+                   sample_work, grid_sample_library),
     "enerf_head": ("enerf_head", None, "boostmvsnerfs_tpu/ops/pallas/enerf_head.py:45",
                    head_work, None),
 }
 MVS_KERNELS = {
     "tri_sample": ("tri_sample", None, "boostmvsnerfs_tpu/ops/pallas/tri_sample.py:37",
-                   tri_work, grid_sample_3d_library_ms),
+                   tri_work, grid_sample_3d_library),
     "img_sample": ("img_sample", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106",
-                   sample_work, grid_sample_library_ms),
+                   sample_work, grid_sample_library),
     "renderer_mlp": ("renderer_mlp", "raw coordinates, encoded in the kernel",
                      "boostmvsnerfs_tpu/ops/pallas/mlp.py:169", mlp_work, None),
     "renderer_mlp/encoded": ("renderer_mlp", "encoded input",
@@ -316,7 +384,7 @@ def phase_kernels(table: dict, inputs: dict, path: str) -> dict:
         kernel, plain = kernel_pair(name)
         rec = {"name": name, "route": "cuda", "source": f"boostmvsnerfs_torch/csrc/{name}.cu",
                "replaces": replaces, "path": path, "max_abs_err": 0.0, "ms": 0.0,
-               "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+               "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
         if instance:
             rec["instance"] = instance
         ops_total = bytes_total = 0.0
@@ -325,23 +393,22 @@ def phase_kernels(table: dict, inputs: dict, path: str) -> dict:
             err = float((got - want).abs().max())
             scale = max(1.0, float(want.abs().max()))
             del got, want
-            ms = median_ms(lambda: kernel(*args), 20)
+            tensors = [a for a in args if torch.is_tensor(a)]
+            t = timings(lambda: kernel(*args), library(*tensors) if library else None)
             plain_ms = median_ms(lambda: plain(*args), 3, warmup=1)
             nbytes, ops = work(*args)
             bms, by = bound(nbytes, ops)
-            tensors = [a for a in args if torch.is_tensor(a)]
-            lib_ms = library(*tensors) if library else None
             emit(phase="kernels", path=path, kernel=name, instance=instance, at=label,
                  shapes=[list(a.shape) for a in tensors],
-                 max_abs_err=err, tolerance=KERNEL_RTOL * scale, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
-                 roofline_share=bms / ms)
+                 max_abs_err=err, tolerance=KERNEL_RTOL * scale, **t, plain_ms=plain_ms,
+                 bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops, **shares(bms, t))
             require(err <= KERNEL_RTOL * scale, f"{name} at {label}: max abs error {err} vs plain")
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec["ms"] += ms
+            rec["ms"] += t["ms"]
+            rec["device_ms"] += t["device_ms"]
             rec["plain_ms"] += plain_ms
-            if lib_ms is not None:
-                rec["library_ms"] = lib_ms
+            if t["library_ms"] is not None:
+                rec["library_ms"] = t["library_ms"]
             bytes_total += nbytes
             ops_total += ops
         rec["bound_ms"], rec["bound_by"] = bound(bytes_total, ops_total)
@@ -594,10 +661,9 @@ def train_kernel_inputs(model, batch, seed: int = 7) -> dict:
     return {"warp_variance_bwd": warp, "img_sample": sample, "img_sample_bwd": sample_bwd}
 
 
-def grid_sample_bwd_library_ms(imgs, x, y, g) -> float:
-    """The backward of one ``F.grid_sample`` (bilinear, border,
-    align-corners) on the same inputs and cotangent, for scale: gradients
-    of the maps and of the grid; the port never calls it."""
+def grid_sample_bwd_library(imgs, x, y, g):
+    """The backward of ``F.grid_sample`` (bilinear, border, align-corners,
+    NCHW) for the same cotangent: gradients of the maps and of the grid."""
     import torch.nn.functional as F
 
     V, H, W, C = imgs.shape
@@ -612,7 +678,7 @@ def grid_sample_bwd_library_ms(imgs, x, y, g) -> float:
         with torch.enable_grad():
             return torch.autograd.grad(out, (nchw, grid), g_nchw, retain_graph=True)
 
-    return median_ms(backward, 10)
+    return backward
 
 
 # entry -> (kernel, instance or None, its Pallas kernel, work, library yardstick or None)
@@ -621,9 +687,9 @@ TRAIN_KERNELS = {
                           "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:244", warp_bwd_work, None),
     "img_sample": ("img_sample", "forward on the training path",
                    "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106", sample_work,
-                   grid_sample_library_ms),
+                   grid_sample_library),
     "img_sample_bwd": ("img_sample_bwd", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:458",
-                       sample_bwd_work, grid_sample_bwd_library_ms),
+                       sample_bwd_work, grid_sample_bwd_library),
 }
 
 
@@ -639,7 +705,7 @@ def phase_kernels_train(inputs: dict) -> dict:
         kernel, plain = kernel_pair(name)
         rec = {"name": name, "route": "cuda", "source": f"boostmvsnerfs_torch/csrc/{name}.cu",
                "replaces": replaces, "path": "train", "max_abs_err": 0.0, "ms": 0.0,
-               "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+               "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
         if instance:
             rec["instance"] = instance
         ops_total = bytes_total = 0.0
@@ -651,23 +717,23 @@ def phase_kernels_train(inputs: dict) -> dict:
             errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
             scales = [float(b.abs().max()) for b in want]
             del got, want
-            ms = median_ms(lambda: kernel(*args), 20)
+            t = timings(lambda: kernel(*args), library(*args) if library else None)
             plain_ms = median_ms(lambda: plain(*args), 3, warmup=1)
-            lib_ms = library(*args) if library else None
             nbytes, ops = work(*args)
             bms, by = bound(nbytes, ops)
             emit(phase="kernels_train", kernel=name, instance=instance, at=label,
                  shapes=[list(a.shape) for a in args], max_abs_err=errs, largest=scales,
                  relative_err=[e / max(c, 1e-30) for e, c in zip(errs, scales)],
-                 tolerance=KERNEL_RTOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                 bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops, roofline_share=bms / ms)
+                 tolerance=KERNEL_RTOL, **t, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                 bytes=nbytes, ops=ops, **shares(bms, t))
             for e, c in zip(errs, scales):
                 require(e <= KERNEL_RTOL * c, f"{name} at {label}: error {e} vs largest {c}")
             rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
-            rec["ms"] += ms
+            rec["ms"] += t["ms"]
+            rec["device_ms"] += t["device_ms"]
             rec["plain_ms"] += plain_ms
-            if lib_ms is not None:
-                rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
+            if t["library_ms"] is not None:
+                rec["library_ms"] = (rec["library_ms"] or 0.0) + t["library_ms"]
             bytes_total += nbytes
             ops_total += ops
         rec["bound_ms"], rec["bound_by"] = bound(bytes_total, ops_total)

@@ -78,15 +78,31 @@ def test_warp_variance_kernel(dev, rig, C):
     assert launch_counts()["warp_variance"] == 1
 
 
-@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
-def test_img_sample_kernel(dev, padding_mode):
-    rng = np.random.default_rng(1)
-    V, H, W, C, P = 6, 30, 44, 11, 5000
+# Sampler cases: every channel count of the model paths (3, 11, 35) and
+# others around the kernels' tiles (1, 8, 32); P leaves a ragged last tile,
+# and at P = 37 one tile spans every view. The first samples sit on the frame's
+# edges, on integers, at the zeros padding's clamp bounds and behind the
+# camera (~1e10 px).
+SAMPLE_WIDTHS = (1, 3, 8, 11, 32, 35)
+SAMPLE_COUNTS = (37, 5001)
+
+
+def _sample_case(dev, seed, C, P, V=6, H=30, W=44):
+    rng = np.random.default_rng(seed)
     imgs = torch.from_numpy(rng.standard_normal((V, H, W, C)).astype(np.float32)).to(dev)
     x = rng.uniform(-4, W + 3, (V, P)).astype(np.float32)
     y = rng.uniform(-4, H + 3, (V, P)).astype(np.float32)
-    x[:, :3], y[:, :3] = [0.0, W - 1, 1e10], [H - 1, 0.0, -1e10]
-    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    x[:, :8] = [0.0, W - 1, 1e10, 3.0, 7.5, -2.0, W + 1, -1e10]
+    y[:, :8] = [H - 1, 0.0, -1e10, 2.0, 4.0, H + 1, -2.0, 1e10]
+    g = torch.from_numpy(rng.standard_normal((V, P, C)).astype(np.float32)).to(dev)
+    return imgs, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), g
+
+
+@pytest.mark.parametrize("P", SAMPLE_COUNTS)
+@pytest.mark.parametrize("C", SAMPLE_WIDTHS)
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+def test_img_sample_kernel(dev, padding_mode, C, P):
+    imgs, x, y, _ = _sample_case(dev, 1, C, P)
     _close(fused_row_sample(imgs, x, y, padding_mode), row_sample_plain(imgs, x, y, padding_mode),
            1e-5, 1e-6)
     assert launch_counts()["img_sample"] == 1
@@ -185,21 +201,28 @@ def test_warp_variance_bwd_kernel(dev, rig, C):
     assert launch_counts()["warp_variance_bwd"] == 1
 
 
+@pytest.mark.parametrize("P", SAMPLE_COUNTS)
+@pytest.mark.parametrize("C", SAMPLE_WIDTHS)
 @pytest.mark.parametrize("padding_mode", ["border", "zeros"])
-def test_img_sample_bwd_kernel(dev, padding_mode):
-    rng = np.random.default_rng(7)
-    V, H, W, C, P = 6, 30, 44, 11, 5000
-    imgs = torch.from_numpy(rng.standard_normal((V, H, W, C)).astype(np.float32)).to(dev)
-    x = rng.uniform(-4, W + 3, (V, P)).astype(np.float32)
-    y = rng.uniform(-4, H + 3, (V, P)).astype(np.float32)
-    x[:, :5], y[:, :5] = [0.0, W - 1, 1e10, 3.0, 7.5], [H - 1, 0.0, -1e10, 2.0, 4.0]
-    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
-    g = torch.from_numpy(rng.standard_normal((V, P, C)).astype(np.float32)).to(dev)
+def test_img_sample_bwd_kernel(dev, padding_mode, C, P):
+    imgs, x, y, g = _sample_case(dev, 7, C, P)
     got = row_sample_bwd(imgs, x, y, g, padding_mode)
     want = row_sample_bwd_plain(imgs, x, y, g, padding_mode)
     for a, b, name in zip(got, want, ("d_imgs", "d_x", "d_y")):
         _close_scaled(a, b, name)
     assert launch_counts()["img_sample_bwd"] == 1
+
+
+@pytest.mark.parametrize("C", [11, 35])
+def test_img_sample_bwd_coordinate_cotangents_are_deterministic(dev, C):
+    """d x and d y are summed over channels in shared memory in channel
+    order, with no atomic: two launches give the same bits."""
+    imgs, x, y, g = _sample_case(dev, 8, C, 5001)
+    _, dx1, dy1 = row_sample_bwd(imgs, x, y, g, "border")
+    _, dx2, dy2 = row_sample_bwd(imgs, x, y, g, "border")
+    torch.cuda.synchronize()
+    assert torch.equal(dx1, dx2) and torch.equal(dy1, dy2)
+    assert float(dx1.abs().max()) > 0 and float(dy1.abs().max()) > 0
 
 
 def test_autograd_functions_launch_forward_and_backward_kernels(dev):

@@ -98,6 +98,11 @@ def test_warp_plain_matches_pallas_interpret():
 # --------------------------------------------------------------- img_sample
 
 
+# the maps' channel counts on the model paths: MVSNeRF's colour lookup,
+# ENeRF's level 1 (8 features + RGB) and level 0 (32 + RGB)
+SAMPLE_WIDTHS = (3, 11, 35)
+
+
 def _sample_inputs(seed, V=4, H=10, W=14, C=11, P=120):
     rng = np.random.default_rng(seed)
     imgs = rng.standard_normal((V, H, W, C)).astype(np.float32)
@@ -108,18 +113,20 @@ def _sample_inputs(seed, V=4, H=10, W=14, C=11, P=120):
     return imgs, x, y
 
 
+@pytest.mark.parametrize("C", SAMPLE_WIDTHS)
 @pytest.mark.parametrize("padding_mode", ["border", "zeros"])
-def test_sample_plain_matches_jax_exact(padding_mode):
-    imgs, x, y = _sample_inputs(3)
+def test_sample_plain_matches_jax_exact(padding_mode, C):
+    imgs, x, y = _sample_inputs(3, C=C)
     got = row_sample_plain(*map(torch.from_numpy, (imgs, x, y)), padding_mode)
     want = jax.vmap(lambda im, c: sampling.grid_sample_2d(im, c, padding_mode))(
         jnp.asarray(imgs), jnp.stack([jnp.asarray(x), jnp.asarray(y)], -1))
     close(got, want)
 
 
+@pytest.mark.parametrize("C", SAMPLE_WIDTHS)
 @pytest.mark.parametrize("padding_mode", ["border", "zeros"])
-def test_sample_plain_matches_pallas_interpret(padding_mode):
-    imgs, x, y = _sample_inputs(4, P=6 * 20)
+def test_sample_plain_matches_pallas_interpret(padding_mode, C):
+    imgs, x, y = _sample_inputs(4, C=C, P=6 * 20)
     x, y = np.clip(x, -50, 50), np.clip(y, -50, 50)  # finite rows for the band origin
     V, H = imgs.shape[:2]
     got = row_sample_plain(*map(torch.from_numpy, (imgs, x, y)), padding_mode)
@@ -166,12 +173,13 @@ def test_warp_bwd_plain_matches_pallas_interpret(rig, C):
     assert np.abs(got[1].numpy()).max() > 0
 
 
+@pytest.mark.parametrize("C", SAMPLE_WIDTHS)
 @pytest.mark.parametrize("padding_mode", ["border", "zeros"])
-def test_row_sample_bwd_plain_matches_pallas_interpret(padding_mode):
+def test_row_sample_bwd_plain_matches_pallas_interpret(padding_mode, C):
     """Kernel #4: the plain backward against JAX's custom VJP in interpret
     mode, a window of every row. The samples include the frame's edges and
     integer points, where both follow the Pallas convention (dx = 0)."""
-    imgs, x, y = _sample_inputs(15, P=6 * 20)
+    imgs, x, y = _sample_inputs(15, C=C, P=6 * 20)
     x, y = np.clip(x, -50, 50), np.clip(y, -50, 50)
     x[:, 3:6], y[:, 3:6] = [2.0, 5.0, 0.5], [3.0, 0.25, 7.0]
     V, H, W, C = imgs.shape
