@@ -1,236 +1,411 @@
-// The whole ENeRF IBR head per sample, f32, for sm_90a.
+// The whole ENeRF IBR head per sample, on bf16 tensor cores, for sm_90a.
 //
 // Replaces the Pallas TPU kernel _head_kernel (pallas_call at
 // boostmvsnerfs_tpu/ops/pallas/enerf_head.py:221), entry fused_nerf_head
 // (:186): view-direction conditioning, mean/var over views, global_fc,
 // softmax view pooling, fc, lr0, softplus sigma, color0/color1 and the
-// softmax blend of the source-view RGB.
+// softmax blend of the source-view RGB. Its contract (enerf_head.py:28-30,
+// precision DEFAULT: bf16 multipliers on the TPU) is kept: every dense
+// layer rounds both operands to bf16 and sums in f32; the statistics,
+// biases, ReLUs, softmaxes, softplus and the RGB blend (a selection matmul
+// on the TPU, exact here) stay in f32.
 //
-// What bounds it on an H100: f32 arithmetic. A sample costs ~25 kflop of
-// small dense layers (S=3, C=11) against ~230 bytes of input and 16 of
-// output, so at the f32 SIMT rate the flops take ~5x longer than the bytes.
-// The design keeps every activation in registers (one thread per sample,
-// nothing but the raw (rgb, sigma) written back), stages all head weights
-// once per block in shared memory where every lane of a warp reads the same
-// weight at once (a broadcast, no bank conflicts), and runs a grid-stride
-// loop over a grid of a few blocks per SM so each block loads the ~40 KB
-// of weights once. Templates on S and C unroll every layer so the per-view
-// arrays stay in registers. The tensor cores are left for a later version.
+// What bounds it on an H100: bytes. A sample (S=3, C=11) moves ~228 bytes
+// against 12,804 multiply-adds, which take a third of that time at the
+// bf16 tensor-core rate.
+//
+// Design. Each warp takes 16 samples on M of mma.sync m16n8k16 (bf16 in,
+// f32 sums) and walks over the sample tiles of a persistent grid. The
+// tile's feat, dirs and vox rows are contiguous in device memory (one
+// batch, 16 consecutive samples), so the warp copies them into its own
+// shared memory with coalesced loads and reads its fragments from there.
+// The per-view layers (view_fc, global_fc's image part, color0's [feat,
+// dir] part) run as S mma sequences over the same B fragments; an f32
+// accumulator of n-tiles 2k and 2k + 1, packed to bf16x2, is the k-th A
+// fragment of the next layer, so activations stay in registers. The mean
+// and variance over views are element-wise across the views' fragments
+// (same register positions); the term shared by the views (global_fc over
+// [var, avg], color0 over [x, vox, agg]) is computed once and starts every
+// view's accumulator. The one-output layers (agg_w_fc, sigma, color1) are
+// partial dot products in each thread plus two quad shuffles, and so are
+// the softmaxes' sums over views. The weights (bf16, ~27-39 KB, in
+// nn.Linear's (out, in) layout with zero-padded k16 widths and rows 8
+// elements longer, for conflict-free ldmatrix) are copied into shared
+// memory once per block.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int HID = 64;
+constexpr int WARPS = 4;
 
 __device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.f); }
 
 // log1p(exp(-|x|)) + max(x, 0), the form jax.nn.softplus computes
 __device__ __forceinline__ float softplus(float x) { return log1pf(expf(-fabsf(x))) + fmaxf(x, 0.f); }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 operands, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16x2 of (lo, hi), round to nearest even; lo in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int N8>
+__device__ __forceinline__ void zero(float (&acc)[N8][4]) {
+#pragma unroll
+  for (int j = 0; j < N8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+// acc += a (16 x 16 KS) * W^T, W rows of LDW elements at shared address w
+// from column k0 on: one ldmatrix.x4 gives the B fragments of two n-tiles
+template <int KS, int N8, int LDW>
+__device__ __forceinline__ void dense(const uint32_t (&a)[KS][4], uint32_t w, int k0, float (&acc)[N8][4]) {
+  const int lane = threadIdx.x & 31, m = lane >> 3;
+  const uint32_t base = w + (uint32_t)(((8 * (m >> 1) + (lane & 7)) * LDW + k0 + (m & 1) * 8) * 2);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int j = 0; j < N8; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, base + (j * 8 * LDW + kk * 16) * 2);
+      mma(acc[j], a[kk], b[0], b[1]);
+      mma(acc[j + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// A fragments from accumulators: k-step k takes n-tiles 2k and 2k + 1
+template <int N8>
+__device__ __forceinline__ void to_frags(const float (&v)[N8][4], uint32_t (&a)[N8 / 2][4]) {
+#pragma unroll
+  for (int k = 0; k < N8 / 2; ++k) {
+    a[k][0] = pack(v[2 * k][0], v[2 * k][1]);
+    a[k][1] = pack(v[2 * k][2], v[2 * k][3]);
+    a[k][2] = pack(v[2 * k + 1][0], v[2 * k + 1][1]);
+    a[k][3] = pack(v[2 * k + 1][2], v[2 * k + 1][3]);
+  }
+}
+
+// Row r of a dot product of the accumulator rows with an f32 vector w of
+// bf16 values: rows g (r = 0: elements 0, 1) or g + 8 (r = 1: 2, 3)
+template <int N8>
+__device__ __forceinline__ float row_dot(const float (&v)[N8][4], const float* w, int r) {
+  const int t = threadIdx.x & 3;
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < N8; ++j)
+    s += bf(v[j][2 * r]) * w[8 * j + 2 * t] + bf(v[j][2 * r + 1]) * w[8 * j + 2 * t + 1];
+  return quad_sum(s);
+}
+
+// Padded widths: CP = C in k16 steps (the per-view channels, view_fc's
+// outputs and each third of global_fc's input), CV = C + 4 in k16 steps
+// (color0's per-view input [feat, dir]).
 template <int S, int C, bool VIEWDIR>
 struct Layout {
-  static constexpr int VW = 0;                                // view_fc (C, 4)
-  static constexpr int VB = VW + (VIEWDIR ? C * 4 : 0);       // (C)
-  static constexpr int GW = VB + (VIEWDIR ? C : 0);           // global_fc (32, 3C)
-  static constexpr int GB = GW + 32 * 3 * C;
-  static constexpr int AW = GB + 32;                          // agg_w_fc (1, 32)
-  static constexpr int AB = AW + 32;
-  static constexpr int FW = AB + 1;                           // fc (16, 32)
-  static constexpr int FB = FW + 16 * 32;
-  static constexpr int LW = FB + 16;                          // lr0 (64, 24)
-  static constexpr int LB = LW + HID * 24;
-  static constexpr int SW = LB + HID;                         // sigma (1, 64)
-  static constexpr int SB = SW + HID;
-  static constexpr int IN0 = HID + 24 + C + 4;                // color0 input width
-  static constexpr int CW = SB + 1;                           // color0 (64, IN0)
-  static constexpr int CB = CW + HID * IN0;
-  static constexpr int C1W = CB + HID;                        // color1 (1, 64)
-  static constexpr int C1B = C1W + HID;
-  static constexpr int N = C1B + 1;
+  static constexpr int CP = (C + 15) / 16 * 16, CV = (C + 4 + 15) / 16 * 16;
+  // bf16 matrices (ops/cuda/enerf_head.py::pack_head_weights), rows of K + 8
+  static constexpr int LV = 16 + 8;                 // view_fc (CP, 16): [dir 4, 0]
+  static constexpr int LG = 3 * CP + 8;             // global_fc (32, 3 CP): [img, var, avg]
+  static constexpr int LF = 32 + 8;                 // fc (16, 32)
+  static constexpr int LL = 32 + 8;                 // lr0 (64, 32): [vox 8, agg 16, 0]
+  static constexpr int LB = 96 + 8;                 // color0 (64, 96): [x 64, vox 8, agg 16, 0]
+  static constexpr int LC = CV + 8;                 // color0 (64, CV): [feat C, dir 4, 0]
+  static constexpr int MV = 0;
+  static constexpr int MG = MV + (VIEWDIR ? CP * LV : 0);
+  static constexpr int MF = MG + 32 * LG;
+  static constexpr int ML = MF + 16 * LF;
+  static constexpr int MB = ML + HID * LL;
+  static constexpr int MC = MB + HID * LB;
+  static constexpr int M_N = MC + HID * LC;
+  // float32 vectors: biases, and the one-output layers' weights as bf16 values
+  static constexpr int BV = 0;                      // view_fc bias (CP)
+  static constexpr int BG = BV + CP;                // global_fc bias (32)
+  static constexpr int WA = BG + 32, BA = WA + 32;  // agg_w_fc (32), bias (padded to 4)
+  static constexpr int BF = BA + 4;                 // fc bias (16)
+  static constexpr int BL = BF + 16;                // lr0 bias (64)
+  static constexpr int WS = BL + HID, BS = WS + HID;  // sigma (64), bias (4)
+  static constexpr int BC = BS + 4;                 // color0 bias (64)
+  static constexpr int WC = BC + HID, BC1 = WC + HID;  // color1 (64), bias (4)
+  static constexpr int V_N = BC1 + 4;
+  // per warp staging (floats): feat (S, 16, C), dirs (S, 16, 4), vox (16, 8)
+  static constexpr int SF = 0, SD = S * 16 * C, SX = SD + S * 16 * 4, STAGE = SX + 16 * 8;
+  static constexpr size_t SMEM = 2 * (size_t)M_N + 4 * (size_t)V_N + 4 * (size_t)WARPS * STAGE;
 };
 
 template <int S, int C, bool VIEWDIR>
-__global__ void __launch_bounds__(128) enerf_head_kernel(
-    const float* __restrict__ weights,  // packed, Layout<S, C, VIEWDIR>
-    const float* __restrict__ vox,      // (B, P, 8)
-    const float* __restrict__ feat,     // (B, S, P, C)
-    const float* __restrict__ dirs,     // (B, S, P, 4)
-    float* __restrict__ out,            // (B, P, 4)
+__global__ void __launch_bounds__(WARPS * 32, 3) enerf_head_kernel(
+    const __nv_bfloat16* __restrict__ mats,  // Layout M*
+    const float* __restrict__ vecs,          // Layout V*
+    const float* __restrict__ vox,           // (B, P, 8)
+    const float* __restrict__ feat,          // (B, S, P, C)
+    const float* __restrict__ dirs,          // (B, S, P, 4)
+    float* __restrict__ out,                 // (B, P, 4)
     int B, long long P) {
   using L = Layout<S, C, VIEWDIR>;
-  extern __shared__ float w[];
-  for (int i = threadIdx.x; i < L::N; i += blockDim.x) w[i] = weights[i];
+  constexpr int NC = L::CP / 8, KC = L::CP / 16, KV = L::CV / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  float* vec = reinterpret_cast<float*>(smem + 2 * L::M_N);
+  float* stage = vec + L::V_N + warp * L::STAGE;
+  for (int i = tid; i < L::M_N * 2 / 16; i += WARPS * 32)
+    reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(mats)[i];
+  for (int i = tid; i < L::V_N; i += WARPS * 32) vec[i] = vecs[i];
   __syncthreads();
+  const uint32_t w = smem_addr(smem);
 
-  const long long total = (long long)B * P;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (long long)gridDim.x * blockDim.x) {
-    const long long b = t / P, p = t - b * P;
-    float f0[S][C], d[S][4];
+  const long long per_b = (P + 15) / 16, tiles = per_b * B;
+  for (long long tile = (long long)blockIdx.x * WARPS + warp; tile < tiles;
+       tile += (long long)gridDim.x * WARPS) {
+    const long long b = tile / per_b, p0 = (tile - b * per_b) * 16;
+    const int n = (int)(P - p0 < 16 ? P - p0 : 16);
+    __syncwarp();  // the previous tile's reads of the staging are done
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const float* fp = feat + ((b * S + s) * P + p) * C;
-      const float* dp = dirs + ((b * S + s) * P + p) * 4;
-#pragma unroll
-      for (int c = 0; c < C; ++c) f0[s][c] = fp[c];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) d[s][k] = dp[k];
+      const float* fp = feat + ((b * S + s) * P + p0) * C;
+      const float* dp = dirs + ((b * S + s) * P + p0) * 4;
+      for (int i = lane; i < 16 * C; i += 32) stage[L::SF + s * 16 * C + i] = i < n * C ? __ldg(fp + i) : 0.f;
+      for (int i = lane; i < 16 * 4; i += 32) stage[L::SD + s * 64 + i] = i < n * 4 ? __ldg(dp + i) : 0.f;
     }
+    for (int i = lane; i < 16 * 8; i += 32)
+      stage[L::SX + i] = i < n * 8 ? __ldg(vox + (b * P + p0) * 8 + i) : 0.f;
+    __syncwarp();
+    // staged values: feature channel c and dir component k of view s, tile row r
+    auto f0 = [&](int s, int r, int c) { return c < C ? stage[L::SF + (s * 16 + r) * C + c] : 0.f; };
+    auto dir = [&](int s, int r, int k) { return k < 4 ? stage[L::SD + (s * 16 + r) * 4 + k] : 0.f; };
+    // [feat, dir] column c of view s (color0's per-view input)
+    auto fd = [&](int s, int r, int c) { return c < C ? f0(s, r, c) : dir(s, r, c - C); };
 
-    // --- Agg: view conditioning, mean/var over views, softmax pooling ---
-    float fs[S][C];
+    // --- Agg: view conditioning, mean/var over views, global_fc ---
+    float fs[S][NC][4];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float a = f0[s][c];
-        if (VIEWDIR) {
-          float h = w[L::VB + c];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) h += w[L::VW + c * 4 + k] * d[s][k];
-          a += relu(h);
-        }
-        fs[s][c] = a;
+      if (VIEWDIR) {
+        uint32_t a[1][4] = {{pack(dir(s, g, 2 * t), dir(s, g, 2 * t + 1)),
+                             pack(dir(s, g + 8, 2 * t), dir(s, g + 8, 2 * t + 1)), 0u, 0u}};
+        zero(fs[s]);
+        dense<1, NC, L::LV>(a, w + 2 * L::MV, 0, fs[s]);
       }
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1), r = g + (e >> 1) * 8;
+          fs[s][j][e] = f0(s, r, c) + (VIEWDIR ? relu(fs[s][j][e] + vec[L::BV + c]) : 0.f);
+        }
     }
-    float avg[C], var[C];
+    float g32[S][4][4];
+    {
+      float avg[NC][4], var[NC][4];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float m = 0.f;
+      for (int j = 0; j < NC; ++j)
 #pragma unroll
-      for (int s = 0; s < S; ++s) m += fs[s][c];
-      m = m / S;
-      float v = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          float m = 0.f;
 #pragma unroll
-      for (int s = 0; s < S; ++s) v += (fs[s][c] - m) * (fs[s][c] - m);
-      avg[c] = m;
-      var[c] = v / S;
-    }
-    float g[S][32];
+          for (int s = 0; s < S; ++s) m += fs[s][j][e];
+          m = m / S;
+          float v = 0.f;
 #pragma unroll
-    for (int o = 0; o < 32; ++o) {
-      const float* row = w + L::GW + o * 3 * C;  // [img (C), var (C), avg (C)]
-      float stat = w[L::GB + o];
-#pragma unroll
-      for (int c = 0; c < C; ++c) stat += row[C + c] * var[c] + row[2 * C + c] * avg[c];
+          for (int s = 0; s < S; ++s) v += (fs[s][j][e] - m) * (fs[s][j][e] - m);
+          avg[j][e] = m;
+          var[j][e] = v / S;
+        }
+      uint32_t a[KC][4];
+      float stat[4][4];
+      zero(stat);
+      to_frags(var, a);
+      dense<KC, 4, L::LG>(a, w + 2 * L::MG, L::CP, stat);
+      to_frags(avg, a);
+      dense<KC, 4, L::LG>(a, w + 2 * L::MG, 2 * L::CP, stat);
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        float a = stat;
 #pragma unroll
-        for (int c = 0; c < C; ++c) a += row[c] * fs[s][c];
-        g[s][o] = relu(a);
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) g32[s][j][e] = stat[j][e] + vec[L::BG + 8 * j + 2 * t + (e & 1)];
+        to_frags(fs[s], a);
+        dense<KC, 4, L::LG>(a, w + 2 * L::MG, 0, g32[s]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) g32[s][j][e] = relu(g32[s][j][e]);
       }
     }
-    float aw[S], mx = 0.f;  // the logits are relu outputs, so the max is >= 0
+    // softmax pooling over views, fc
+    float im[4][4];
+    {
+      float wt[2][S];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      float a = w[L::AB];
+      for (int r = 0; r < 2; ++r) {
+        float mx = 0.f;  // the logits are relu outputs, so the max is >= 0
 #pragma unroll
-      for (int o = 0; o < 32; ++o) a += w[L::AW + o] * g[s][o];
-      aw[s] = relu(a);
-      mx = fmaxf(mx, aw[s]);
+        for (int s = 0; s < S; ++s) {
+          wt[r][s] = relu(row_dot(g32[s], vec + L::WA, r) + vec[L::BA]);
+          mx = fmaxf(mx, wt[r][s]);
+        }
+        float z = 0.f;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          wt[r][s] = expf(wt[r][s] - mx);
+          z += wt[r][s];
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) wt[r][s] = wt[r][s] / z;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float a = 0.f;
+#pragma unroll
+          for (int s = 0; s < S; ++s) a += g32[s][j][e] * wt[e >> 1][s];
+          im[j][e] = a;
+        }
     }
-    float z = 0.f;
+    uint32_t va[2][4];  // [vox 8, agg 16, 0 8]: lr0's input, and color0's from column 64
+    {
+      uint32_t a[2][4];
+      to_frags(im, a);
+      float agg[2][4];
+      zero(agg);
+      dense<2, 2, L::LF>(a, w + 2 * L::MF, 0, agg);
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      aw[s] = expf(aw[s] - mx);
-      z += aw[s];
-    }
-    float im[32];
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int o = 0; o < 32; ++o) {
-      float a = 0.f;
-#pragma unroll
-      for (int s = 0; s < S; ++s) a += g[s][o] * (aw[s] / z);
-      im[o] = a;
-    }
-    float vi[24];  // [vox (8), aggregated image feature (16)]
-    const float* vp = vox + t * 8;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) vi[k] = vp[k];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float a = w[L::FB + j];
-#pragma unroll
-      for (int o = 0; o < 32; ++o) a += w[L::FW + j * 32 + o] * im[o];
-      vi[8 + j] = relu(a);
+        for (int e = 0; e < 4; ++e) agg[j][e] = relu(agg[j][e] + vec[L::BF + 8 * j + 2 * t + (e & 1)]);
+      const float* vx = stage + L::SX;
+      va[0][0] = pack(vx[g * 8 + 2 * t], vx[g * 8 + 2 * t + 1]);
+      va[0][1] = pack(vx[(g + 8) * 8 + 2 * t], vx[(g + 8) * 8 + 2 * t + 1]);
+      va[0][2] = pack(agg[0][0], agg[0][1]);
+      va[0][3] = pack(agg[0][2], agg[0][3]);
+      va[1][0] = pack(agg[1][0], agg[1][1]);
+      va[1][1] = pack(agg[1][2], agg[1][3]);
+      va[1][2] = va[1][3] = 0u;
     }
 
     // --- trunk and sigma ---
-    float x[HID];
-    float sg = w[L::SB];
+    float x[8][4];
+    zero(x);
+    dense<2, 8, L::LL>(va, w + 2 * L::ML, 0, x);
 #pragma unroll
-    for (int h = 0; h < HID; ++h) {
-      float a = w[L::LB + h];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int k = 0; k < 24; ++k) a += w[L::LW + h * 24 + k] * vi[k];
-      x[h] = relu(a);
-      sg += w[L::SW + h] * x[h];
-    }
+      for (int e = 0; e < 4; ++e) x[j][e] = relu(x[j][e] + vec[L::BL + 8 * j + 2 * t + (e & 1)]);
+    const float sg0 = softplus(row_dot(x, vec + L::WS, 0) + vec[L::BS]);
+    const float sg1 = softplus(row_dot(x, vec + L::WS, 1) + vec[L::BS]);
 
-    // --- color: per-view weights from color0/color1, softmax RGB blend ---
-    float cw[S];
+    // --- color: color0 over [x, vox, agg] once, over [feat, dir] per view ---
+    float base[8][4];
+    {
+      uint32_t xa[4][4], a[6][4];
+      to_frags(x, xa);
 #pragma unroll
-    for (int s = 0; s < S; ++s) cw[s] = w[L::C1B];
-#pragma unroll 1
-    for (int h = 0; h < HID; ++h) {
-      const float* row = w + L::CW + h * L::IN0;  // [x (64), vi (24), feat (C), dir (4)]
-      float base = w[L::CB + h];
+      for (int k = 0; k < 6; ++k)
 #pragma unroll
-      for (int k = 0; k < HID; ++k) base += row[k] * x[k];
+        for (int r = 0; r < 4; ++r) a[k][r] = k < 4 ? xa[k][r] : va[k - 4][r];
 #pragma unroll
-      for (int k = 0; k < 24; ++k) base += row[HID + k] * vi[k];
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) base[j][e] = vec[L::BC + 8 * j + 2 * t + (e & 1)];
+      dense<6, 8, L::LB>(a, w + 2 * L::MB, 0, base);
+    }
+    float cw[2][S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      uint32_t a[KV][4];
+#pragma unroll
+      for (int k = 0; k < KV; ++k) {
+        const int c = 16 * k + 2 * t;
+        a[k][0] = pack(fd(s, g, c), fd(s, g, c + 1));
+        a[k][1] = pack(fd(s, g + 8, c), fd(s, g + 8, c + 1));
+        a[k][2] = pack(fd(s, g, c + 8), fd(s, g, c + 9));
+        a[k][3] = pack(fd(s, g + 8, c + 8), fd(s, g + 8, c + 9));
+      }
+      float h[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[j][e] = base[j][e];
+      dense<KV, 8, L::LC>(a, w + 2 * L::MC, 0, h);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[j][e] = relu(h[j][e]);
+      cw[0][s] = relu(row_dot(h, vec + L::WC, 0) + vec[L::BC1]);
+      cw[1][s] = relu(row_dot(h, vec + L::WC, 1) + vec[L::BC1]);
+    }
+    // softmax over views, RGB blend (f32), one thread per row writes
+    if (t < 2 && g + 8 * t < n) {
+      const int r = t;
+      float mx = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) mx = fmaxf(mx, cw[r][s]);
+      float z = 0.f, e[S];
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        float a = base;
-#pragma unroll
-        for (int c = 0; c < C; ++c) a += row[HID + 24 + c] * f0[s][c];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) a += row[HID + 24 + C + k] * d[s][k];
-        cw[s] += w[L::C1W + h] * relu(a);
+        e[s] = expf(cw[r][s] - mx);
+        z += e[s];
       }
-    }
-    mx = 0.f;
+      float rgb[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      cw[s] = relu(cw[s]);
-      mx = fmaxf(mx, cw[s]);
-    }
-    z = 0.f;
+      for (int s = 0; s < S; ++s)
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      cw[s] = expf(cw[s] - mx);
-      z += cw[s];
+        for (int j = 0; j < 3; ++j) rgb[j] += f0(s, g + 8 * r, C - 3 + j) * (e[s] / z);
+      reinterpret_cast<float4*>(out)[b * P + p0 + g + 8 * r] =
+          make_float4(rgb[0], rgb[1], rgb[2], r ? sg1 : sg0);
     }
-    float4 o4;
-    float rgb[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) rgb[j] += f0[s][C - 3 + j] * (cw[s] / z);
-    }
-    o4.x = rgb[0];
-    o4.y = rgb[1];
-    o4.z = rgb[2];
-    o4.w = softplus(sg);
-    reinterpret_cast<float4*>(out)[t] = o4;
   }
 }
 
 template <int S, int C, bool VIEWDIR>
-int launch(const void* weights, int n_weights, const void* vox, const void* feat,
-           const void* dirs, void* out, int B, long long P, int grid, cudaStream_t stream) {
+int launch(const void* mats, int n_mats, const void* vecs, int n_vecs, const void* vox,
+           const void* feat, const void* dirs, void* out, int B, long long P, int sms,
+           cudaStream_t stream) {
   using L = Layout<S, C, VIEWDIR>;
-  if (n_weights != L::N) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * L::N;
+  if (n_mats != L::M_N || n_vecs != L::V_N) return (int)cudaErrorInvalidValue;
   auto kernel = enerf_head_kernel<S, C, VIEWDIR>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, 128, smem, stream>>>((const float*)weights, (const float*)vox,
-                                      (const float*)feat, (const float*)dirs, (float*)out, B,
-                                      P);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARPS * 32, L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = ((P + 15) / 16 * B + WARPS - 1) / WARPS;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int grid = (int)(blocks < most ? blocks : most);
+  kernel<<<grid, WARPS * 32, L::SMEM, stream>>>((const __nv_bfloat16*)mats, (const float*)vecs,
+                                                (const float*)vox, (const float*)feat,
+                                                (const float*)dirs, (float*)out, B, P);
   return (int)cudaGetLastError();
 }
 
@@ -240,13 +415,13 @@ int launch(const void* weights, int n_weights, const void* vox, const void* feat
 // (8 + RGB) and level-0 (32 + RGB) feature maps (ops/cuda/enerf_head.py
 // SUPPORTED), each with and without view-direction conditioning, each with
 // its own C entry point. Compiled with -DENERF_HEAD_UNIT=0..3 a translation
-// unit holds one instance, and with 4 the dispatcher, so the slow unrolled
-// instances build in parallel (ops/cuda/_build.py UNITS); without the
-// macro one unit holds everything.
-#define HEAD_ARGS                                                                          \
-  const void *weights, int n_weights, const void *vox, const void *feat, const void *dirs, \
-      void *out, int B, long long P, int grid, cudaStream_t st
-#define HEAD_CALL weights, n_weights, vox, feat, dirs, out, B, P, grid, st
+// unit holds one instance, and with 4 the dispatcher, so the instances
+// build in parallel (ops/cuda/_build.py UNITS); without the macro one unit
+// holds everything.
+#define HEAD_ARGS                                                                            \
+  const void *mats, int n_mats, const void *vecs, int n_vecs, const void *vox, const void *feat, \
+      const void *dirs, void *out, int B, long long P, int sms, cudaStream_t st
+#define HEAD_CALL mats, n_mats, vecs, n_vecs, vox, feat, dirs, out, B, P, sms, st
 #ifndef ENERF_HEAD_UNIT
 #define ENERF_HEAD_ALL 1
 #define ENERF_HEAD_UNIT -1
@@ -274,9 +449,10 @@ int enerf_head_3_35(HEAD_ARGS) { return launch<3, 35, false>(HEAD_CALL); }
 #endif
 
 #if ENERF_HEAD_ALL || ENERF_HEAD_UNIT == 4
-int enerf_head_launch(const void* weights, int n_weights, const void* vox, const void* feat,
-                      const void* dirs, void* out, int B, int S, long long P, int C, int viewdir,
-                      int grid, void* stream) {
+int enerf_head_launch(const void* mats, int n_mats, const void* vecs, int n_vecs, const void* vox,
+                      const void* feat, const void* dirs, void* out, int B, int S, long long P,
+                      int C, int viewdir, int sms, void* stream) {
+  if (sms < 1) return (int)cudaErrorInvalidValue;
   if ((long long)B * P == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (S == 3 && C == 11)

@@ -18,6 +18,7 @@ so a run can show which kernels the main path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -161,16 +162,16 @@ def check(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
-def check_inputs(name: str, device: torch.device, **tensors) -> None:
-    """Shared wrapper checks: one CUDA device, float32, contiguous and
-    16-byte aligned. A wrapper is called on tensors that need no gradient:
+def check_inputs(name: str, device: torch.device, dtype=torch.float32, **tensors) -> None:
+    """Shared wrapper checks: one CUDA device, ``dtype`` (float32 unless
+    said), contiguous and 16-byte aligned. A wrapper is called on tensors that need no gradient:
     ``warp_variance`` and ``img_sample`` get theirs through the autograd
     Functions around them (``*_diff``), the others have no backward."""
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
@@ -181,6 +182,16 @@ def check_inputs(name: str, device: torch.device, **tensors) -> None:
                 "torch.no_grad(), or use fused_warp_variance_diff / fused_row_sample_diff "
                 f"for gradients ({', '.join(NO_BACKWARD)} have no backward kernel)"
             )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card: the grid of a persistent kernel."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -17,8 +17,11 @@ phase. Three main paths are driven, each with its kernels checked first:
    time of one PyTorch call computing the same function where one exists,
    the device time of the kernel and of that call (torch.profiler: the
    event time also counts the host's share of a call), and the bound
-   (bytes over 3.35 TB/s or f32 flops over 67 TFLOP/s, the H100 SXM's
-   published peaks, whichever is larger).
+   (bytes over 3.35 TB/s, or bf16 tensor-core operations over 989 TFLOP/s
+   plus f32 operations over 67 TFLOP/s, the H100 SXM's published peaks,
+   whichever is larger). The bf16 kernels (renderer MLP, ENeRF head) are
+   held against their plain versions at bf16, and their error against the
+   f32 plain version must be bf16 rounding and nothing else.
 4. frame   - a reduced-geometry BoostENeRF frame on the card against the
    port on the CPU (plain versions): rgb PSNR must exceed 45 dB.
 5. main    - the first main path, bench.py's workload: BoostENeRF K=4 of
@@ -51,6 +54,7 @@ result, without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -63,10 +67,21 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-# Kernel vs plain version: both f32; the kernels sum in another order (and
-# the head calls expf/log1pf), so the largest error allowed is 1e-4 of the
-# output's largest magnitude (at least 1).
+BF16_TC_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+# Kernel vs plain version: both f32; the kernels sum in another order, so
+# the largest error allowed is 1e-4 of the output's largest magnitude (at
+# least 1).
 KERNEL_RTOL = 1e-4
+# bf16 kernel vs the plain version at bf16: the products are exact in f32
+# on both sides, but the sums run in another order, and where two sums
+# straddle a bf16 rounding boundary the next layer's operand moves by one
+# bf16 ulp (2^-8 relative) and carries through the remaining layers. So
+# the largest error allowed is 1e-2 of the output's largest magnitude (at
+# least 1). Against the f32 plain version the kernel's mean error may be
+# at most BF16_MEAN_RATIO times the bf16 plain version's own: its error is
+# bf16 rounding and nothing else.
+KERNEL_BF16_RTOL = 1e-2
+BF16_MEAN_RATIO = 1.5
 MAIN_RAYS = 480 * 736
 MVS_HW = (224, 352)
 MVS_K_BEST = (0, 5, 9, 14)
@@ -145,13 +160,17 @@ def shares(bms: float, t: dict) -> dict:
     return {SHARE_NAMES[k]: None if v is None else bms / v for k, v in t.items()}
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate,
+    or f32 operations over the f32 rate plus bf16 tensor-core operations
+    over the tensor cores' rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS + tc_ops / BF16_TC_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 # Work of each kernel on given inputs: bytes (each input read once, each
-# output written once) and f32 operations. The warp kernels skip the taps
+# output written once), f32 operations and, for the bf16 kernels, the dense
+# layers' operations on the tensor cores. The warp kernels skip the taps
 # that fall outside the source image, so their tap work counts only the
 # taps of these inputs that land inside (``live_tap_share``); the image
 # samplers read only the map pixels their taps touch (``touched_pixels``).
@@ -208,12 +227,14 @@ def sample_work(imgs, x, y, padding_mode="border"):
 
 
 def head_work(params, vox, feat, dirs):
+    """The dense layers' multiply-adds per sample, all on bf16 tensor cores
+    (the kernel's one contract)."""
     B, S, P, C = feat.shape
     macs = (S * C * 4 + 2 * 32 * C + S * 32 * C + S * 32 + 16 * 32 + 64 * 24 + 64
             + 64 * 88 + S * 64 * (C + 4) + S * 64)
     n_weights = sum(w.numel() + b.numel() for w, b in params.values())
     nbytes = 4 * (vox.numel() + feat.numel() + dirs.numel() + 4 * B * P + n_weights)
-    return nbytes, 2 * macs * B * P
+    return nbytes, 0.0, 2 * macs * B * P
 
 
 def warp_bwd_work(feats, pm, dv, g):
@@ -242,14 +263,18 @@ def tri_work(vol, xyz):
     return 4 * (vol.numel() + xyz.numel() + n * C), n * (8 * (2 + 2 * C) + 12)
 
 
-def mlp_work(params, pts, feat, dirs, encode_freqs=0):
-    """Multiply-adds of every layer (the weights' size) per sample, plus
-    the sines and cosines of an in-kernel encoding."""
+def mlp_work(params, pts, feat, dirs, encode_freqs=0, compute_dtype=torch.bfloat16):
+    """Multiply-adds of every layer (the weights' size) per sample, on the
+    tensor cores at bf16 and as f32 operations at f32, plus the sines and
+    cosines of an in-kernel encoding (f32)."""
     n = pts.shape[0] * pts.shape[1]
     macs = sum(w.numel() for w, _ in params.values())
     n_weights = sum(w.numel() + b.numel() for w, b in params.values())
     nbytes = 4 * (pts.numel() + feat.numel() + dirs.numel() + 4 * n + n_weights)
-    return nbytes, n * (2 * macs + 2 * 3 * encode_freqs)
+    dense_ops, enc_ops = n * 2 * macs, n * 2 * 3 * encode_freqs
+    if compute_dtype == torch.bfloat16:
+        return nbytes, enc_ops, dense_ops
+    return nbytes, enc_ops + dense_ops, 0.0
 
 
 def random_weights(model, seed: int) -> dict:
@@ -305,6 +330,7 @@ def mvs_kernel_inputs(model, batch) -> dict:
         "renderer_mlp": [("render", calls["renderer_mlp"])],
         "renderer_mlp/encoded": [("render", (params, positional_encoding(uvd, freqs), feat,
                                              dirs, 0))],
+        "renderer_mlp/f32": [("render", (*calls["renderer_mlp"], torch.float32))],
     }
 
 
@@ -333,24 +359,28 @@ def grid_sample_3d_library(vol, xyz):
                                  align_corners=True)
 
 
-# entry -> (kernel name, instance or None, its Pallas kernel, work, library yardstick or None)
+# entry -> (kernel name, instance or None, its Pallas kernel, work, library
+# yardstick or None, the kernel's compute dtype)
+F32, BF16 = torch.float32, torch.bfloat16
 ENERF_KERNELS = {
     "warp_variance": ("warp_variance", None, "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:38",
-                      warp_work, None),
+                      warp_work, None, F32),
     "img_sample": ("img_sample", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106",
-                   sample_work, grid_sample_library),
+                   sample_work, grid_sample_library, F32),
     "enerf_head": ("enerf_head", None, "boostmvsnerfs_tpu/ops/pallas/enerf_head.py:45",
-                   head_work, None),
+                   head_work, None, BF16),
 }
 MVS_KERNELS = {
     "tri_sample": ("tri_sample", None, "boostmvsnerfs_tpu/ops/pallas/tri_sample.py:37",
-                   tri_work, grid_sample_3d_library),
+                   tri_work, grid_sample_3d_library, F32),
     "img_sample": ("img_sample", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106",
-                   sample_work, grid_sample_library),
+                   sample_work, grid_sample_library, F32),
     "renderer_mlp": ("renderer_mlp", "raw coordinates, encoded in the kernel",
-                     "boostmvsnerfs_tpu/ops/pallas/mlp.py:169", mlp_work, None),
+                     "boostmvsnerfs_tpu/ops/pallas/mlp.py:169", mlp_work, None, BF16),
     "renderer_mlp/encoded": ("renderer_mlp", "encoded input",
-                             "boostmvsnerfs_tpu/ops/pallas/mlp.py:37", mlp_work, None),
+                             "boostmvsnerfs_tpu/ops/pallas/mlp.py:37", mlp_work, None, BF16),
+    "renderer_mlp/f32": ("renderer_mlp", "raw coordinates, compute_dtype float32",
+                         "boostmvsnerfs_tpu/ops/pallas/mlp.py:169", mlp_work, None, F32),
 }
 
 
@@ -376,42 +406,63 @@ def kernel_pair(name):
     }[name]
 
 
+def bf16_errors(got, want, want_f32) -> dict:
+    """A bf16 kernel's output ``got`` against the plain version at bf16
+    (``want``) and at f32: the mean errors that show the kernel's error is
+    bf16 rounding (the kernel's against f32, at most BF16_MEAN_RATIO times
+    the bf16 plain version's own)."""
+    return {"max_abs_err_vs_f32": float((got - want_f32).abs().max()),
+            "mean_abs_err_vs_f32": float((got - want_f32).abs().mean()),
+            "plain_bf16_mean_abs_err_vs_f32": float((want - want_f32).abs().mean())}
+
+
 def phase_kernels(table: dict, inputs: dict, path: str) -> dict:
-    """Every kernel of ``table`` against its plain version on ``inputs``;
-    returns the summary record of each entry."""
+    """Every kernel of ``table`` against its plain version at the kernel's
+    compute dtype on ``inputs`` (a bf16 kernel also against the f32 plain
+    version); returns the summary record of each entry."""
     summary = {}
-    for entry, (name, instance, replaces, work, library) in table.items():
+    for entry, (name, instance, replaces, work, library, dtype) in table.items():
         kernel, plain = kernel_pair(name)
+        bf16 = dtype == BF16
+        plain_at = functools.partial(plain, compute_dtype=BF16) if bf16 else plain
+        rtol = KERNEL_BF16_RTOL if bf16 else KERNEL_RTOL
         rec = {"name": name, "route": "cuda", "source": f"boostmvsnerfs_torch/csrc/{name}.cu",
-               "replaces": replaces, "path": path, "max_abs_err": 0.0, "ms": 0.0,
-               "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+               "replaces": replaces, "path": path, "compute_dtype": str(dtype).split(".")[-1],
+               "max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "library_ms": None}
         if instance:
             rec["instance"] = instance
-        ops_total = bytes_total = 0.0
+        totals = [0.0, 0.0, 0.0]  # bytes, f32 operations, tensor-core operations
         for label, args in inputs[entry]:
-            got, want = kernel(*args), plain(*args)
+            got, want = kernel(*args), plain_at(*args)
             err = float((got - want).abs().max())
             scale = max(1.0, float(want.abs().max()))
+            vs_f32 = bf16_errors(got, want, plain(*args)) if bf16 else {}
             del got, want
             tensors = [a for a in args if torch.is_tensor(a)]
             t = timings(lambda: kernel(*args), library(*tensors) if library else None)
-            plain_ms = median_ms(lambda: plain(*args), 3, warmup=1)
-            nbytes, ops = work(*args)
-            bms, by = bound(nbytes, ops)
+            plain_ms = median_ms(lambda: plain_at(*args), 3, warmup=1)
+            counts = (*work(*args), 0.0)[:3]
+            bms, by = bound(*counts)
             emit(phase="kernels", path=path, kernel=name, instance=instance, at=label,
-                 shapes=[list(a.shape) for a in tensors],
-                 max_abs_err=err, tolerance=KERNEL_RTOL * scale, **t, plain_ms=plain_ms,
-                 bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops, **shares(bms, t))
-            require(err <= KERNEL_RTOL * scale, f"{name} at {label}: max abs error {err} vs plain")
+                 compute_dtype=rec["compute_dtype"], shapes=[list(a.shape) for a in tensors],
+                 max_abs_err=err, tolerance=rtol * scale, **vs_f32, **t, plain_ms=plain_ms,
+                 bound_ms=bms, bound_by=by, bytes=counts[0], ops=counts[1], tc_ops=counts[2],
+                 **shares(bms, t))
+            require(err <= rtol * scale, f"{name} at {label}: max abs error {err} vs plain")
+            if bf16:
+                require(vs_f32["mean_abs_err_vs_f32"]
+                        <= BF16_MEAN_RATIO * vs_f32["plain_bf16_mean_abs_err_vs_f32"],
+                        f"{name} at {label}: mean error vs f32 {vs_f32}")
+                rec.update(vs_f32)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             rec["ms"] += t["ms"]
             rec["device_ms"] += t["device_ms"]
             rec["plain_ms"] += plain_ms
             if t["library_ms"] is not None:
                 rec["library_ms"] = t["library_ms"]
-            bytes_total += nbytes
-            ops_total += ops
-        rec["bound_ms"], rec["bound_by"] = bound(bytes_total, ops_total)
+            totals = [a + b for a, b in zip(totals, counts)]
+        rec["bound_ms"], rec["bound_by"] = bound(*totals)
         summary[entry] = rec
     return summary
 
@@ -704,7 +755,8 @@ def phase_kernels_train(inputs: dict) -> dict:
     for entry, (name, instance, replaces, work, library) in TRAIN_KERNELS.items():
         kernel, plain = kernel_pair(name)
         rec = {"name": name, "route": "cuda", "source": f"boostmvsnerfs_torch/csrc/{name}.cu",
-               "replaces": replaces, "path": "train", "max_abs_err": 0.0, "ms": 0.0,
+               "replaces": replaces, "path": "train", "compute_dtype": "float32",
+               "max_abs_err": 0.0, "ms": 0.0,
                "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
         if instance:
             rec["instance"] = instance

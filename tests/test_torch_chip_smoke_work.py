@@ -1,9 +1,11 @@
-"""chip_smoke.py's work counts of the image sampler on toy maps (CPU).
+"""chip_smoke.py's work counts and bounds on toy inputs (CPU).
 
 The sampler's bound charges the map bytes that the four bilinear taps can
 touch, not the whole map: a ray block of the fine-tuning step samples a band
 of each map, and a bound that charged the whole map would be slower than
-F.grid_sample's measured time on the same inputs.
+F.grid_sample's measured time on the same inputs. The renderer MLP's bound
+charges its dense layers to the tensor cores at bf16 (989 TFLOP/s) and to
+the f32 units at f32 (67 TFLOP/s).
 """
 
 import importlib.util
@@ -56,3 +58,18 @@ def test_samples_covering_the_map_touch_all_of_it(smoke, padding_mode):
     assert smoke.touched_pixels(imgs, x, y, padding_mode) == V * H * W
     n = x.numel()
     assert smoke.sample_work(imgs, x, y, padding_mode)[0] == 4 * (imgs.numel() + 2 * n + n * C)
+
+
+@pytest.mark.parametrize("compute_dtype,want_ms", [(torch.bfloat16, 2.565), (torch.float32, 37.87)])
+def test_mlp_bound_at_the_main_paths_sample_count(smoke, compute_dtype, want_ms):
+    """The MVSNeRF main path's MLP work (4 x 78,848 rays x 32 samples, F =
+    20, the encoded instance): the published-width MLP's weights on toy
+    (meta) input tensors of the path's sample count."""
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig, RendererMLP
+
+    params = RendererMLP(MVSNeRFConfig(), 20).mlp_params()
+    n = 224 * 352 * 32
+    pts, feat, dirs = (torch.empty(4, n, w, device="meta") for w in (63, 20, 3))
+    ms, by = smoke.bound(*smoke.mlp_work(params, pts, feat, dirs, 0, compute_dtype))
+    assert by == "operations"
+    assert round(ms, 3 if compute_dtype == torch.bfloat16 else 2) == want_ms

@@ -8,10 +8,16 @@ where tests/conftest.py (which imports JAX) is left out:
 
 Tolerances: the warp and sampler kernels round their coordinates and tap
 sums in the plain versions' order, so they agree to a few ulps
-(rtol 1e-5 / atol 1e-6); the head sums ~100-term dot products in another
-order than the plain matmuls (rtol 1e-4 / atol 1e-5); the renderer MLP sums
-up to 191-term dot products through six layers in another order than
-cuBLAS, and is held at 1e-4 of its output's largest magnitude. The two
+(rtol 1e-5 / atol 1e-6). The head and the renderer MLP at bf16 (the head's
+one contract, the MLP's default) are held against their plain versions at
+bf16: the products are exact in f32 on both sides, but the sums run in
+another order, and a sum that straddles a bf16 rounding boundary moves the
+next layer's operand by one bf16 ulp; so 1e-2 of the output's largest
+magnitude (at least 1), chip_smoke.py's bar, and their mean error against
+the f32 plain version at most 1.5 times the bf16 plain version's own. The
+MLP's f32 kernel sums up to 191-term dot products through six layers in
+another order than cuBLAS, and is held at 1e-4 of its output's largest
+magnitude. The two
 backward kernels scatter their feature and image cotangents with atomics,
 whose order changes from run to run, and reduce the depth and coordinate
 cotangents in another order than the plain versions: each output is held
@@ -108,13 +114,24 @@ def test_img_sample_kernel(dev, padding_mode, C, P):
     assert launch_counts()["img_sample"] == 1
 
 
+BF16_RTOL, BF16_MEAN_RATIO = 1e-2, 1.5
+
+
+def _close_bf16(got, want, want_f32):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= BF16_RTOL * max(1.0, float(want.abs().max())), err
+    mean, own = float((got - want_f32).abs().mean()), float((want - want_f32).abs().mean())
+    assert mean <= BF16_MEAN_RATIO * own, (mean, own)
+
+
 @pytest.mark.parametrize("C,viewdir_agg", [(11, True), (11, False), (35, True)])
 def test_enerf_head_kernel(dev, C, viewdir_agg):
     head = NeRFHead(C, viewdir_agg=viewdir_agg)
     head.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(head, C).items()})
     head = head.to(dev)
     rng = np.random.default_rng(2)
-    B, S, P = 2, 3, 3000
+    B, S, P = 2, 3, 3001  # P not a multiple of the 16-sample tile
     vox = torch.from_numpy(rng.standard_normal((B, P, 8)).astype(np.float32)).to(dev)
     feat = rng.standard_normal((B, S, P, C)).astype(np.float32)
     feat[..., -3:] = rng.uniform(0, 1, (B, S, P, 3))
@@ -122,8 +139,9 @@ def test_enerf_head_kernel(dev, C, viewdir_agg):
     dirs = torch.from_numpy(rng.standard_normal((B, S, P, 4)).astype(np.float32)).to(dev)
     with torch.no_grad():
         params = head.head_params()
-        _close(fused_nerf_head(params, vox, feat, dirs), nerf_head_plain(params, vox, feat, dirs),
-               1e-4, 1e-5)
+        _close_bf16(fused_nerf_head(params, vox, feat, dirs),
+                    nerf_head_plain(params, vox, feat, dirs, compute_dtype=torch.bfloat16),
+                    nerf_head_plain(params, vox, feat, dirs))
     assert launch_counts()["enerf_head"] == 1
 
 
@@ -151,8 +169,9 @@ def test_tri_sample_kernel(dev):
     assert launch_counts()["tri_sample"] == 1
 
 
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("encode_freqs", [0, 10])
-def test_renderer_mlp_kernel(dev, encode_freqs):
+def test_renderer_mlp_kernel(dev, encode_freqs, compute_dtype):
     mlp = RendererMLP(MVSNeRFConfig(), 20)
     mlp.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(mlp, 5).items()})
     mlp = mlp.to(dev)
@@ -164,12 +183,33 @@ def test_renderer_mlp_kernel(dev, encode_freqs):
     dirs = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32)).to(dev)
     with torch.no_grad():
         params = mlp.mlp_params()
-        got = fused_renderer_mlp(params, pts, feat, dirs, encode_freqs)
-        want = renderer_mlp_plain(params, pts, feat, dirs, encode_freqs)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+        got = fused_renderer_mlp(params, pts, feat, dirs, encode_freqs, compute_dtype)
+        want = renderer_mlp_plain(params, pts, feat, dirs, encode_freqs, compute_dtype)
+        if compute_dtype == torch.bfloat16:
+            _close_bf16(got, want, renderer_mlp_plain(params, pts, feat, dirs, encode_freqs))
+        else:
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
     assert launch_counts()["renderer_mlp"] == 1
+
+
+def test_renderer_mlp_kernel_default_is_bf16(dev):
+    """The wrapper's default compute dtype is bf16, as in JAX: the same
+    output as compute_dtype=torch.bfloat16, bit for bit."""
+    mlp = RendererMLP(MVSNeRFConfig(), 20)
+    mlp.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(mlp, 7).items()})
+    mlp = mlp.to(dev)
+    rng = np.random.default_rng(8)
+    pts, feat, dirs = (torch.from_numpy(rng.standard_normal((1, 777, w)).astype(np.float32)).to(dev)
+                       for w in (3, 20, 3))
+    with torch.no_grad():
+        params = mlp.mlp_params()
+        a = fused_renderer_mlp(params, pts, feat, dirs, 10)
+        b = fused_renderer_mlp(params, pts, feat, dirs, 10, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert launch_counts()["renderer_mlp"] == 2
 
 
 def _close_scaled(got, want, name):

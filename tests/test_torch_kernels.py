@@ -25,7 +25,11 @@ import pytest
 import torch
 
 from boostmvsnerfs_torch.ops.cuda import _build, launch_counts, reset_launch_counts
-from boostmvsnerfs_torch.ops.cuda.enerf_head import fused_nerf_head, nerf_head_plain
+from boostmvsnerfs_torch.ops.cuda.enerf_head import (
+    fused_nerf_head,
+    nerf_head_plain,
+    pack_head_weights,
+)
 from boostmvsnerfs_torch.ops.cuda.img_sample import (
     fused_row_sample,
     fused_row_sample_diff,
@@ -267,6 +271,73 @@ def test_head_plain_matches_flax(feat_ch, viewdir_agg):
     close(got, want)
 
 
+# The head at bf16 (the kernel's contract: the Pallas kernel's default
+# precision on the TPU) against the flax head in f32 on the CPU: every
+# dense layer's operands move by up to half a bf16 ulp (2^-9 relative).
+# Measured on the CPU: at most 2.3e-3 of the output's magnitude (mean
+# 2e-4); bar 1e-2 of it (at least 1), the card check's bar
+# (chip_smoke.KERNEL_BF16_RTOL).
+HEAD_BF16_BAR = 1e-2
+
+
+@pytest.mark.parametrize("feat_ch,viewdir_agg", [(11, True), (35, True), (11, False)])
+def test_head_plain_bf16_matches_flax(feat_ch, viewdir_agg):
+    head, fhead, variables = _heads(5, feat_ch, viewdir_agg)
+    vox, feat, dirs = _head_inputs(6, C=feat_ch)
+    with torch.no_grad():
+        got = nerf_head_plain(head.head_params(), *map(torch.from_numpy, (vox, feat, dirs)),
+                              compute_dtype=torch.bfloat16).numpy()
+    ifrd = np.concatenate([feat, dirs], -1).transpose(0, 2, 1, 3)  # (B, P, S, C+4)
+    want = np.asarray(fhead.apply(variables, jnp.asarray(vox), jnp.asarray(ifrd)))
+    err = np.abs(got - want)
+    assert err.max() <= HEAD_BF16_BAR * max(1.0, float(np.abs(want).max()))
+    assert err.max() > 1e-5  # the operands were rounded
+
+
+@pytest.mark.parametrize("feat_ch,viewdir_agg", [(11, True), (35, False)])
+def test_head_bf16_buffers_hold_each_layer_where_the_kernel_reads_it(feat_ch, viewdir_agg):
+    """``pack_head_weights``: the kernel's Layout (csrc/enerf_head.cu), the
+    per-view widths padded to k16 (CP, CV), rows 8 elements longer, and
+    the one-output layers' weights as bf16 values in the vector buffer."""
+    head, _, _ = _heads(9, feat_ch, viewdir_agg)
+    p = {k: (w.detach(), b.detach()) for k, (w, b) in head.head_params().items()}
+    mats, vecs = pack_head_weights(p)
+    C = feat_ch
+    CP, CV = 16 * -(-C // 16), 16 * -(-(C + 4) // 16)
+    shapes = ([("view_fc", CP, 16)] if viewdir_agg else []) + [
+        ("global_fc", 32, 3 * CP), ("fc", 16, 32), ("lr0", 64, 32), ("color0", 64, 96),
+        ("color0_view", 64, CV)]
+    assert mats.dtype == torch.bfloat16
+    assert mats.numel() == sum(r * (k + 8) for _, r, k in shapes)
+    at, m = 0, {}
+    for name, r, k in shapes:
+        m[name] = mats[at:at + r * (k + 8)].reshape(r, k + 8).float()
+        at += r * (k + 8)
+    bf = lambda w: w.to(torch.bfloat16).float()  # noqa: E731
+    kg, kc = p["global_fc"][0], p["color0"][0]
+    for i in range(3):  # [img, var, avg], each CP wide
+        assert torch.equal(m["global_fc"][:, i * CP:i * CP + C], bf(kg[:, i * C:(i + 1) * C]))
+        assert not m["global_fc"][:, i * CP + C:(i + 1) * CP].any()
+    assert torch.equal(m["color0"][:, :88], bf(kc[:, :88])) and not m["color0"][:, 88:].any()
+    assert torch.equal(m["color0_view"][:, :C + 4], bf(kc[:, 88:]))
+    assert not m["color0_view"][:, C + 4:].any()
+    assert torch.equal(m["lr0"][:, :24], bf(p["lr0"][0])) and not m["lr0"][:, 24:].any()
+    if viewdir_agg:
+        assert torch.equal(m["view_fc"][:C, :4], bf(p["view_fc"][0]))
+        assert not m["view_fc"][C:].any() and not m["view_fc"][:, 4:].any()
+    assert vecs.numel() == CP + 348  # Layout::V_N
+    assert torch.equal(vecs[CP + 32:CP + 64], bf(p["agg_w_fc"][0]).reshape(-1))  # WA
+    assert torch.equal(vecs[CP + 216:CP + 280], p["color0"][1])  # BC
+    assert torch.equal(vecs[CP + 280:CP + 344], bf(p["color1"][0]).reshape(-1))  # WC
+
+
+def test_head_plain_rejects_other_compute_dtypes():
+    head, _, _ = _heads(10, 11)
+    vox, feat, dirs = map(torch.from_numpy, _head_inputs(11))
+    with torch.no_grad(), pytest.raises(TypeError, match="compute_dtype"):
+        nerf_head_plain(head.head_params(), vox, feat, dirs, compute_dtype=torch.float16)
+
+
 def test_head_plain_matches_pallas_interpret():
     head, fhead, variables = _heads(7, 11)
     B, S, R, T, C = 2, 3, 3, 40, 11
@@ -409,4 +480,29 @@ def test_chip_smoke_kernel_inputs_rehearse_on_cpu():
         for name, (wrapper, count) in work.items():
             for _, args in inputs[name]:
                 assert torch.isfinite(wrapper(*args)).all(), name
-                assert min(count(*args)) > 0, name
+                nbytes, *ops = count(*args)
+                assert nbytes > 0 and sum(ops) > 0 and min(ops) >= 0, name
+
+
+def test_packed_weights_are_kept_until_a_parameter_changes():
+    """The wrappers' packed-weight cache: the same tensors at the same
+    versions give the cached buffers; an in-place update (a new version)
+    or another tensor packs again."""
+    from boostmvsnerfs_torch.ops.cuda._tensor_cores import packed
+
+    head, _, _ = _heads(12, 11)
+    calls = []
+
+    def pack(params):
+        calls.append(1)
+        return pack_head_weights(params)
+
+    with torch.no_grad():
+        first = packed("test", head.head_params(), pack)
+        assert packed("test", head.head_params(), pack) is first and len(calls) == 1
+        head.lr0[0].weight.add_(1.0)  # in place: a new version
+        again = packed("test", head.head_params(), pack)
+        assert len(calls) == 2 and not torch.equal(again[0], first[0])
+        head.lr0[0].weight = torch.nn.Parameter(head.lr0[0].weight.clone())  # another tensor
+        packed("test", head.head_params(), pack)
+        assert len(calls) == 3

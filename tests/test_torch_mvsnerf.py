@@ -9,7 +9,9 @@ through ``port_mvsnerf`` and comes back to the port through
   another order and take atol 1e-4, as in tests/test_torch_models.py;
 * the plain versions of kernels #6 (tri_sample) and #7/#8 (renderer MLP)
   against the Pallas kernels in interpret mode at f32, with windows that
-  hold every tap: rtol 1e-4 / atol 1e-5;
+  hold every tap: rtol 1e-4 / atol 1e-5; the MLP's plain version at bf16
+  against the Pallas kernels at their default bf16: 1e-3 of the output's
+  magnitude (MLP_BF16_BAR);
 * the slice, BoostMVSNeRF and MVSNeRF at 64x96 (4 views, K=2 of C(4,3),
   pad 24, full MLP widths, 8 samples, every pixel): rgb PSNR > 45 dB, the
   model bar of tests/test_reference_parity.py. The JAX model takes its
@@ -35,7 +37,12 @@ from boostmvsnerfs_torch.models.enerf import to_tensors
 from boostmvsnerfs_torch.ops import sampling as ts
 from boostmvsnerfs_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample
-from boostmvsnerfs_torch.ops.cuda.renderer_mlp import fused_renderer_mlp, renderer_mlp_plain
+from boostmvsnerfs_torch.ops.cuda.renderer_mlp import (
+    bf16_layers,
+    fused_renderer_mlp,
+    pack_mlp_weights_bf16,
+    renderer_mlp_plain,
+)
 from boostmvsnerfs_torch.ops.cuda.tri_sample import fused_tri_sample, tri_sample_plain
 from boostmvsnerfs_torch.utils.port_weights import mvsnerf_state_dict_from_jax, random_state_dict
 from boostmvsnerfs_torch.utils.synthetic import make_scene_batch, mvsnerf_batch
@@ -282,6 +289,91 @@ def test_renderer_mlp_plain_matches_pallas_rows_interpret(weights):
     close(got, flat(np.asarray(want)))
 
 
+# bf16 plain version vs the Pallas kernels at compute_dtype bf16 (interpret
+# mode): both round the same operands and sum exactly products in float32,
+# in another order, so where a sum straddles a bf16 rounding boundary the
+# next layer's operand moves by one bf16 ulp. Measured on the CPU: at most
+# 1.4e-4 of the output's magnitude; bar 1e-3 of it (at least 1).
+MLP_BF16_BAR = 1e-3
+
+
+@pytest.mark.parametrize("layout,encode_freqs", [("flat", 0), ("flat", 10), ("rows", 10)])
+def test_renderer_mlp_plain_bf16_matches_pallas_bf16(weights, layout, encode_freqs):
+    """Kernels #7 (flat, encoded or raw input) and #8 (rows layout) at their
+    default compute dtype, bf16, against ``renderer_mlp_plain`` at bf16."""
+    model, variables = weights
+    params, renderer = model.nerf.nerf.mlp_params(), variables["params"]["renderer"]
+    if layout == "flat":
+        pts, feat, dirs = _mlp_inputs(15, N=300, width=3 if encode_freqs else 63)
+        want = np.asarray(pallas_mlp(renderer, *j(pts, feat, dirs), block=256, interpret=True,
+                                     compute_dtype=jnp.bfloat16, encode_freqs=encode_freqs))
+    else:
+        rng = np.random.default_rng(16)
+        B, R, T, V = 1, 3, 128, 3
+        uvd = rng.uniform(-0.2, 1.2, (B, R, 3, T)).astype(np.float32)
+        vox = rng.standard_normal((B, R, 8, T)).astype(np.float32)
+        col = rng.uniform(0, 1, (B, V, R, 4, T)).astype(np.float32)
+        d = rng.standard_normal((B, R, 3, T)).astype(np.float32)
+
+        def flat(a):  # (B, R, C, T) -> (B, R*T, C)
+            return np.moveaxis(a, -2, -1).reshape(B, R * T, -1)
+
+        pts, dirs = flat(uvd), flat(d)
+        feat = np.concatenate([flat(vox)] + [flat(col[:, v]) for v in range(V)], -1)
+        want = flat(np.asarray(pallas_mlp_rows(renderer, *j(uvd, vox, col, d), interpret=True,
+                                               compute_dtype=jnp.bfloat16, encode_freqs=10)))
+    with torch.no_grad():
+        got = renderer_mlp_plain(params, *t(pts, feat, dirs), encode_freqs=encode_freqs,
+                                 compute_dtype=torch.bfloat16).numpy()
+        f32 = renderer_mlp_plain(params, *t(pts, feat, dirs), encode_freqs=encode_freqs).numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    assert np.abs(got - want).max() <= MLP_BF16_BAR * scale
+    # bf16 is not f32: the same inputs at f32 differ by far more
+    assert np.abs(f32 - want).max() > 10 * np.abs(got - want).max()
+
+
+def test_renderer_mlp_bf16_buffers_hold_each_layer_where_the_kernel_reads_it(weights):
+    """``pack_mlp_weights_bf16``: each buffer's (out, in) bf16 rows of the
+    padded width + 8 at csrc/renderer_mlp.cu's offsets, the skip layer as
+    two buffers (over enc, over h) and views_0's input as [feature, dir, 0];
+    the vector buffer at the kernel's VEC_* offsets."""
+    model, _ = weights
+    params = model.nerf.nerf.mlp_params()
+    mats, vecs = pack_mlp_weights_bf16(params)
+    widths = [32, 64, 128, 128, 128, 128, 64, 128, 128, 144]  # F = 20 -> 32
+    rows = [128] * 9 + [64]
+    assert mats.dtype == torch.bfloat16 and mats.numel() == sum(
+        r * (k + 8) for r, k in zip(rows, widths))
+    at, bufs = 0, []
+    for (name, k_pad, _), r, k in zip(bf16_layers(20), rows, widths, strict=True):
+        assert k_pad == k
+        bufs.append((name, mats[at:at + r * (k_pad + 8)].reshape(r, k_pad + 8).float()))
+        at += r * (k_pad + 8)
+    bf = lambda w: w.detach().to(torch.bfloat16).float()  # noqa: E731
+    (_, pb), (_, enc5), (_, h5), (_, v0) = bufs[0], bufs[6], bufs[7], bufs[9]
+    assert torch.equal(pb[:, :20], bf(params["pts_bias"][0])) and not pb[:, 20:].any()
+    assert torch.equal(enc5[:, :63], bf(params["pts_5"][0][:, :63])) and not enc5[:, 63:].any()
+    assert torch.equal(h5[:, :128], bf(params["pts_5"][0][:, 63:])) and not h5[:, 128:].any()
+    assert torch.equal(v0[:, :131], bf(params["views_0"][0])) and not v0[:, 131:].any()
+    for name, m in bufs[1:6] + bufs[8:9]:
+        n_in = params[name][0].shape[1]
+        assert torch.equal(m[:, :n_in], bf(params[name][0])) and not m[:, n_in:].any(), name
+    assert vecs.numel() == 1416  # VEC_N
+    assert torch.equal(vecs[128 * 8:128 * 8 + 64], params["views_0"][1].detach())  # VEC_V0
+    assert torch.equal(vecs[1088:1216], bf(params["alpha"][0]).reshape(-1))  # VEC_AW
+    assert torch.equal(vecs[1220:1412], bf(params["rgb"][0]).reshape(-1))  # VEC_RW
+    assert torch.equal(vecs[1412:1415], params["rgb"][1].detach())  # VEC_RB
+
+
+def test_renderer_mlp_rejects_other_compute_dtypes(weights):
+    model, _ = weights
+    pts, feat, dirs = t(*_mlp_inputs(17, N=20, width=3))
+    with torch.no_grad():
+        for call in (fused_renderer_mlp, renderer_mlp_plain):
+            with pytest.raises(TypeError, match="compute_dtype"):
+                call(model.nerf.nerf.mlp_params(), pts, feat, dirs, 10, torch.float16)
+
+
 def test_new_wrappers_take_plain_on_cpu_and_do_not_count(weights):
     model, _ = weights
     reset_launch_counts()
@@ -320,6 +412,8 @@ def _meta_params(n_feat=20, depth=6):
                                 _meta(1, 9, 3)), ValueError),  # not the published depth
     (lambda: fused_renderer_mlp(_meta_params(200), _meta(1, 9, 63), _meta(1, 9, 200),
                                 _meta(1, 9, 3)), ValueError),  # features wider than 128
+    (lambda: fused_renderer_mlp(_meta_params(80), _meta(1, 9, 63), _meta(1, 9, 80),
+                                _meta(1, 9, 3)), ValueError),  # wider than the bf16 kernel stages
 ])
 def test_new_wrappers_reject_bad_inputs_off_cpu(call, error):
     reset_launch_counts()
@@ -474,9 +568,12 @@ def test_chip_smoke_mvs_kernel_inputs_rehearse_on_cpu(weights, batch):
         assert uvd.shape == (2, n, 3) and feat.shape == (2, n, 20) and freqs == 10
         (_, (_, enc, _, _, zero)), = inputs["renderer_mlp/encoded"]
         assert enc.shape == (2, n, 63) and zero == 0
-        for entry, (name, _, _, work, _) in smoke.MVS_KERNELS.items():
+        (_, (*_, dtype)), = inputs["renderer_mlp/f32"]
+        assert dtype == torch.float32
+        for entry, (name, _, _, work, *_) in smoke.MVS_KERNELS.items():
             wrapper = {"tri_sample": fused_tri_sample, "img_sample": fused_row_sample,
                        "renderer_mlp": fused_renderer_mlp}[name]
             (_, args), = inputs[entry]
             assert torch.isfinite(wrapper(*args)).all(), entry
-            assert min(work(*args)) > 0, entry
+            nbytes, *ops = work(*args)
+            assert nbytes > 0 and sum(ops) > 0 and min(ops) >= 0, entry
