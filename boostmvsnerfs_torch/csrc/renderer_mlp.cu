@@ -305,12 +305,12 @@ int launch(const float* weights, const void* pts, const void* feat, const void* 
 // and two quad shuffles.
 namespace tc {
 
-// 12 warps: measured 13% faster than 8 on the main path (NVIDIA H100 80GB
-// HBM3); the block then has shared memory for feat up to 64 wide
-#ifndef MLP_WARPS
-#define MLP_WARPS 12
-#endif
-constexpr int WARPS = MLP_WARPS;
+// 12 warps a block: faster than 8 on the main path (PERF.md, section 6). Their
+// staging leaves shared memory for feat up to MAX_FEAT wide (checked
+// below); the wrapper reads MAX_FEAT from this line to reject a wider feat
+// before it builds anything.
+constexpr int WARPS = 12;
+constexpr int MAX_FEAT = 64;
 constexpr int TB = WARPS * 32;
 constexpr int TILE = WARPS * 16;                   // samples per block step
 constexpr int NT = WID / 8;                        // n-tiles of a trunk layer
@@ -331,6 +331,10 @@ constexpr size_t SMEM_FIXED = 2 * (size_t)MAX_LAYER_BYTES + BIAS_BYTES + sizeof(
 __host__ __device__ constexpr int feat_ld(int kf) { return 16 * kf + 8; }
 __host__ __device__ constexpr int stage_bytes(int kf) { return 2 * 16 * (ENC_LD + feat_ld(kf)) + 4 * 16 * 3; }
 constexpr size_t smem_bytes(int kf) { return SMEM_FIXED + (size_t)WARPS * stage_bytes(kf); }
+constexpr size_t SMEM_MAX = 232448;  // a block's dynamic shared memory on sm_90
+static_assert(MAX_FEAT % 16 == 0 && smem_bytes(MAX_FEAT / 16) <= SMEM_MAX &&
+                  smem_bytes(MAX_FEAT / 16 + 1) > SMEM_MAX,
+              "MAX_FEAT is the widest feat whose staging fits");
 
 // Element offset and byte size of each layer's rows in the matrix buffer.
 struct Layers {
@@ -717,7 +721,7 @@ extern "C" int renderer_mlp_bf16_launch(const void* mats, int n_mats, const void
                                         const void* pts, const void* feat, const void* dirs,
                                         void* out, long long N, int F, int pin, int sms,
                                         void* stream) {
-  if (F < 1 || tc::smem_bytes((F + 15) / 16) > 232448 || sms < 1) return (int)cudaErrorInvalidValue;
+  if (F < 1 || F > tc::MAX_FEAT || sms < 1) return (int)cudaErrorInvalidValue;
   const tc::Layers L = tc::layers((F + 15) / 16);
   if (n_mats != L.n || n_vecs != tc::VEC_N) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;

@@ -3,13 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C launch function. It is compiled
 with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``boostmvsnerfs_torch/_build/`` (ignored by git), keyed by a hash of the
-source, the flags and its units so an unchanged kernel is never rebuilt,
-and bound with ``ctypes``. A source with slow template instances is
-compiled as several translation units (``UNITS``: one set of ``-D``
-flags each) and linked into the one library. Nothing is built at import:
-the first CUDA call of a wrapper builds its kernel, and ``build()``
-compiles several at once (one ``nvcc`` process per unit, all started
-together).
+source and the flags so an unchanged kernel is never rebuilt, and bound
+with ``ctypes``. Nothing is built at import: the first CUDA call of a
+wrapper builds its kernel, and ``build()`` compiles several at once (one
+``nvcc`` process per source, all started together).
 
 Each wrapper calls ``count_launch`` exactly where it launches its kernel,
 so a run can show which kernels the main path went through.
@@ -21,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -38,10 +36,6 @@ KERNELS = ("warp_variance", "img_sample", "enerf_head", "tri_sample", "renderer_
 NO_BACKWARD = ("enerf_head", "tri_sample", "renderer_mlp")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Translation units of a source, one set of -D flags each (default: one
-# unit, no flags). enerf_head's four fully unrolled (S, C, view-dir)
-# instances build in parallel, with the dispatcher as a fifth unit.
-UNITS = {"enerf_head": tuple((f"-DENERF_HEAD_UNIT={i}",) for i in range(5))}
 
 _launches = dict.fromkeys(KERNELS, 0)
 _libs: dict[str, ctypes.CDLL] = {}
@@ -78,14 +72,20 @@ def nvcc() -> str:
     )
 
 
-def units(name: str) -> tuple:
-    return UNITS.get(name, ((),))
+@functools.lru_cache(maxsize=None)
+def source_constant(name: str, const: str) -> int:
+    """The value of ``constexpr int <const> = <value>;`` in ``csrc/<name>.cu``:
+    a limit that the kernel's source sets and its wrapper checks before it
+    builds anything."""
+    m = re.search(rf"constexpr int {const} = (\d+);", (CSRC / f"{name}.cu").read_text())
+    if m is None:
+        raise RuntimeError(f"csrc/{name}.cu defines no constexpr int {const}")
+    return int(m.group(1))
 
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(
         (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-        + repr(units(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -102,38 +102,21 @@ def _run_all(jobs) -> list[str]:
 
 
 def build(names=KERNELS) -> None:
-    """Compile every named kernel that is not built yet: all their units in
-    parallel, then one link per library. The compiler's report (registers,
-    spills) of all units goes to ``_build/<lib>.log``."""
+    """Compile every named kernel that is not built yet, all in parallel.
+    The compiler's report (registers, spills) goes to ``_build/<lib>.log``."""
     libs = {n: library_path(n) for n in names if not library_path(n).exists()}
     if not libs:
         return
     BUILD_DIR.mkdir(exist_ok=True)
     tag = f"{os.getpid()}.tmp"
-    # nvcc tells an object from a source by its suffix: keep ".o" last
-    objs = {name: [lib.with_name(f"{lib.stem}.{i}.{os.getpid()}.o") for i in range(len(units(name)))]
-            for name, lib in libs.items()}
-    logs = {name: [lib.with_name(f"{lib.stem}.{i}.log") for i in range(len(units(name)))]
-            for name, lib in libs.items()}
     failed = _run_all([
-        (f"{name} unit {i}",
-         [nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(objs[name][i]), str(CSRC / f"{name}.cu")],
-         logs[name][i])
-        for name in libs for i, defines in enumerate(units(name))
-    ])
-    if failed:
-        raise RuntimeError("nvcc failed: " + ", ".join(failed))
-    failed = _run_all([
-        (f"{name} link", [nvcc(), *ARCH, "-shared", "-o", f"{lib}.{tag}", *map(str, objs[name])],
-         lib.with_suffix(".link.log"))
+        (name, [nvcc(), *NVCC_FLAGS, "-shared", "-o", f"{lib}.{tag}", str(CSRC / f"{name}.cu")],
+         lib.with_suffix(".log"))
         for name, lib in libs.items()
     ])
     if failed:
-        raise RuntimeError("nvcc link failed: " + ", ".join(failed))
-    for name, lib in libs.items():
-        lib.with_suffix(".log").write_text("".join(log.read_text() for log in logs[name]))
-        for path in (*objs[name], *logs[name], lib.with_suffix(".link.log")):
-            path.unlink()
+        raise RuntimeError("nvcc failed: " + ", ".join(failed))
+    for lib in libs.values():
         os.replace(f"{lib}.{tag}", lib)
 
 

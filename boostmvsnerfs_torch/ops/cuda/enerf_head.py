@@ -88,16 +88,9 @@ def _k16(n: int) -> int:
     return 16 * math.ceil(n / 16)
 
 
-def pack_head_weights(params: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's two buffers (its ``Layout``). Matrices, bf16, each as
-    ``padded_rows`` in nn.Linear's (out, in) layout: view_fc (if any) as
-    CP rows (C padded to k16) over [dir 4]; global_fc over [img, var, avg],
-    each third CP wide; fc; lr0 over [vox 8, agg 16]; color0 over [x 64,
-    vox 8, agg 16] (96 wide) and over [feat C, dir 4] (C + 4 padded to
-    k16). Vectors, float32: the view_fc bias (CP, zeros without view_fc),
-    the global_fc bias, agg_w_fc's weights (bf16 values) and bias, the fc
-    and lr0 biases, sigma's weights and bias, the color0 bias, color1's
-    weights and bias; each single bias padded to 4."""
+def _head_layout(params: dict, rnd) -> tuple[torch.Tensor, torch.Tensor]:
+    """``pack_head_weights``'s two buffers before the matrices are cast to
+    bf16, for ``packed``; ``rnd`` rounds values to bf16."""
     kg = params["global_fc"][0]
     C = kg.shape[1] // 3
     CP, CV = _k16(C), _k16(C + 4)
@@ -115,11 +108,25 @@ def pack_head_weights(params: dict) -> tuple[torch.Tensor, torch.Tensor]:
 
     def one(name):  # a one-output layer: weights as bf16 values, bias padded to 4
         w, b = params[name]
-        return [w.to(torch.bfloat16).float().reshape(-1), b.reshape(-1), b.new_zeros(3)]
+        return [rnd(w).reshape(-1), b.reshape(-1), b.new_zeros(3)]
 
     vecs = [bv.reshape(-1), bv.new_zeros(CP - C), params["global_fc"][1], *one("agg_w_fc"),
             params["fc"][1], params["lr0"][1], *one("sigma"), bc, *one("color1")]
-    return torch.cat(mats).to(torch.bfloat16).contiguous(), torch.cat(vecs).float().contiguous()
+    return torch.cat(mats), torch.cat(vecs)
+
+
+def pack_head_weights(params: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's two buffers (its ``Layout``). Matrices, bf16, each as
+    ``padded_rows`` in nn.Linear's (out, in) layout: view_fc (if any) as
+    CP rows (C padded to k16) over [dir 4]; global_fc over [img, var, avg],
+    each third CP wide; fc; lr0 over [vox 8, agg 16]; color0 over [x 64,
+    vox 8, agg 16] (96 wide) and over [feat C, dir 4] (C + 4 padded to
+    k16). Vectors, float32: the view_fc bias (CP, zeros without view_fc),
+    the global_fc bias, agg_w_fc's weights (bf16 values) and bias, the fc
+    and lr0 biases, sigma's weights and bias, the color0 bias, color1's
+    weights and bias; each single bias padded to 4."""
+    mats, vecs = packed(params, _head_layout)
+    return mats.to(torch.bfloat16), vecs
 
 
 def fused_nerf_head(
@@ -146,7 +153,7 @@ def fused_nerf_head(
     if tuple(params["lr0"][0].shape) != (HID, 24):
         raise ValueError(f"{NAME}: the kernel takes a {HID}-wide head over 8+16 inputs")
     dev = feat.device
-    mats, vecs = packed(NAME, params, pack_head_weights)
+    mats, vecs = pack_head_weights(params)
     _build.check_inputs(NAME, dev, vecs=vecs, vox=vox, feat=feat, dirs=dirs)
     _build.check_inputs(NAME, dev, dtype=torch.bfloat16, mats=mats)
     out = torch.empty((B, P, 4), dtype=torch.float32, device=dev)

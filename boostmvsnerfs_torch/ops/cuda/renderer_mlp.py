@@ -49,8 +49,6 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
 _BF16_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [
     ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.c_void_p]
-# the widest feat the bf16 kernel's 12 warps stage in shared memory
-BF16_MAX_FEAT = 64
 
 
 def positional_encoding(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
@@ -97,10 +95,7 @@ def _pad4(t: torch.Tensor) -> list:
     return [t, t.new_zeros(-t.numel() % 4)]
 
 
-def pack_mlp_weights(params: dict) -> torch.Tensor:
-    """The kernel's weight buffer: the tiled layers as (in, out) then bias,
-    the alpha and rgb heads as (out, in) then bias, in ``_TILED`` then
-    ``_HEADS`` order, each segment padded to a multiple of 4 floats."""
+def _f32_layout(params: dict, rnd) -> tuple[torch.Tensor]:
     parts = []
     for name in _TILED:
         w, b = params[name]
@@ -108,7 +103,14 @@ def pack_mlp_weights(params: dict) -> torch.Tensor:
     for name in _HEADS:
         w, b = params[name]
         parts += _pad4(w) + _pad4(b)
-    return torch.cat(parts).float().contiguous()
+    return (torch.cat(parts),)
+
+
+def pack_mlp_weights(params: dict) -> torch.Tensor:
+    """The f32 kernel's weight buffer: the tiled layers as (in, out) then
+    bias, the alpha and rgb heads as (out, in) then bias, in ``_TILED``
+    then ``_HEADS`` order, each segment padded to a multiple of 4 floats."""
+    return packed(params, _f32_layout)[0]
 
 
 def bf16_layers(n_feat: int) -> tuple:
@@ -127,6 +129,16 @@ def bf16_layers(n_feat: int) -> tuple:
             ("views_0", WIDTH + 16, [((0, WIDTH + 3), 0)]))
 
 
+def _bf16_layout(params: dict, rnd) -> tuple[torch.Tensor, torch.Tensor]:
+    mats = [padded_rows(params[name][0], params[name][0].shape[0], k_pad, cols)
+            for name, k_pad, cols in bf16_layers(params["pts_bias"][0].shape[1])]
+    vecs = [params[name][1].reshape(-1) for name in _TILED]
+    for name in _HEADS:
+        w, b = params[name]
+        vecs += [rnd(w).reshape(-1), b.reshape(-1), b.new_zeros(4 - b.numel())]
+    return torch.cat(mats), torch.cat(vecs)
+
+
 def pack_mlp_weights_bf16(params: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """The bf16 kernel's two buffers. Matrices: each layer of
     ``bf16_layers`` in ``nn.Linear``'s (out, in) layout, the tensor cores'
@@ -136,14 +148,8 @@ def pack_mlp_weights_bf16(params: dict) -> tuple[torch.Tensor, torch.Tensor]:
     head's 128 weights (bf16-rounded) and bias padded to 4, the rgb head's
     3 x 64 weights (bf16-rounded) and 3 biases padded to 4 (csrc/renderer_mlp.cu
     VEC_*)."""
-    mats = [padded_rows(params[name][0], params[name][0].shape[0], k_pad, cols)
-            for name, k_pad, cols in bf16_layers(params["pts_bias"][0].shape[1])]
-    vecs = [params[name][1].reshape(-1) for name in _TILED]
-    for name in _HEADS:
-        w, b = params[name]
-        vecs += [w.to(torch.bfloat16).float().reshape(-1), b.reshape(-1), b.new_zeros(4 - b.numel())]
-    return (torch.cat(mats).to(torch.bfloat16).contiguous(),
-            torch.cat(vecs).float().contiguous())
+    mats, vecs = packed(params, _bf16_layout)
+    return mats.to(torch.bfloat16), vecs
 
 
 def _check_params(params: dict, n_feat: int) -> None:
@@ -185,14 +191,15 @@ def fused_renderer_mlp(
     n_feat = feat.shape[-1]
     if not 0 < n_feat <= WIDTH:
         raise ValueError(f"{NAME}: feature width {n_feat} not in [1, {WIDTH}]")
-    if compute_dtype == torch.bfloat16 and n_feat > BF16_MAX_FEAT:
-        raise ValueError(f"{NAME}: the bf16 kernel stages feat up to {BF16_MAX_FEAT} wide in "
+    max_feat = _build.source_constant(NAME, "MAX_FEAT")
+    if compute_dtype == torch.bfloat16 and n_feat > max_feat:
+        raise ValueError(f"{NAME}: the bf16 kernel stages feat up to {max_feat} wide in "
                          f"shared memory; got {n_feat} (compute_dtype=torch.float32 takes it)")
     _check_params(params, n_feat)
     dev = pts.device
     B, N = pts.shape[:2]
     if compute_dtype == torch.float32:
-        weights = packed(f"{NAME}/f32", params, pack_mlp_weights)
+        weights = pack_mlp_weights(params)
         _build.check_inputs(NAME, dev, weights=weights, pts=pts, feat=feat, dirs=dirs)
         out = torch.empty((B, N, 4), dtype=torch.float32, device=dev)
         fn = _build.kernel_function(NAME, "renderer_mlp_launch", _ARGTYPES)
@@ -200,7 +207,7 @@ def fused_renderer_mlp(
             rc = fn(weights.data_ptr(), weights.numel(), pts.data_ptr(), feat.data_ptr(),
                     dirs.data_ptr(), out.data_ptr(), B * N, n_feat, pin, _build.stream_ptr(dev))
     else:
-        mats, vecs = packed(f"{NAME}/bf16", params, pack_mlp_weights_bf16)
+        mats, vecs = pack_mlp_weights_bf16(params)
         _build.check_inputs(NAME, dev, vecs=vecs, pts=pts, feat=feat, dirs=dirs)
         _build.check_inputs(NAME, dev, dtype=torch.bfloat16, mats=mats)
         out = torch.empty((B, N, 4), dtype=torch.float32, device=dev)

@@ -9,7 +9,7 @@ It builds the port's CUDA kernels from csrc/ and prints one JSON line per
 phase. Three main paths are driven, each with its kernels checked first:
 
 1. device  - the card, from torch and nvidia-smi.
-2. build   - nvcc of every kernel (all translation units in parallel) and
+2. build   - nvcc of every kernel (all sources in parallel) and
    its register report.
 3. kernels - each kernel against its plain PyTorch version on its main
    path's real inputs at full width (taken from the model's own stages):

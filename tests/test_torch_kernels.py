@@ -27,6 +27,7 @@ import torch
 from boostmvsnerfs_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from boostmvsnerfs_torch.ops.cuda.enerf_head import (
     fused_nerf_head,
+    _head_layout,
     nerf_head_plain,
     pack_head_weights,
 )
@@ -485,24 +486,37 @@ def test_chip_smoke_kernel_inputs_rehearse_on_cpu():
 
 
 def test_packed_weights_are_kept_until_a_parameter_changes():
-    """The wrappers' packed-weight cache: the same tensors at the same
-    versions give the cached buffers; an in-place update (a new version)
-    or another tensor packs again."""
-    from boostmvsnerfs_torch.ops.cuda._tensor_cores import packed
+    """The wrappers' packed weights hold each call's parameter values: the
+    layout's plan is made once per device and shapes, and each call gathers
+    the current values, whether a parameter changed in place, through
+    ``.data`` (which PyTorch does not version) or was replaced."""
+    from boostmvsnerfs_torch.ops.cuda import _tensor_cores
 
     head, _, _ = _heads(12, 11)
-    calls = []
 
-    def pack(params):
-        calls.append(1)
-        return pack_head_weights(params)
+    def direct():  # the layout run on the values themselves, no plan
+        mats, vecs = _head_layout(head.head_params(), _tensor_cores.round_bf16)
+        return mats.to(torch.bfloat16), vecs
 
+    changes = [
+        lambda: None,
+        lambda: head.lr0[0].weight.add_(1.0),  # in place: a new version
+        lambda: head.color[2].weight.data.copy_(-head.color[2].weight),  # no new version
+        lambda: setattr(head.lr0[0], "weight", torch.nn.Parameter(head.lr0[0].weight * 2)),
+        lambda: setattr(head.agg.fc[0].bias, "data", head.agg.fc[0].bias + 3),  # new storage
+    ]
     with torch.no_grad():
-        first = packed("test", head.head_params(), pack)
-        assert packed("test", head.head_params(), pack) is first and len(calls) == 1
-        head.lr0[0].weight.add_(1.0)  # in place: a new version
-        again = packed("test", head.head_params(), pack)
-        assert len(calls) == 2 and not torch.equal(again[0], first[0])
-        head.lr0[0].weight = torch.nn.Parameter(head.lr0[0].weight.clone())  # another tensor
-        packed("test", head.head_params(), pack)
-        assert len(calls) == 3
+        before = pack_head_weights(head.head_params())
+        plans = len(_tensor_cores._plans)
+        for i, change in enumerate(changes):
+            change()
+            got = pack_head_weights(head.head_params())
+            want = direct()
+            assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+            assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True)), i
+            assert i == 0 or not all(torch.equal(g, b) for g, b in zip(got, before)), i
+            before = got
+        assert len(_tensor_cores._plans) == plans  # one plan served every call
+        head.to("meta")  # moved: packed again, on the parameters' device
+        assert all(t.device.type == "meta" for t in pack_head_weights(head.head_params()))
+        assert len(_tensor_cores._plans) == plans + 1

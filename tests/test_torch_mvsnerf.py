@@ -39,7 +39,9 @@ from boostmvsnerfs_torch.ops.cuda import _build, launch_counts, reset_launch_cou
 from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample
 from boostmvsnerfs_torch.ops.cuda.renderer_mlp import (
     bf16_layers,
+    _f32_layout,
     fused_renderer_mlp,
+    pack_mlp_weights,
     pack_mlp_weights_bf16,
     renderer_mlp_plain,
 )
@@ -363,6 +365,18 @@ def test_renderer_mlp_bf16_buffers_hold_each_layer_where_the_kernel_reads_it(wei
     assert torch.equal(vecs[1088:1216], bf(params["alpha"][0]).reshape(-1))  # VEC_AW
     assert torch.equal(vecs[1220:1412], bf(params["rgb"][0]).reshape(-1))  # VEC_RW
     assert torch.equal(vecs[1412:1415], params["rgb"][1].detach())  # VEC_RB
+
+
+def test_renderer_mlp_f32_buffer_is_its_layout(weights):
+    """``pack_mlp_weights`` gathers through its plan what the f32 kernel's
+    layout gives on the values themselves: every layer, 4-float aligned."""
+    model, _ = weights
+    params = model.nerf.nerf.mlp_params()
+    with torch.no_grad():
+        got = pack_mlp_weights(params)
+        want, = _f32_layout(params, None)
+    n = sum(-(-t.numel() // 4) * 4 for pair in params.values() for t in pair)
+    assert got.dtype == torch.float32 and got.numel() == n and torch.equal(got, want)
 
 
 def test_renderer_mlp_rejects_other_compute_dtypes(weights):
