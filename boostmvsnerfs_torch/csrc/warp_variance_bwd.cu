@@ -21,208 +21,299 @@
 // [-2, size+1] carry a gradient only inside that range, bounds included; a
 // clamped z (sz <= 1e-6) carries none.
 //
-// What bounds it on an H100: memory and atomics. From device memory it needs
-// the features, depths and cotangent once and writes d feats and d depth
-// once (~10 flops per channel per view per tap); the feature cotangent is a
-// scatter into source pixels that neighbouring voxels share, so it uses one
-// atomicAdd per channel per tap (4 per view per channel). The design mirrors
-// the forward: one thread per (voxel, group of 4 channels) recomputes each
-// view's 4 taps in the forward's rounding order, first to form the mean over
-// views (recomputing it is cheaper than storing the 181 MB per-view sum the
-// Pallas forward saves), then to emit the cotangents. The depth cotangent is
-// summed over views in registers and over the voxel's channel groups with
-// warp shuffles (a voxel's groups are neighbouring lanes), so each voxel's
-// d depth is written by one thread with no atomic.
+// What bounds it on an H100: the d feats scatter. From device memory it
+// needs the features, depths and cotangent once and writes d feats and d
+// depth once, but the scatter adds S x 4 taps x C values per voxel into
+// source pixels that neighbouring voxels share: one scalar atomic each is
+// ~5e8 L2 atomics per launch on the main path, which is what the L2's
+// atomic units take ~3 ms to do.
+//
+// Design (plane_sweep.cuh's tiling, as the forward). For each chunk (a tile
+// of target pixels x a run of neighbouring planes) one thread per (voxel,
+// view) projects the voxel once and stages its taps, weights, fractions and
+// the two coordinate derivatives d x / d (1/depth), d y / d (1/depth) in
+// shared memory; pass 1 (the mean over views) and pass 2 (the cotangents)
+// both read that staging, so nothing is projected twice. One thread per
+// (pixel, 4 channels) walks the run's planes view by view. Neighbouring
+// planes of a pixel project a fraction of a source pixel apart, so most
+// planes find their four taps at the pixel the last plane used: the thread
+// keeps those four tap values, and the four taps' shares of d feats, in
+// registers, and only when the taps move (or the run ends) adds each
+// share to device memory with one 16-byte vector atomic per (pixel, 4
+// channels). That is the Hopper form of the TPU kernel's d feats
+// accumulator in VMEM (:371-377): the run of planes is where a pixel's
+// taps repeat. Summing into a window of d feats in shared memory first was
+// measured slower: nvcc compiles a shared-memory f32 atomicAdd for sm_90a
+// to a compare-and-swap loop, and those loops cost more than they saved
+// (PERF.md, section 6). The depth cotangent is summed over views in
+// registers and over the pixel's channel groups with warp shuffles (a
+// pixel's groups are neighbouring lanes): no atomic.
 
 #include <cuda_runtime.h>
 
+#include "plane_sweep.cuh"
+
 namespace {
 
-__device__ __forceinline__ float proj_row(const float* P, float u, float v, float dep) {
-  // ((P0*u + P1*v) + P2) + P3/depth, each op rounded as in the forward
-  float base = __fadd_rn(__fadd_rn(__fmul_rn(P[0], u), __fmul_rn(P[1], v)), P[2]);
-  return __fadd_rn(base, __fdiv_rn(P[3], dep));
-}
+using namespace plane_sweep;
 
-struct Taps {
-  float tx, ty, w00, w01, w10, w11, xu, yu, sz;
-  int x0, y0;
-  bool v00, v01, v10, v11, live, mask_x, mask_y;
+constexpr int kThreads = 256;
+constexpr int kPlanes = 4;  // the most planes in a run (ops/cuda/warp_variance.py)
+
+struct __align__(16) Tap {
+  float4 w;        // weights of taps 00, 01, 10, 11 (0 outside the image)
+  float tx, ty;    // fractions of the clamped coordinates
+  float cx, cy;    // d x / d (1/depth) where x carries a gradient, else 0; y likewise
+  int p00;         // tap 00's pixel index in the view, clamped into the image
+  int step_x;      // pixels to the next column's tap (0 where clamped)
+  int step_y;      // pixels to the next row's tap
+  int pad;
 };
 
-// one view's projection and bilinear taps at a voxel, as the forward
-// computes them (csrc/warp_variance.cu)
-__device__ __forceinline__ Taps view_taps(const float* P, float u, float v, float dep, int Hs,
-                                          int Ws) {
-  Taps t;
-  const float sz_raw = proj_row(P + 8, u, v, dep);
-  t.live = sz_raw > 1e-6f;
-  t.sz = fmaxf(sz_raw, 1e-6f);
-  t.xu = __fdiv_rn(proj_row(P, u, v, dep), t.sz);
-  t.yu = __fdiv_rn(proj_row(P + 4, u, v, dep), t.sz);
-  t.mask_x = t.xu >= -2.f && t.xu <= Ws + 1.f;
-  t.mask_y = t.yu >= -2.f && t.yu <= Hs + 1.f;
-  const float sx = fminf(fmaxf(t.xu, -2.f), Ws + 1.f);
-  const float sy = fminf(fmaxf(t.yu, -2.f), Hs + 1.f);
-  const float x0f = floorf(sx), y0f = floorf(sy);
-  t.tx = __fsub_rn(sx, x0f);
-  t.ty = __fsub_rn(sy, y0f);
-  t.x0 = (int)x0f;
-  t.y0 = (int)y0f;
-  const bool vx0 = t.x0 >= 0 && t.x0 <= Ws - 1, vx1 = t.x0 + 1 >= 0 && t.x0 + 1 <= Ws - 1;
-  const bool vy0 = t.y0 >= 0 && t.y0 <= Hs - 1, vy1 = t.y0 + 1 >= 0 && t.y0 + 1 <= Hs - 1;
-  t.v00 = vy0 && vx0;
-  t.v01 = vy0 && vx1;
-  t.v10 = vy1 && vx0;
-  t.v11 = vy1 && vx1;
-  t.w00 = __fmul_rn(__fsub_rn(1.f, t.ty), __fsub_rn(1.f, t.tx));
-  t.w01 = __fmul_rn(__fsub_rn(1.f, t.ty), t.tx);
-  t.w10 = __fmul_rn(t.ty, __fsub_rn(1.f, t.tx));
-  t.w11 = __fmul_rn(t.ty, t.tx);
-  return t;
-}
-
-__device__ __forceinline__ float4 load_tap(const float4* img, bool valid, long long idx) {
-  return valid ? img[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ float4 axpy4(float4 acc, float4 v, float w) {
-  acc.x = __fadd_rn(acc.x, __fmul_rn(v.x, w));
-  acc.y = __fadd_rn(acc.y, __fmul_rn(v.y, w));
-  acc.z = __fadd_rn(acc.z, __fmul_rn(v.z, w));
-  acc.w = __fadd_rn(acc.w, __fmul_rn(v.w, w));
-  return acc;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
 __device__ __forceinline__ float4 sub4(float4 a, float4 b) {
   return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
 }
 
-__device__ __forceinline__ void scatter4(float* dst, float4 gs, float w) {
-  atomicAdd(dst + 0, gs.x * w);
-  atomicAdd(dst + 1, gs.y * w);
-  atomicAdd(dst + 2, gs.z * w);
-  atomicAdd(dst + 3, gs.w * w);
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-__global__ void warp_variance_bwd_kernel(
+// c += v * w per channel
+__device__ __forceinline__ float4 fma4(float4 c, float4 v, float w) {
+  return make_float4(c.x + v.x * w, c.y + v.y * w, c.z + v.z * w, c.w + v.w * w);
+}
+
+// one 16-byte vector atomic, where the share is not zero (a tap outside
+// the image has weight 0 in every plane)
+__device__ __forceinline__ void add4(float4* dst, float4 v) {
+  if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f) atomicAdd(dst, v);
+}
+
+__global__ void __launch_bounds__(kThreads, 2) warp_variance_bwd_kernel(
     const float* __restrict__ feats,  // (B, S, Hs, Ws, C)
     const float* __restrict__ proj,   // (B, S, 3, 4)
     const float* __restrict__ depth,  // (B, D, Ht, Wt)
     const float* __restrict__ g,      // (B, D, Ht, Wt, C)
     float* __restrict__ dfeats,       // (B, S, Hs, Ws, C), zeroed
     float* __restrict__ ddepth,       // (B, D, Ht, Wt), zeroed
-    int B, int S, int Hs, int Ws, int C, int D, int Ht, int Wt, int shuffle) {
-  const int G = C >> 2;  // float4 groups per voxel
-  const long long n = (long long)B * D * Ht * Wt * G;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = t < n;  // every lane stays for the shuffles below
-  float gdep = 0.f;
-  const long long vox = active ? t / G : 0;
-  if (active) {
-    const int grp = (int)(t % G);
-    const int x = (int)(vox % Wt);
-    const int y = (int)((vox / Wt) % Ht);
-    const int b = (int)(vox / ((long long)Wt * Ht * D));
-    const float dep = depth[vox];
-    const float u = (float)x, v = (float)y;
-    const long long plane = (long long)Hs * Ws * C;
+    int S, int Hs, int Ws, int C, int D, int Ht, int Wt, Tiling tl, int shuffle) {
+  extern __shared__ float4 smem[];
+  const int G = C >> 2, TP = tl.TX * tl.TY, NV = TP * tl.ND;
+  float* Ps = reinterpret_cast<float*>(smem);                    // (S, 12)
+  Tap* taps = reinterpret_cast<Tap*>(smem + (S * 12 + 3) / 4);  // (S, ND, TP)
+  const Block blk = block_of(tl, D);
+  for (int i = threadIdx.x; i < S * 12; i += kThreads) Ps[i] = proj[(long long)blk.b * S * 12 + i];
+  const long long HWs = (long long)Hs * Ws;
+  const float* img_b = feats + (long long)blk.b * S * HWs * C;
+  float4* dimg_b = reinterpret_cast<float4*>(dfeats + (long long)blk.b * S * HWs * C);
+  const float inv_s = 1.f / (float)S, c2 = 2.f / (float)S;
 
-    // pass 1: the mean over views of the warped features
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < S; ++s) {
-      const float* P = proj + ((long long)b * S + s) * 12;
-      const Taps k = view_taps(P, u, v, dep, Hs, Ws);
-      const float4* img = reinterpret_cast<const float4*>(feats + ((long long)b * S + s) * plane);
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k.v00) acc = axpy4(acc, img[((long long)k.y0 * Ws + k.x0) * G + grp], k.w00);
-      if (k.v01) acc = axpy4(acc, img[((long long)k.y0 * Ws + k.x0 + 1) * G + grp], k.w01);
-      if (k.v10) acc = axpy4(acc, img[((long long)(k.y0 + 1) * Ws + k.x0) * G + grp], k.w10);
-      if (k.v11) acc = axpy4(acc, img[((long long)(k.y0 + 1) * Ws + k.x0 + 1) * G + grp], k.w11);
-      sum.x = __fadd_rn(sum.x, acc.x);
-      sum.y = __fadd_rn(sum.y, acc.y);
-      sum.z = __fadd_rn(sum.z, acc.z);
-      sum.w = __fadd_rn(sum.w, acc.w);
+  for (int d0 = blk.d_begin; d0 < blk.d_end; d0 += tl.ND) {
+    const int nd = min(tl.ND, D - d0);
+    __syncthreads();  // the matrices are in; the last chunk's taps used
+    // one thread per (voxel, view): project once, stage the taps
+    for (int v = threadIdx.x; v < NV; v += kThreads) {
+      const Local l = local_of(tl, v);
+      const int x = blk.x0 + l.x, y = blk.y0 + l.y, d = d0 + l.d;
+      const bool inside = x < Wt && y < Ht && d < D;
+      const float dep = inside ? depth[(((long long)blk.b * D + d) * Ht + y) * Wt + x] : 1.f;
+      for (int s = 0; s < S; ++s) {
+        Tap t;
+        t.w = make_float4(0.f, 0.f, 0.f, 0.f);
+        t.tx = t.ty = t.cx = t.cy = 0.f;
+        t.p00 = t.step_x = t.step_y = t.pad = 0;
+        if (inside) {
+          const float* P = Ps + s * 12;
+          const Proj p = project(P, (float)x, (float)y, dep);
+          const Taps k = bilinear(p.xu, p.yu, Hs, Ws);
+          const float pz = p.live ? P[11] : 0.f;
+          t.w = k.w;
+          t.tx = k.tx;
+          t.ty = k.ty;
+          // zero at an integer coordinate and outside the clamp range
+          t.cx = k.in_x && k.tx != 0.f ? (P[3] - p.xu * pz) / p.sz : 0.f;
+          t.cy = k.in_y && k.ty != 0.f ? (P[7] - p.yu * pz) / p.sz : 0.f;
+          t.p00 = k.y0 * Ws + k.x0;
+          t.step_x = k.dx;
+          t.step_y = k.dy * Ws;
+        }
+        taps[s * NV + v] = t;
+      }
     }
-    const float fs = (float)S;
-    const float4 mean = make_float4(sum.x / fs, sum.y / fs, sum.z / fs, sum.w / fs);
-    const float4 gv = reinterpret_cast<const float4*>(g)[t];
-    const float c2 = 2.f / fs;
-    const float inv_d = 1.f / dep;
+    __syncthreads();
 
-    // pass 2: per-view cotangent, feature scatter, coordinate gradients
-    for (int s = 0; s < S; ++s) {
-      const float* P = proj + ((long long)b * S + s) * 12;
-      const Taps k = view_taps(P, u, v, dep, Hs, Ws);
-      const float4* img = reinterpret_cast<const float4*>(feats + ((long long)b * S + s) * plane);
-      const long long i00 = ((long long)k.y0 * Ws + k.x0) * G + grp;
-      const long long i01 = i00 + G, i10 = i00 + (long long)Ws * G, i11 = i10 + G;
-      const float4 p00 = load_tap(img, k.v00, i00), p01 = load_tap(img, k.v01, i01);
-      const float4 p10 = load_tap(img, k.v10, i10), p11 = load_tap(img, k.v11, i11);
-      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-      w = axpy4(w, p00, k.w00);
-      w = axpy4(w, p01, k.w01);
-      w = axpy4(w, p10, k.w10);
-      w = axpy4(w, p11, k.w11);
-      const float4 gs = make_float4(gv.x * c2 * (w.x - mean.x), gv.y * c2 * (w.y - mean.y),
-                                    gv.z * c2 * (w.z - mean.z), gv.w * c2 * (w.w - mean.w));
-      float* dimg = dfeats + ((long long)b * S + s) * plane;
-      if (k.v00 && k.w00 != 0.f) scatter4(dimg + 4 * i00, gs, k.w00);
-      if (k.v01 && k.w01 != 0.f) scatter4(dimg + 4 * i01, gs, k.w01);
-      if (k.v10 && k.w10 != 0.f) scatter4(dimg + 4 * i10, gs, k.w10);
-      if (k.v11 && k.w11 != 0.f) scatter4(dimg + 4 * i11, gs, k.w11);
-      // d w / d x: the right taps minus the left ones along each row (zero
-      // at an integer x); d w / d y likewise down each column
-      float gx = 0.f, gy = 0.f;
-      if (k.tx != 0.f && k.mask_x) {
-        const float4 row0 = sub4(p01, p00), row1 = sub4(p11, p10);
-        gx = dot4(gs, make_float4((1.f - k.ty) * row0.x + k.ty * row1.x,
-                                  (1.f - k.ty) * row0.y + k.ty * row1.y,
-                                  (1.f - k.ty) * row0.z + k.ty * row1.z,
-                                  (1.f - k.ty) * row0.w + k.ty * row1.w));
+    // one thread per (pixel, 4 channels); every lane stays for the shuffles
+    for (int base = 0; base < TP * G; base += kThreads) {
+      const int i = base + threadIdx.x, pix = i / G, grp = i - pix * G;
+      const int x = blk.x0 + (pix & (tl.TX - 1)), y = blk.y0 + (pix >> tl.lx);
+      const bool active = i < TP * G && x < Wt && y < Ht;
+      const long long vox0 = (((long long)blk.b * D + d0) * Ht + y) * Wt + x;  // plane d0
+      const long long plane = (long long)Ht * Wt;
+      float gdep[kPlanes];
+#pragma unroll
+      for (int dd = 0; dd < kPlanes; ++dd) gdep[dd] = 0.f;
+      if (active) {
+        // pass 1: the mean over views of each plane's warped features
+        float4 mean[kPlanes], gv[kPlanes];
+#pragma unroll
+        for (int dd = 0; dd < kPlanes; ++dd) mean[dd] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s = 0; s < S; ++s) {
+          const float* img = img_b + s * HWs * C + 4 * grp;
+          int key = -1, kx = 0, ky = 0;
+          float4 q00, q01, q10, q11;
+#pragma unroll
+          for (int dd = 0; dd < kPlanes; ++dd) {
+            if (dd >= nd) break;
+            const Tap& t = taps[(s * tl.ND + dd) * TP + pix];
+            if (t.p00 != key || t.step_x != kx || t.step_y != ky) {
+              const float* p = img + (long long)t.p00 * C;
+              q00 = load4(p);
+              q01 = load4(p + t.step_x * C);
+              q10 = load4(p + t.step_y * C);
+              q11 = load4(p + (t.step_x + t.step_y) * C);
+              key = t.p00;
+              kx = t.step_x;
+              ky = t.step_y;
+            }
+            float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+            w = axpy4(w, q00, t.w.x);
+            w = axpy4(w, q01, t.w.y);
+            w = axpy4(w, q10, t.w.z);
+            w = axpy4(w, q11, t.w.w);
+            mean[dd] = make_float4(mean[dd].x + w.x, mean[dd].y + w.y, mean[dd].z + w.z,
+                                   mean[dd].w + w.w);
+          }
+        }
+#pragma unroll
+        for (int dd = 0; dd < kPlanes; ++dd) {
+          if (dd >= nd) break;
+          mean[dd] = make_float4(mean[dd].x * inv_s, mean[dd].y * inv_s, mean[dd].z * inv_s,
+                                 mean[dd].w * inv_s);
+          gv[dd] = __ldg(reinterpret_cast<const float4*>(g) + (vox0 + dd * plane) * G + grp);
+        }
+
+        // pass 2, view by view: per-view cotangent, its shares of d feats
+        // summed while the taps stay put, the coordinate gradients
+        for (int s = 0; s < S; ++s) {
+          const float* img = img_b + s * HWs * C + 4 * grp;
+          float4* dimg = dimg_b + s * HWs * G + grp;
+          int key = -1, kx = 0, ky = 0;
+          float4 q00, q01, q10, q11;
+          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 a00 = zero, a01 = zero, a10 = zero, a11 = zero;
+#pragma unroll
+          for (int dd = 0; dd < kPlanes; ++dd) {
+            if (dd >= nd) break;
+            const Tap t = taps[(s * tl.ND + dd) * TP + pix];
+            if (t.p00 != key || t.step_x != kx || t.step_y != ky) {
+              if (key >= 0) {
+                add4(dimg + (long long)key * G, a00);
+                add4(dimg + (long long)(key + kx) * G, a01);
+                add4(dimg + (long long)(key + ky) * G, a10);
+                add4(dimg + (long long)(key + kx + ky) * G, a11);
+                a00 = a01 = a10 = a11 = zero;
+              }
+              const float* p = img + (long long)t.p00 * C;
+              q00 = load4(p);
+              q01 = load4(p + t.step_x * C);
+              q10 = load4(p + t.step_y * C);
+              q11 = load4(p + (t.step_x + t.step_y) * C);
+              key = t.p00;
+              kx = t.step_x;
+              ky = t.step_y;
+            }
+            float4 w = zero;
+            w = axpy4(w, q00, t.w.x);
+            w = axpy4(w, q01, t.w.y);
+            w = axpy4(w, q10, t.w.z);
+            w = axpy4(w, q11, t.w.w);
+            const float4 m = mean[dd], gg = gv[dd];
+            const float4 gs = make_float4(gg.x * c2 * (w.x - m.x), gg.y * c2 * (w.y - m.y),
+                                          gg.z * c2 * (w.z - m.z), gg.w * c2 * (w.w - m.w));
+            a00 = fma4(a00, gs, t.w.x);
+            a01 = fma4(a01, gs, t.w.y);
+            a10 = fma4(a10, gs, t.w.z);
+            a11 = fma4(a11, gs, t.w.w);
+            // d w / d x: the right taps minus the left ones along each row
+            // (zero at an integer x); d w / d y likewise down each column. A
+            // tap outside the image reads a clamped pixel: its value is
+            // masked as the plain version masks it.
+            const float4 p00 = t.w.x != 0.f ? q00 : zero, p01 = t.w.y != 0.f ? q01 : zero;
+            const float4 p10 = t.w.z != 0.f ? q10 : zero, p11 = t.w.w != 0.f ? q11 : zero;
+            if (t.cx != 0.f) {
+              const float4 r0 = sub4(p01, p00), r1 = sub4(p11, p10);
+              gdep[dd] += dot4(gs, make_float4((1.f - t.ty) * r0.x + t.ty * r1.x,
+                                               (1.f - t.ty) * r0.y + t.ty * r1.y,
+                                               (1.f - t.ty) * r0.z + t.ty * r1.z,
+                                               (1.f - t.ty) * r0.w + t.ty * r1.w)) * t.cx;
+            }
+            if (t.cy != 0.f) {
+              const float4 c0 = sub4(p10, p00), c1 = sub4(p11, p01);
+              gdep[dd] += dot4(gs, make_float4((1.f - t.tx) * c0.x + t.tx * c1.x,
+                                               (1.f - t.tx) * c0.y + t.tx * c1.y,
+                                               (1.f - t.tx) * c0.z + t.tx * c1.z,
+                                               (1.f - t.tx) * c0.w + t.tx * c1.w)) * t.cy;
+            }
+          }
+          if (key >= 0) {
+            add4(dimg + (long long)key * G, a00);
+            add4(dimg + (long long)(key + kx) * G, a01);
+            add4(dimg + (long long)(key + ky) * G, a10);
+            add4(dimg + (long long)(key + kx + ky) * G, a11);
+          }
+        }
       }
-      if (k.ty != 0.f && k.mask_y) {
-        const float4 col0 = sub4(p10, p00), col1 = sub4(p11, p01);
-        gy = dot4(gs, make_float4((1.f - k.tx) * col0.x + k.tx * col1.x,
-                                  (1.f - k.tx) * col0.y + k.tx * col1.y,
-                                  (1.f - k.tx) * col0.z + k.tx * col1.z,
-                                  (1.f - k.tx) * col0.w + k.tx * col1.w));
+      // d depth: chain through 1/depth, sum over the pixel's channel groups
+#pragma unroll
+      for (int dd = 0; dd < kPlanes; ++dd) {
+        if (dd >= nd) break;
+        float gd = 0.f;
+        if (active) {
+          const float inv_d = 1.f / depth[vox0 + dd * plane];
+          gd = gdep[dd] * (-inv_d * inv_d);
+        }
+        if (shuffle) {
+          // G is a power of two <= 32: the pixel's groups are G neighbouring lanes
+          for (int off = G >> 1; off > 0; off >>= 1) gd += __shfl_down_sync(0xffffffffu, gd, off, G);
+          if (active && grp == 0) ddepth[vox0 + dd * plane] = gd;
+        } else if (active) {
+          atomicAdd(ddepth + vox0 + dd * plane, gd);
+        }
       }
-      const float pz = k.live ? P[11] : 0.f;
-      const float dx_dinvd = (P[3] - k.xu * pz) / k.sz;
-      const float dy_dinvd = (P[7] - k.yu * pz) / k.sz;
-      gdep += gx * dx_dinvd + gy * dy_dinvd;
     }
-    gdep *= -inv_d * inv_d;
-  }
-  if (shuffle) {
-    // G is a power of two <= 32: the voxel's groups are G neighbouring lanes
-    for (int off = G >> 1; off > 0; off >>= 1) gdep += __shfl_down_sync(0xffffffffu, gdep, off, G);
-    if (active && t % G == 0) ddepth[vox] = gdep;
-  } else if (active) {
-    atomicAdd(ddepth + vox, gdep);
   }
 }
 
 }  // namespace
 
+// TX x TY x ND is the chunk (ops/cuda/warp_variance.py::sweep_tile), at most
+// kPlanes planes; sms the card's SMs.
 extern "C" int warp_variance_bwd_launch(const void* feats, const void* proj, const void* depth,
                                         const void* g, void* dfeats, void* ddepth, int B, int S,
-                                        int Hs, int Ws, int C, int D, int Ht, int Wt,
-                                        void* stream) {
-  if (C % 4 != 0 || S < 1) return (int)cudaErrorInvalidValue;
+                                        int Hs, int Ws, int C, int D, int Ht, int Wt, int TX,
+                                        int TY, int ND, int sms, void* stream) {
+  if (C % 4 != 0 || S < 1 || TX < 1 || TY < 1 || (TX & (TX - 1)) || (TY & (TY - 1)) ||
+      ND < 1 || ND > kPlanes || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * D * Ht * Wt == 0) return 0;
   const int G = C / 4;
-  const long long n = (long long)B * D * Ht * Wt * G;
-  if (n == 0) return 0;
   const int shuffle = G <= 32 && (G & (G - 1)) == 0;
-  const int block = 256;
-  const long long grid = (n + block - 1) / block;
-  warp_variance_bwd_kernel<<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
+  auto kernel = warp_variance_bwd_kernel;
+  const size_t smem = 16 * (size_t)((S * 12 + 3) / 4) + sizeof(Tap) * (size_t)S * TX * TY * ND;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const Tiling tl = make_tiling(B, D, Ht, Wt, TX, TY, ND, (long long)sms * per_sm);
+  const long long grid = (long long)B * tl.tiles_y * tl.tiles_x * tl.run_groups;
+  kernel<<<(unsigned)grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)feats, (const float*)proj, (const float*)depth, (const float*)g,
-      (float*)dfeats, (float*)ddepth, B, S, Hs, Ws, C, D, Ht, Wt, shuffle);
+      (float*)dfeats, (float*)ddepth, S, Hs, Ws, C, D, Ht, Wt, tl, shuffle);
   return (int)cudaGetLastError();
 }

@@ -43,6 +43,7 @@ from boostmvsnerfs_torch.ops.cuda.warp_variance import (
 
 # channels of the FPN's level_0/1/2 maps, the cost-volume inputs per level
 FPN_CHANNELS = (32, 16, 8)
+WARP_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +51,7 @@ class CascadeConfig:
     """Cascade settings that change the math (reference
     configs/exps/pretrain/enerf/dtu_pretrain.yaml, enerf_ours for the boost
     fields). The JAX config's TPU-only knobs (Pallas/windowed/structured
-    paths, windows, tilings, warp dtype) have no counterpart."""
+    paths, windows, tilings) have no counterpart."""
 
     num: int = 2
     depth_inv: tuple = (True, False)
@@ -69,6 +70,14 @@ class CascadeConfig:
     loss_weight: tuple = (0.1, 1.0)
     viewdir_agg: bool = True
     k_best: int = 4
+    # operands of the eval plane-sweep warp on the card (JAX's default):
+    # "bfloat16" rounds the features and tap weights to bf16 and sums in
+    # float32; "float32" runs the f32 kernel. Training warps in float32.
+    warp_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.warp_dtype not in WARP_DTYPES:
+            raise ValueError(f"warp_dtype {self.warp_dtype!r} not in {sorted(WARP_DTYPES)}")
 
 
 def to_tensors(batch: dict, device: torch.device, dtype=torch.float32) -> dict:
@@ -143,12 +152,16 @@ class ENeRF(nn.Module):
                            near_far, prev):
         """Cost volume -> regularised feature volume and regressed depth:
         (feat_vol (B, D, Hv, Wv, 8), depth (B, Hv, Wv), std, nf_map). In
-        train mode the warp is differentiable (kernels #1 and #2)."""
+        train mode the warp is differentiable (kernels #1 and #2, float32);
+        in eval mode it runs at ``cas.warp_dtype``."""
         dv, nf_map, pm = self.volume_inputs(
             level, feats, src_exts, src_ixts, tar_ext, tar_ixt, near_far, prev
         )
-        warp = fused_warp_variance_diff if self.training else fused_warp_variance
-        vol = warp(feats[f"level_{level}"], pm, dv)
+        if self.training:
+            vol = fused_warp_variance_diff(feats[f"level_{level}"], pm, dv)
+        else:
+            vol = fused_warp_variance(feats[f"level_{level}"], pm, dv,
+                                      WARP_DTYPES[self.cas.warp_dtype])
         feat_vol, logits = getattr(self, f"cost_reg_{level}")(vol)
         depth, std = render.depth_regression(logits, dv, self.cas.depth_inv[level])
         return feat_vol, depth, std, nf_map

@@ -120,12 +120,17 @@ def variance_volume(
     src_feats: torch.Tensor,  # ([B,] S, Hs, Ws, C)
     proj_mats: torch.Tensor,  # ([B,] S, 3, 4)
     depth_values: torch.Tensor,  # ([B,] D, Ht, Wt)
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
     """Variance cost volume over S warped source views, ([B,] D, Ht, Wt, C):
     the population variance E[x^2] - E[x]^2 over views, out-of-view taps
-    contributing zeros."""
+    contributing zeros. With ``compute_dtype`` bfloat16 the features and
+    the tap weights are rounded to bf16 (``sampling.grid_sample_2d``), as
+    the Pallas kernel's ``compute_dtype`` rounds its matmul operands; the
+    sums and the variance stay float32."""
     if src_feats.dim() == 4:
-        return variance_volume(src_feats[None], proj_mats[None], depth_values[None])[0]
+        return variance_volume(src_feats[None], proj_mats[None], depth_values[None],
+                               compute_dtype)[0]
     B, S, Hs, Ws, C = src_feats.shape
     _, D, Ht, Wt = depth_values.shape
     vol_sum = 0.0
@@ -133,7 +138,7 @@ def variance_volume(
     for s in range(S):
         x, y = warp_coords(proj_mats[:, s], depth_values)
         xy = torch.stack([x, y], dim=-1).reshape(B, -1, 2)
-        w = sampling.grid_sample_2d(src_feats[:, s], xy, "zeros")
+        w = sampling.grid_sample_2d(src_feats[:, s], xy, "zeros", compute_dtype)
         vol_sum = vol_sum + w
         vol_sq = vol_sq + w * w
     mean = vol_sum / S

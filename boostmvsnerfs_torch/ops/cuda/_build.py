@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C launch function. It is compiled
 with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``boostmvsnerfs_torch/_build/`` (ignored by git), keyed by a hash of the
-source and the flags so an unchanged kernel is never rebuilt, and bound
-with ``ctypes``. Nothing is built at import: the first CUDA call of a
-wrapper builds its kernel, and ``build()`` compiles several at once (one
-``nvcc`` process per source, all started together).
+source, the shared ``csrc/*.cuh`` headers and the flags so an unchanged
+kernel is never rebuilt, and bound with ``ctypes``. Nothing is built at
+import: the first CUDA call of a wrapper builds its kernel, and
+``build()`` compiles several at once (one ``nvcc`` process per source,
+all started together).
 
 Each wrapper calls ``count_launch`` exactly where it launches its kernel,
 so a run can show which kernels the main path went through.
@@ -84,8 +85,11 @@ def source_constant(name: str, const: str) -> int:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, keyed by its source, the shared
+    headers of ``csrc/`` and the flags."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

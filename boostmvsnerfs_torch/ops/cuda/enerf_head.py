@@ -1,9 +1,10 @@
-"""Kernel 3: the whole ENeRF IBR head per sample.
+"""Kernel #5: the whole ENeRF IBR head per sample.
 
 Counterpart of ``boostmvsnerfs_tpu/ops/pallas/enerf_head.py::
 fused_nerf_head``; the CUDA source is ``csrc/enerf_head.cu``. Inputs are
-S-major, as the sampler (kernel 2) produces them: its (B*S, P, C) output
-reshapes to (B, S, P, C) at no cost.
+S-major, as the sampler (kernel #3) produces them: its (B*S, P, C) output
+reshapes to (B, S, P, C) at no cost. The kernel takes C in ``CHANNELS``
+and any view count S from 2 to its ``MAX_VIEWS``.
 
 ``params`` maps each layer name of ``HEAD_LAYERS`` to its (weight, bias)
 in ``nn.Linear`` layout (out, in); ``view_fc`` is absent when the head has
@@ -35,8 +36,9 @@ from boostmvsnerfs_torch.ops.cuda._tensor_cores import (
 
 NAME = "enerf_head"
 HEAD_LAYERS = ("view_fc", "global_fc", "agg_w_fc", "fc", "lr0", "sigma", "color0", "color1")
-# (S, C) pairs instantiated in csrc/enerf_head.cu
-SUPPORTED = {(3, 11), (3, 35)}
+# channel counts instantiated in csrc/enerf_head.cu: the level-1 (8 + RGB)
+# and level-0 (32 + RGB) maps
+CHANNELS = (11, 35)
 HID = 64
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [
     ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -148,8 +150,11 @@ def fused_nerf_head(
             f"{NAME}: shapes {tuple(vox.shape)}, {tuple(feat.shape)}, {tuple(dirs.shape)} "
             "do not agree"
         )
-    if (S, C) not in SUPPORTED:
-        raise ValueError(f"{NAME}: (views, channels) = {(S, C)} not in {sorted(SUPPORTED)}")
+    if C not in CHANNELS:
+        raise ValueError(f"{NAME}: channels {C} not in {CHANNELS}")
+    max_views = _build.source_constant(NAME, "MAX_VIEWS")
+    if not 2 <= S <= max_views:
+        raise ValueError(f"{NAME}: the kernel takes 2 to {max_views} views, got {S}")
     if tuple(params["lr0"][0].shape) != (HID, 24):
         raise ValueError(f"{NAME}: the kernel takes a {HID}-wide head over 8+16 inputs")
     dev = feat.device

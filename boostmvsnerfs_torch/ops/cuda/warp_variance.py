@@ -5,7 +5,15 @@ Counterparts of ``boostmvsnerfs_tpu/ops/pallas/warp_variance.py::
 fused_warp_variance`` (CUDA source ``csrc/warp_variance.cu``) and of
 ``_warp_variance_bwd`` (``csrc/warp_variance_bwd.cu``), joined as in JAX's
 ``fused_warp_variance_diff``: an autograd Function whose forward is the
-first kernel and whose backward is the second.
+first kernel and whose backward is the second. Both walk the plane sweep in
+chunks of a target-pixel tile x a run of neighbouring planes
+(``sweep_tile``; ``csrc/plane_sweep.cuh``).
+
+As in JAX, ``compute_dtype`` sets the forward's operands: bfloat16 (JAX's
+default, the eval path's ``warp_dtype``) rounds the features and the tap
+weights to bf16, with float32 products, sums and variance; float32 runs
+the f32 instance. The training forward and the backward are float32, as
+JAX's ``fused_warp_variance_diff`` is.
 """
 
 from __future__ import annotations
@@ -16,18 +24,36 @@ import torch
 
 from boostmvsnerfs_torch.ops import cost_volume, sampling
 from boostmvsnerfs_torch.ops.cuda import _build
+from boostmvsnerfs_torch.ops.cuda._tensor_cores import check_compute_dtype
 
 NAME = "warp_variance"
 BWD_NAME = "warp_variance_bwd"
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# the kernels' threads per block (csrc/warp_variance*.cu kThreads): one
+# per (pixel, 4 channels) of a tile
+THREADS = 256
+# the most planes in a run (csrc/warp_variance*.cu kPlanes)
+PLANES_PER_RUN = 4
+
+
+def sweep_tile(C: int, D: int) -> tuple[int, int, int]:
+    """The kernels' chunk: (TX, TY, ND), a tile of TX x TY target pixels
+    (powers of two, the tile as square as they allow), at most one (pixel,
+    4 channels) per thread, by a run of ND neighbouring planes."""
+    pixels = max(1, THREADS // (C // 4))
+    tx = 1 << (pixels.bit_length() // 2)
+    return tx, 1 << ((pixels // tx).bit_length() - 1), min(D, PLANES_PER_RUN)
 
 
 def warp_variance_plain(
-    src_feats: torch.Tensor, proj_mats: torch.Tensor, depth_values: torch.Tensor
+    src_feats: torch.Tensor, proj_mats: torch.Tensor, depth_values: torch.Tensor,
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
-    """The plain PyTorch version: ``cost_volume.variance_volume`` batched."""
-    return cost_volume.variance_volume(src_feats, proj_mats, depth_values)
+    """The plain PyTorch version: ``cost_volume.variance_volume`` batched,
+    at ``compute_dtype`` (bfloat16 rounds the features and tap weights)."""
+    check_compute_dtype(NAME, compute_dtype)
+    return cost_volume.variance_volume(src_feats, proj_mats, depth_values, compute_dtype)
 
 
 def _check_shapes(name, src_feats, proj_mats, depth_values):
@@ -47,9 +73,15 @@ def fused_warp_variance(
     src_feats: torch.Tensor,  # (B, S, Hs, Ws, C) float32, C % 4 == 0
     proj_mats: torch.Tensor,  # (B, S, 3, 4)
     depth_values: torch.Tensor,  # (B, D, Ht, Wt) metric depth
+    compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """Variance cost volume over S plane-sweep-warped views, (B, D, Ht, Wt, C),
-    with zeros padding. CPU tensors take the plain version."""
+    with zeros padding. On the card ``compute_dtype`` picks the instance:
+    bfloat16 (the default, JAX's) rounds the features and tap weights to
+    bf16 in the kernel, float32 takes them as they are. CPU tensors take
+    the plain version in float32, as the JAX package takes its XLA path off
+    the TPU."""
+    check_compute_dtype(NAME, compute_dtype)
     if src_feats.device.type == "cpu":
         return warp_variance_plain(src_feats, proj_mats, depth_values)
     _check_shapes(NAME, src_feats, proj_mats, depth_values)
@@ -62,7 +94,9 @@ def fused_warp_variance(
     fn = _build.kernel_function(NAME, "warp_variance_launch", _ARGTYPES)
     with torch.cuda.device(dev.index):
         rc = fn(src_feats.data_ptr(), proj_mats.data_ptr(), depth_values.data_ptr(),
-                out.data_ptr(), B, S, Hs, Ws, C, D, Ht, Wt, _build.stream_ptr(dev))
+                out.data_ptr(), B, S, Hs, Ws, C, D, Ht, Wt, *sweep_tile(C, D),
+                int(compute_dtype == torch.bfloat16), _build.sm_count(dev),
+                _build.stream_ptr(dev))
     _build.check(NAME, rc)
     _build.count_launch(NAME)
     return out
@@ -127,7 +161,7 @@ def warp_variance_bwd(
     with torch.cuda.device(dev.index):
         rc = fn(src_feats.data_ptr(), proj_mats.data_ptr(), depth_values.data_ptr(), g.data_ptr(),
                 d_feats.data_ptr(), d_depth.data_ptr(), B, S, Hs, Ws, C, D, Ht, Wt,
-                _build.stream_ptr(dev))
+                *sweep_tile(C, D), _build.sm_count(dev), _build.stream_ptr(dev))
     _build.check(BWD_NAME, rc)
     _build.count_launch(BWD_NAME)
     return d_feats, d_depth
@@ -137,7 +171,7 @@ class _WarpVarianceDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src_feats, proj_mats, depth_values):
         ctx.save_for_backward(src_feats, proj_mats, depth_values)
-        return fused_warp_variance(src_feats, proj_mats, depth_values)
+        return fused_warp_variance(src_feats, proj_mats, depth_values, torch.float32)
 
     @staticmethod
     def backward(ctx, g):
@@ -151,6 +185,6 @@ def fused_warp_variance_diff(
     src_feats: torch.Tensor, proj_mats: torch.Tensor, depth_values: torch.Tensor
 ) -> torch.Tensor:
     """Differentiable ``fused_warp_variance`` (the training path): the
-    forward kernel, and the backward kernel for the gradients of
-    ``src_feats`` and ``depth_values``."""
+    forward kernel's f32 instance, and the backward kernel for the
+    gradients of ``src_feats`` and ``depth_values``."""
     return _WarpVarianceDiff.apply(src_feats, proj_mats, depth_values)

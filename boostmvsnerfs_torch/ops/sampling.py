@@ -83,13 +83,19 @@ def grid_sample_2d(
     img: torch.Tensor,  # ([B,] H, W, C)
     xy: torch.Tensor,  # ([B,] N, 2) pixel coords (x, y)
     padding_mode: str = "zeros",
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
     """Bilinear sample, ([B,] N, C). ``zeros``: out-of-range taps
     contribute 0; ``border``: coordinates clamped to the image rectangle
-    (``bilinear_taps``)."""
+    (``bilinear_taps``). With ``compute_dtype`` bfloat16 the map and the
+    tap weights are rounded to bf16 first, and the products (exact) and
+    their sums stay float32."""
     img, xy, batched = _batched(img, xy, 3)
     B, H, W, C = img.shape
     idx, w, *_ = bilinear_taps(xy[..., 0], xy[..., 1], H, W, padding_mode)
+    if compute_dtype != torch.float32:
+        img = img.to(compute_dtype).float()
+        w = [wi.to(compute_dtype).float() for wi in w]
     flat = img.reshape(B, H * W, C)
     out = (
         _take(flat, idx[0]) * w[0][..., None]

@@ -19,9 +19,10 @@ phase. Three main paths are driven, each with its kernels checked first:
    event time also counts the host's share of a call), and the bound
    (bytes over 3.35 TB/s, or bf16 tensor-core operations over 989 TFLOP/s
    plus f32 operations over 67 TFLOP/s, the H100 SXM's published peaks,
-   whichever is larger). The bf16 kernels (renderer MLP, ENeRF head) are
-   held against their plain versions at bf16, and their error against the
-   f32 plain version must be bf16 rounding and nothing else.
+   whichever is larger). The bf16 kernels (the eval warp, renderer MLP,
+   ENeRF head) are held against their plain versions at bf16, and their
+   error against the f32 plain version must be bf16 rounding and nothing
+   else. The head is also checked at 2, 4 and 8 views (HEAD_VIEWS).
 4. frame   - a reduced-geometry BoostENeRF frame on the card against the
    port on the CPU (plain versions): rgb PSNR must exceed 45 dB.
 5. main    - the first main path, bench.py's workload: BoostENeRF K=4 of
@@ -38,12 +39,12 @@ phase. Three main paths are driven, each with its kernels checked first:
    path, the BoostENeRF fine-tuning step of scripts/bench_train.py
    (--modes fast --ray-blocks 16): K=4 of C(6,3), 480x736, forward rig,
    both levels rendered on full images, Adam (lr 5e-5, ep_iter 500) after
-   the clip at 40, the ray-blocked step with 16 blocks. The sampler and
-   the backward kernels against their plain versions on the step's own
-   inputs; one plain and one blocked step at 128x192 on the card against
-   the CPU port, with faults planted in the CPU port to show the bars
-   catch them;
-   launches per step, step times over three batches; one profiled step.
+   the clip at 40, the ray-blocked step with 16 blocks. The f32 warp, the
+   sampler and the backward kernels against their plain versions on the
+   step's own inputs; one plain and one blocked step at 128x192 on the
+   card against the CPU port, with faults planted in the CPU port to show
+   the bars catch them; launches per step, step times over three batches;
+   one profiled step.
 
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and a last status line. Any failed check raises,
@@ -85,6 +86,8 @@ BF16_MEAN_RATIO = 1.5
 MAIN_RAYS = 480 * 736
 MVS_HW = (224, 352)
 MVS_K_BEST = (0, 5, 9, 14)
+# view counts of the head kernel checked beside the main path's 3
+HEAD_VIEWS = (2, 4, 8)
 NO_LAUNCHES = {"warp_variance": 0, "img_sample": 0, "enerf_head": 0, "tri_sample": 0,
                "renderer_mlp": 0, "warp_variance_bwd": 0, "img_sample_bwd": 0}
 TRAIN_HW = (480, 736)
@@ -191,9 +194,11 @@ def live_tap_share(feats, pm, dv) -> float:
     return live / (4 * feats.shape[1] * dv.numel())
 
 
-def warp_work(feats, pm, dv):
+def warp_work(feats, pm, dv, compute_dtype=torch.bfloat16):
     """Per voxel and view the projection, 4 taps x C multiply-adds and the
-    sums of w and w^2; per voxel the variance."""
+    sums of w and w^2; per voxel the variance. Either instance
+    (``compute_dtype``) reads the f32 features: the bf16 one rounds them as
+    it loads them, so the bytes are the same."""
     B, S, Hs, Ws, C = feats.shape
     n = dv.numel()
     nbytes = 4 * (feats.numel() + pm.numel() + n + n * C)
@@ -307,11 +312,19 @@ def main_path_kernel_inputs(model, batch) -> dict:
     sample_args = (maps.reshape(BK * S, H, W, C), x.reshape(BK * S, -1), y.reshape(BK * S, -1))
     feat = fused_row_sample(*sample_args).reshape(BK, S, -1, C)
     dirs = model.ray_diff_dirs(pts, sub)
+    head = (model.nerf_1.head_params(), vox, feat, dirs)
     return {
         "warp_variance": warp,
         "img_sample": [("level1", sample_args)],
-        "enerf_head": [("level1", (model.nerf_1.head_params(), vox, feat, dirs))],
+        "enerf_head": [("level1", head)],
+        **{f"enerf_head/S{n}": [("level1", head_views(*head, n))] for n in HEAD_VIEWS},
     }
+
+
+def head_views(params, vox, feat, dirs, n: int):
+    """The head's inputs with ``n`` views: the path's views, cycled."""
+    views = [i % feat.shape[1] for i in range(n)]
+    return params, vox, feat[:, views].contiguous(), dirs[:, views].contiguous()
 
 
 def mvs_kernel_inputs(model, batch) -> dict:
@@ -363,12 +376,15 @@ def grid_sample_3d_library(vol, xyz):
 # yardstick or None, the kernel's compute dtype)
 F32, BF16 = torch.float32, torch.bfloat16
 ENERF_KERNELS = {
-    "warp_variance": ("warp_variance", None, "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:38",
-                      warp_work, None, F32),
+    "warp_variance": ("warp_variance", "bf16 features (eval, warp_dtype bfloat16)",
+                      "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:38", warp_work, None, BF16),
     "img_sample": ("img_sample", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106",
                    sample_work, grid_sample_library, F32),
     "enerf_head": ("enerf_head", None, "boostmvsnerfs_tpu/ops/pallas/enerf_head.py:45",
                    head_work, None, BF16),
+    **{f"enerf_head/S{n}": ("enerf_head", f"{n} views (the path's 3, cycled)",
+                            "boostmvsnerfs_tpu/ops/pallas/enerf_head.py:45", head_work, None,
+                            BF16) for n in HEAD_VIEWS},
 }
 MVS_KERNELS = {
     "tri_sample": ("tri_sample", None, "boostmvsnerfs_tpu/ops/pallas/tri_sample.py:37",
@@ -674,7 +690,8 @@ def train_kernel_inputs(model, batch, seed: int = 7) -> dict:
     from the model's own train-mode stages, each backward with a seeded
     normal cotangent of its output's shape: #2 at both levels, #3 and #4 at
     level 0 (all rays, C=35) and at the first level-1 ray block of the
-    blocked step (C=11). {name: [(label, args)]}."""
+    blocked step (C=11); #1's f32 instance (the training forward) at both
+    levels. {name: [(label, args)]}."""
     from boostmvsnerfs_torch.parallel.train import level_ray_blocks
 
     gen = torch.Generator(device=batch["all_src_inps"].device).manual_seed(seed)
@@ -688,11 +705,12 @@ def train_kernel_inputs(model, batch, seed: int = 7) -> dict:
     stage = (sub["src_exts"], sub["src_ixts"], sub["tar_ext"], sub["tar_ixt"], sub["near_far"])
     H, W = batch["all_src_inps"].shape[2:4]
     n_max = max(batch[f"ray_idx_{i}"].shape[1] for i in range(cas.num))
-    warp, sample, sample_bwd, prev = [], [], [], None
+    warp, warp_bwd, sample, sample_bwd, prev = [], [], [], [], None
     for level in range(cas.num):
         dv, _, pm = model.volume_inputs(level, feats, *stage, prev)
         f = feats[f"level_{level}"]
-        warp.append((f"level{level}", (f, pm, dv, normal(*dv.shape, f.shape[-1]))))
+        warp_bwd.append((f"level{level}", (f, pm, dv, normal(*dv.shape, f.shape[-1]))))
+        warp.append((f"level{level}", (f, pm, dv, torch.float32)))
         _, depth, std, nf_map = model.build_level_volume(level, feats, *stage, prev)
         prev = (depth, std, nf_map)
         rs = cas.render_scale[level]
@@ -709,7 +727,8 @@ def train_kernel_inputs(model, batch, seed: int = 7) -> dict:
         label = f"level{level}" + (f" block 1 of {nb}" if nb > 1 else "")
         sample.append((label, (imgs, x, y)))
         sample_bwd.append((label, (imgs, x, y, normal(*x.shape, imgs.shape[-1]))))
-    return {"warp_variance_bwd": warp, "img_sample": sample, "img_sample_bwd": sample_bwd}
+    return {"warp_variance": warp, "warp_variance_bwd": warp_bwd, "img_sample": sample,
+            "img_sample_bwd": sample_bwd}
 
 
 def grid_sample_bwd_library(imgs, x, y, g):
@@ -732,27 +751,36 @@ def grid_sample_bwd_library(imgs, x, y, g):
     return backward
 
 
-# entry -> (kernel, instance or None, its Pallas kernel, work, library yardstick or None)
+# The f32 warp rounds its coordinates as the plain version does (every tap
+# the same) and its tap sums with one rounding per term (FMAs): it is held
+# at 1e-5 of its output's magnitude.
+WARP_F32_RTOL = 1e-5
+# entry -> (kernel, instance or None, its Pallas kernel, work, library
+# yardstick or None, tolerance relative to each output's largest magnitude)
 TRAIN_KERNELS = {
+    "warp_variance": ("warp_variance", "f32 features (the training forward)",
+                      "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:38", warp_work, None,
+                      WARP_F32_RTOL),
     "warp_variance_bwd": ("warp_variance_bwd", None,
-                          "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:244", warp_bwd_work, None),
+                          "boostmvsnerfs_tpu/ops/pallas/warp_variance.py:244", warp_bwd_work, None,
+                          KERNEL_RTOL),
     "img_sample": ("img_sample", "forward on the training path",
                    "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106", sample_work,
-                   grid_sample_library),
+                   grid_sample_library, KERNEL_RTOL),
     "img_sample_bwd": ("img_sample_bwd", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:458",
-                       sample_bwd_work, grid_sample_bwd_library),
+                       sample_bwd_work, grid_sample_bwd_library, KERNEL_RTOL),
 }
 
 
 def phase_kernels_train(inputs: dict) -> dict:
     """Each kernel of TRAIN_KERNELS against its plain version on the
-    training path's inputs: every output's max abs error within KERNEL_RTOL
-    of that output's largest magnitude (the backward kernels' scatters are
-    atomic, in an order that changes from run to run); the times and
-    bounds as in ``phase_kernels``. Returns the summary record of each
-    entry."""
+    training path's inputs: every output's max abs error within the
+    entry's tolerance of that output's largest magnitude (KERNEL_RTOL for
+    the backward kernels, whose scatters are atomic, in an order that
+    changes from run to run); the times and bounds as in
+    ``phase_kernels``. Returns the summary record of each entry."""
     summary = {}
-    for entry, (name, instance, replaces, work, library) in TRAIN_KERNELS.items():
+    for entry, (name, instance, replaces, work, library, rtol) in TRAIN_KERNELS.items():
         kernel, plain = kernel_pair(name)
         rec = {"name": name, "route": "cuda", "source": f"boostmvsnerfs_torch/csrc/{name}.cu",
                "replaces": replaces, "path": "train", "compute_dtype": "float32",
@@ -774,12 +802,12 @@ def phase_kernels_train(inputs: dict) -> dict:
             nbytes, ops = work(*args)
             bms, by = bound(nbytes, ops)
             emit(phase="kernels_train", kernel=name, instance=instance, at=label,
-                 shapes=[list(a.shape) for a in args], max_abs_err=errs, largest=scales,
-                 relative_err=[e / max(c, 1e-30) for e, c in zip(errs, scales)],
-                 tolerance=KERNEL_RTOL, **t, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                 shapes=[list(a.shape) for a in args if torch.is_tensor(a)], max_abs_err=errs,
+                 largest=scales, relative_err=[e / max(c, 1e-30) for e, c in zip(errs, scales)],
+                 tolerance=rtol, **t, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                  bytes=nbytes, ops=ops, **shares(bms, t))
             for e, c in zip(errs, scales):
-                require(e <= KERNEL_RTOL * c, f"{name} at {label}: error {e} vs largest {c}")
+                require(e <= rtol * c, f"{name} at {label}: error {e} vs largest {c}")
             rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
             rec["ms"] += t["ms"]
             rec["device_ms"] += t["device_ms"]

@@ -6,20 +6,21 @@ where tests/conftest.py (which imports JAX) is left out:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: the warp and sampler kernels round their coordinates and tap
-sums in the plain versions' order, so they agree to a few ulps
-(rtol 1e-5 / atol 1e-6). The head and the renderer MLP at bf16 (the head's
-one contract, the MLP's default) are held against their plain versions at
-bf16: the products are exact in f32 on both sides, but the sums run in
-another order, and a sum that straddles a bf16 rounding boundary moves the
-next layer's operand by one bf16 ulp; so 1e-2 of the output's largest
-magnitude (at least 1), chip_smoke.py's bar, and their mean error against
-the f32 plain version at most 1.5 times the bf16 plain version's own. The
-MLP's f32 kernel sums up to 191-term dot products through six layers in
-another order than cuBLAS, and is held at 1e-4 of its output's largest
-magnitude. The two
-backward kernels scatter their feature and image cotangents with atomics,
-whose order changes from run to run, and reduce the depth and coordinate
+Tolerances: the warp and sampler kernels round their coordinates in the
+plain versions' order (every tap the same) and their tap sums in that
+order or with FMAs, so they agree to a few ulps (rtol 1e-5 / atol 1e-6).
+The head, the renderer MLP and the warp at bf16 (the head's one contract,
+the MLP's and the eval warp's default) are held against their plain
+versions at bf16: the products are exact in f32 on both sides, but the
+head's and the MLP's sums run in another order, and a sum that straddles
+a bf16 rounding boundary moves the next layer's operand by one bf16 ulp;
+so 1e-2 of the output's largest magnitude (at least 1), chip_smoke.py's
+bar, and their mean error against the f32 plain version at most 1.5
+times the bf16 plain version's own. The MLP's f32 kernel sums up to
+191-term dot products through six layers in another order than cuBLAS,
+and is held at 1e-4 of its output's largest magnitude. The two backward
+kernels scatter their feature and image cotangents with atomics, whose
+order changes from run to run, and reduce the depth and coordinate
 cotangents in another order than the plain versions: each output is held
 at 1e-4 of its largest magnitude (chip_smoke.py's bar).
 """
@@ -28,9 +29,10 @@ import numpy as np
 import pytest
 import torch
 
+from boostmvsnerfs_torch.models.enerf import ENeRF, CascadeConfig, to_tensors
 from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig, RendererMLP
 from boostmvsnerfs_torch.models.nerf_head import NeRFHead
-from boostmvsnerfs_torch.ops import geometry
+from boostmvsnerfs_torch.ops import cost_volume, geometry
 from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 from boostmvsnerfs_torch.ops.cuda.enerf_head import fused_nerf_head, nerf_head_plain
 from boostmvsnerfs_torch.ops.cuda.img_sample import (
@@ -47,6 +49,7 @@ from boostmvsnerfs_torch.ops.cuda.warp_variance import (
     fused_warp_variance_diff,
     warp_variance_bwd,
     warp_variance_bwd_plain,
+    sweep_tile,
     warp_variance_plain,
 )
 from boostmvsnerfs_torch.utils.port_weights import random_state_dict
@@ -70,8 +73,9 @@ def _close(got, want, rtol, atol):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rig,C", [("orbit", 8), ("forward", 16), ("orbit", 32)])
-def test_warp_variance_kernel(dev, rig, C):
+def test_warp_variance_kernel(dev, rig, C, compute_dtype):
     B, S, Hs, Ws, Ht, Wt, D = 2, 3, 40, 56, 20, 28, 7
     b = make_scene_batch(B=B, n_views=S, H=Hs, W=Ws, seed=C, rig=rig)
     t = {k: torch.from_numpy(v).to(dev) for k, v in b.items() if k != "src_inps"}
@@ -80,8 +84,24 @@ def test_warp_variance_kernel(dev, rig, C):
     rng = np.random.default_rng(C)
     feats = torch.from_numpy(rng.standard_normal((B, S, Hs, Ws, C)).astype(np.float32)).to(dev)
     dv = torch.from_numpy(rng.uniform(0.2, 8.0, (B, D, Ht, Wt)).astype(np.float32)).to(dev)
-    _close(fused_warp_variance(feats, pm, dv), warp_variance_plain(feats, pm, dv), 1e-5, 1e-6)
+    got = fused_warp_variance(feats, pm, dv, compute_dtype)
+    want = warp_variance_plain(feats, pm, dv, compute_dtype)
+    if compute_dtype == torch.float32:
+        _close(got, want, 1e-5, 1e-6)
+    else:
+        _close_bf16(got, want, warp_variance_plain(feats, pm, dv))
     assert launch_counts()["warp_variance"] == 1
+
+
+def test_warp_variance_kernel_default_is_bf16(dev):
+    """The wrapper's default compute dtype is bf16, as in JAX (and the
+    eval path's ``warp_dtype``): the same output bit for bit."""
+    feats, pm, dv, _ = _warp_case(dev, "forward", 16, 3)
+    a = fused_warp_variance(feats, pm, dv)
+    b = fused_warp_variance(feats, pm, dv, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert launch_counts()["warp_variance"] == 2
 
 
 # Sampler cases: every channel count of the model paths (3, 11, 35) and
@@ -125,13 +145,14 @@ def _close_bf16(got, want, want_f32):
     assert mean <= BF16_MEAN_RATIO * own, (mean, own)
 
 
+@pytest.mark.parametrize("S", [2, 3, 4, 8])
 @pytest.mark.parametrize("C,viewdir_agg", [(11, True), (11, False), (35, True)])
-def test_enerf_head_kernel(dev, C, viewdir_agg):
+def test_enerf_head_kernel(dev, C, viewdir_agg, S):
     head = NeRFHead(C, viewdir_agg=viewdir_agg)
     head.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(head, C).items()})
     head = head.to(dev)
     rng = np.random.default_rng(2)
-    B, S, P = 2, 3, 3001  # P not a multiple of the 16-sample tile
+    B, P = 2, 3001  # P not a multiple of the 16-sample tile
     vox = torch.from_numpy(rng.standard_normal((B, P, 8)).astype(np.float32)).to(dev)
     feat = rng.standard_normal((B, S, P, C)).astype(np.float32)
     feat[..., -3:] = rng.uniform(0, 1, (B, S, P, 3))
@@ -231,9 +252,42 @@ def _warp_case(dev, rig, C, seed):
     return feats, pm, dv, g
 
 
-@pytest.mark.parametrize("rig,C", [("orbit", 8), ("forward", 16), ("orbit", 32)])
-def test_warp_variance_bwd_kernel(dev, rig, C):
+def taps_moved_share(feats, pm, dv) -> float:
+    """The share of a run's planes (after its first) whose taps lie at
+    another pixel than the plane before's, where the backward kernel adds
+    the shares it summed in registers to d feats (csrc/warp_variance_bwd.cu),
+    from the voxels' coordinates and the kernels' runs of planes."""
+    B, S, Hs, Ws, C = feats.shape
+    ND = sweep_tile(C, dv.shape[1])[2]
+    moved = total = 0
+    for b in range(B):
+        for s in range(S):
+            xu, yu = cost_volume.warp_coords(pm[b, s], dv[b])
+            x0 = torch.floor(xu.clamp(-2, Ws + 1))
+            y0 = torch.floor(yu.clamp(-2, Hs + 1))
+            within = torch.arange(1, dv.shape[1], device=dv.device) % ND != 0
+            step = (x0[1:] != x0[:-1]) | (y0[1:] != y0[:-1])
+            moved += int(step[within].sum())
+            total += int(within.sum()) * step[0].numel()
+    return moved / total
+
+
+# In every case the taps of a run's planes stay put at some planes (their
+# shares summed in registers) and move at others (added to device memory in
+# mid-run). The rig cases take random depths per voxel: their taps move at
+# half the planes or more. "planes" sweeps 16 planes of the cascade's first
+# level (uniform in disparity) on the forward rig, as the main path does:
+# the taps move at about one plane in seven.
+@pytest.mark.parametrize("rig,C,depths", [("orbit", 8, "random"), ("forward", 16, "random"),
+                                          ("orbit", 32, "random"), ("forward", 32, "planes")])
+def test_warp_variance_bwd_kernel(dev, rig, C, depths):
     feats, pm, dv, g = _warp_case(dev, rig, C, 40 + C)
+    if depths == "planes":
+        near_far = torch.tensor([[1.5, 6.0]] * feats.shape[0], device=dev)
+        dv = cost_volume.initial_depth_values(near_far, 16, *dv.shape[2:], True)
+        g = torch.randn((*dv.shape, C), generator=torch.Generator(dev).manual_seed(C),
+                        device=dev)
+    assert 0.05 < taps_moved_share(feats, pm, dv) < 0.95
     got = warp_variance_bwd(feats, pm, dv, g)
     want = warp_variance_bwd_plain(feats, pm, dv, g)
     for a, b, name in zip(got, want, ("d_feats", "d_depth")):
@@ -286,3 +340,23 @@ def test_autograd_functions_launch_forward_and_backward_kernels(dev):
     counts = launch_counts()
     assert [counts[k] for k in ("warp_variance", "warp_variance_bwd", "img_sample",
                                 "img_sample_bwd")] == [1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("n_views", [2, 4])
+def test_enerf_eval_renders_any_view_count(dev, n_views):
+    """A plain ENeRF eval frame over 2 or 4 source views renders on the card
+    through the head kernel (the DTU recipe's view counts), within 45 dB of
+    the port on the CPU."""
+    cas = CascadeConfig(render_if=(False, True))
+    batch = make_scene_batch(B=1, n_views=n_views, H=64, W=96, seed=n_views, rig="forward")
+    state = {k: torch.from_numpy(v) for k, v in random_state_dict(ENeRF(cas, "cpu"), 1).items()}
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = ENeRF(cas, device=device)
+        model.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            outs[device] = model(to_tensors(batch, model.device))["rgb_level1"].cpu()
+    assert launch_counts()["enerf_head"] == 1
+    assert bool(torch.isfinite(outs["cuda"]).all())
+    mse = float(((outs["cuda"] - outs["cpu"]) ** 2).mean())
+    assert -10 * np.log10(mse) > 45.0

@@ -100,6 +100,68 @@ def test_warp_plain_matches_pallas_interpret():
     close(got, want)
 
 
+@pytest.mark.parametrize("C,D", [(32, 64), (16, 8), (8, 7), (4, 2), (12, 5), (64, 3), (1024, 9)])
+def test_sweep_tile_fits_the_kernels(C, D):
+    """The warp kernels' chunk: a tile of powers of two (csrc/plane_sweep.cuh
+    takes their logarithms), at most one (pixel, 4 channels) per thread of
+    a block and at least one pixel, as square as powers of two allow, and a
+    run of at most PLANES_PER_RUN planes."""
+    from boostmvsnerfs_torch.ops.cuda.warp_variance import PLANES_PER_RUN, THREADS, sweep_tile
+
+    tx, ty, nd = sweep_tile(C, D)
+    assert tx & (tx - 1) == 0 and ty & (ty - 1) == 0 and tx >= ty >= 1
+    assert tx * ty * (C // 4) <= THREADS or tx * ty == 1
+    assert 2 * tx * ty * (C // 4) > THREADS  # the largest such tile
+    assert nd == min(D, PLANES_PER_RUN)
+
+
+def _mean_rel_err(got, want) -> float:
+    """tests/test_pallas_warp.py's bf16 measure: mean error over the mean
+    magnitude (plus 1e-3)."""
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).mean() / (np.abs(want).mean() + 1e-3))
+
+
+# The warp at bf16 (the eval path's warp_dtype, the Pallas kernel's default
+# compute_dtype) rounds other operands than the Pallas kernel does (the
+# features and the four tap weights, where Pallas rounds the features, the
+# x weights and the x-interpolated rows), so it is held at JAX's own bf16
+# bar, mean error below 0.05 of the mean magnitude
+# (tests/test_pallas_warp.py::test_fused_bf16_close); measured 3.5e-3.
+@pytest.mark.parametrize("rig,C", [("orbit", 8), ("forward", 4)])
+def test_warp_plain_bf16_matches_pallas_bf16_interpret(rig, C):
+    feats, pm, dv = _warp_inputs(1, C=C, rig=rig)
+    got = warp_variance_plain(*map(torch.from_numpy, (feats, pm, dv)), torch.bfloat16)
+    want = pallas_warp(*map(jnp.asarray, (feats, pm, dv)), window_h=feats.shape[2],
+                       compute_dtype=jnp.bfloat16, interpret=True)
+    assert _mean_rel_err(got, want) < 0.05
+
+
+# Against its own f32 version the bf16 warp moves by bf16 rounding alone:
+# measured 2.8e-3 of the mean magnitude and 5.3e-3 of the largest; bars
+# JAX's 0.05 and the card's 1e-2 of the largest magnitude.
+@pytest.mark.parametrize("rig,C", [("orbit", 8), ("forward", 4)])
+def test_warp_plain_bf16_rounds_the_f32_version(rig, C):
+    t = list(map(torch.from_numpy, _warp_inputs(3, C=C, rig=rig)))
+    got, want = warp_variance_plain(*t, torch.bfloat16), warp_variance_plain(*t)
+    rel = _mean_rel_err(got, want)
+    assert 1e-4 < rel < 0.05  # rounded, and by bf16 rounding only
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_cascade_config_takes_jax_warp_dtype():
+    """``warp_dtype`` has JAX's default and values; it selects the eval
+    warp's compute dtype on the card (the CPU takes float32 either way)."""
+    from boostmvsnerfs_torch.models.enerf import WARP_DTYPES, CascadeConfig
+    from boostmvsnerfs_tpu.models.enerf import CascadeConfig as JaxCascadeConfig
+
+    assert CascadeConfig().warp_dtype == JaxCascadeConfig().warp_dtype == "bfloat16"
+    assert WARP_DTYPES[CascadeConfig().warp_dtype] == torch.bfloat16
+    assert WARP_DTYPES[CascadeConfig(warp_dtype="float32").warp_dtype] == torch.float32
+    with pytest.raises(ValueError, match="warp_dtype"):
+        CascadeConfig(warp_dtype="float16")
+
+
 # --------------------------------------------------------------- img_sample
 
 
@@ -261,10 +323,14 @@ def _head_inputs(seed, B=2, S=3, P=60, C=11):
     return vox, feat, dirs
 
 
-@pytest.mark.parametrize("feat_ch,viewdir_agg", [(11, True), (35, True), (11, False)])
-def test_head_plain_matches_flax(feat_ch, viewdir_agg):
+@pytest.mark.parametrize("feat_ch,viewdir_agg,S", [
+    pytest.param(11, True, 3, id="11-True"), pytest.param(35, True, 3, id="35-True"),
+    pytest.param(11, False, 3, id="11-False"), pytest.param(11, True, 2, id="11-True-S2"),
+    pytest.param(11, True, 4, id="11-True-S4"), pytest.param(35, False, 2, id="35-False-S2"),
+    pytest.param(35, True, 4, id="35-True-S4")])
+def test_head_plain_matches_flax(feat_ch, viewdir_agg, S):
     head, fhead, variables = _heads(5, feat_ch, viewdir_agg)
-    vox, feat, dirs = _head_inputs(6, C=feat_ch)
+    vox, feat, dirs = _head_inputs(6, S=S, C=feat_ch)
     with torch.no_grad():
         got = nerf_head_plain(head.head_params(), *map(torch.from_numpy, (vox, feat, dirs)))
     ifrd = np.concatenate([feat, dirs], -1).transpose(0, 2, 1, 3)  # (B, P, S, C+4)
@@ -396,6 +462,12 @@ def _meta(*shape, dtype=torch.float32):
      ValueError),  # cotangent shape
     (lambda: row_sample_bwd(_meta(2, 8, 8, 5), _meta(2, 10), _meta(2, 10), _meta(2, 10, 5),
                             "reflect"), ValueError),
+    (lambda: TorchHead(11)(_meta(1, 6, 8), _meta(1, 9, 6, 11), _meta(1, 9, 6, 4)),
+     ValueError),  # more views than the kernel's MAX_VIEWS
+    (lambda: TorchHead(35)(_meta(1, 6, 8), _meta(1, 1, 6, 35), _meta(1, 1, 6, 4)),
+     ValueError),  # one view
+    (lambda: fused_warp_variance(_meta(1, 3, 8, 8, 8), _meta(1, 3, 3, 4), _meta(1, 2, 4, 4),
+                                 torch.float16), TypeError),  # compute dtype
 ])
 def test_wrappers_reject_bad_inputs_off_cpu(call, error):
     """Off the CPU a wrapper launches its kernel or raises; malformed
@@ -475,9 +547,16 @@ def test_chip_smoke_kernel_inputs_rehearse_on_cpu():
         (_, (params, vox, feat, dirs)), = inputs["enerf_head"]
         assert vox.shape == (2, 4096, 8) and feat.shape == (2, 3, 4096, 11)
         assert dirs.shape == (2, 3, 4096, 4)
+        for n in smoke.HEAD_VIEWS:  # the head's other view counts: the views cycled
+            (_, (_, vox_n, feat_n, dirs_n)), = inputs[f"enerf_head/S{n}"]
+            assert vox_n is vox and feat_n.shape == (2, n, 4096, 11)
+            assert torch.equal(feat_n[:, n - 1], feat[:, (n - 1) % 3])
+            assert torch.equal(dirs_n[:, n - 1], dirs[:, (n - 1) % 3])
         work = {"warp_variance": (fused_warp_variance, smoke.warp_work),
                 "img_sample": (fused_row_sample, smoke.sample_work),
-                "enerf_head": (fused_nerf_head, smoke.head_work)}
+                "enerf_head": (fused_nerf_head, smoke.head_work),
+                **{f"enerf_head/S{n}": (fused_nerf_head, smoke.head_work)
+                   for n in smoke.HEAD_VIEWS}}
         for name, (wrapper, count) in work.items():
             for _, args in inputs[name]:
                 assert torch.isfinite(wrapper(*args)).all(), name

@@ -492,7 +492,7 @@ def test_chip_smoke_train_phases_rehearse_on_cpu():
     from pathlib import Path
 
     from boostmvsnerfs_torch.ops.cuda.img_sample import row_sample_bwd
-    from boostmvsnerfs_torch.ops.cuda.warp_variance import warp_variance_bwd
+    from boostmvsnerfs_torch.ops.cuda.warp_variance import fused_warp_variance, warp_variance_bwd
 
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -506,6 +506,9 @@ def test_chip_smoke_train_phases_rehearse_on_cpu():
         inputs = smoke.train_kernel_inputs(model, batch)
         (l0, (f0, _, d0, g0)), (l1, (f1, _, d1, g1)) = inputs["warp_variance_bwd"]
         assert (l0, l1) == ("level0", "level1")
+        # the training forward (#1's f32 instance) on the same inputs
+        assert [(label, a[0], a[2], a[3]) for label, a in inputs["warp_variance"]] == [
+            (l0, f0, d0, torch.float32), (l1, f1, d1, torch.float32)]
         assert f0.shape == (2, 3, 8, 16, 32) and d0.shape == (2, 64, 4, 8)
         assert g0.shape == (2, 64, 4, 8, 32) and g1.shape == (2, 8, 16, 32, 16)
         (s0, (i0, x0, _, c0)), (s1, (i1, x1, _, c1)) = inputs["img_sample_bwd"]
@@ -518,6 +521,9 @@ def test_chip_smoke_train_phases_rehearse_on_cpu():
             for _, args in inputs[name]:
                 assert all(torch.isfinite(o).all() for o in wrapper(*args)), name
                 assert min(smoke.TRAIN_KERNELS[name][3](*args)) > 0, name
+        for _, args in inputs["warp_variance"]:
+            assert torch.isfinite(fused_warp_variance(*args)).all()
+            assert min(smoke.TRAIN_KERNELS["warp_variance"][3](*args)) > 0
         assert [label for label, _ in inputs["img_sample"]] == [s0, s1]
         for (_, fwd), (_, bwd) in zip(inputs["img_sample"], inputs["img_sample_bwd"]):
             assert all(a is b for a, b in zip(fwd, bwd[:3]))
