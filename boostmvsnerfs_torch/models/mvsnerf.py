@@ -14,7 +14,8 @@ The render's three hot loops go through ``ops.cuda``: the trilinear lookup
 of the encoding volume (``fused_tri_sample``), the per-view colour lookup
 (``fused_row_sample``) and the renderer MLP (``fused_renderer_mlp``, the
 positional encoding built in the kernel). Each runs its CUDA kernel on a
-CUDA device and its plain PyTorch version on the CPU.
+CUDA device, the volume lookup and the MLP at bf16 operands as the Pallas
+kernels do on the TPU, and its plain PyTorch version in f32 on the CPU.
 """
 
 from __future__ import annotations
@@ -306,8 +307,8 @@ class MVSNeRF(nn.Module):
         uvd, vox_xyz = self.volume_coords(batch, volume, pts, near, far)
         x, y, masks = self.view_colors(batch, pts)
         rgbs = render.unpreprocess(batch["src_inps"]).reshape(B * V, H, W, 3)
-        calls = {"tri_sample": (volume, vox_xyz), "img_sample": (rgbs, x, y, "border")}
-        vox = fused_tri_sample(*calls["tri_sample"])  # (B, R*D, 8)
+        calls = {"tri_sample": (volume, vox_xyz, D), "img_sample": (rgbs, x, y, "border")}
+        vox = fused_tri_sample(*calls["tri_sample"])  # (B, R*D, 8), bf16 on the card
         col = fused_row_sample(*calls["img_sample"]).reshape(B, V, -1, 3)
         feat = torch.cat([vox, torch.cat([col, masks[..., None]], -1).movedim(1, 2)
                           .reshape(B, R * D, 4 * V)], dim=-1)  # [vox 8, (rgb, mask) per view]

@@ -139,8 +139,10 @@ def grid_sample_3d(
     vol: torch.Tensor,  # ([B,] D, H, W, C)
     xyz: torch.Tensor,  # ([B,] N, 3) pixel coords (x->W, y->H, z->D)
     padding_mode: str = "zeros",
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
-    """Trilinear sample, ([B,] N, C) (5D ``grid_sample``, align-corners)."""
+    """Trilinear sample, ([B,] N, C) (5D ``grid_sample``, align-corners).
+    With ``compute_dtype`` bfloat16, ``_grid_sample_3d_bf16``."""
     vol, xyz, batched = _batched(vol, xyz, 4)
     B, D, H, W, C = vol.shape
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
@@ -152,6 +154,9 @@ def grid_sample_3d(
         z = z.clamp(-2.0, D + 1.0)
     else:
         raise ValueError(f"padding_mode {padding_mode!r}")
+    if compute_dtype != torch.float32:
+        out = _grid_sample_3d_bf16(vol, x, y, z, compute_dtype)
+        return out if batched else out[0]
     x0f, y0f, z0f = torch.floor(x), torch.floor(y), torch.floor(z)
     tx, ty, tz = x - x0f, y - y0f, z - z0f
     x0, y0, z0 = x0f.long(), y0f.long(), z0f.long()
@@ -177,6 +182,46 @@ def grid_sample_3d(
                 xi, yi, zi = xi.clamp(0, W - 1), yi.clamp(0, H - 1), zi.clamp(0, D - 1)
                 out = out + _take(flat, (zi * H + yi) * W + xi) * w[..., None]
     return out if batched else out[0]
+
+
+def _grid_sample_3d_bf16(vol, x, y, z, compute_dtype):
+    """The trilinear sample of ``vol`` (B, D, H, W, C) at clamped
+    coordinates (B, N) each, at bf16 operands rounded where the Pallas
+    kernel rounds (``ops/pallas/tri_sample.py``: an x contraction of the
+    bf16 volume against bf16 triangle weights, then a bf16 (y, z)-weighted
+    partial per tap row):
+
+        out[c] = sum_{dz, dy} bf16((sum_dx bf16(v[c]) * bf16(wx)) * wy * wz)
+
+    with triangle weights w = max(0, 1 - |tap - coordinate|), wy and wz in
+    float32, the products of bf16 values exact in float32, the x sums and
+    the (dz, dy) sum (z-major) in float32; taps outside the volume weigh 0.
+    """
+    B, D, H, W, C = vol.shape
+
+    def taps(c, size):
+        """The two taps of coordinates ``c``: (index clamped into the
+        volume, triangle weight, inside the volume) for each."""
+        c0 = torch.floor(c)
+        out = []
+        for d in (0, 1):
+            i = c0 + d
+            w = (1.0 - (i - c).abs()).clamp_min(0.0)
+            out.append((i.long().clamp(0, size - 1), w, (i >= 0) & (i <= size - 1)))
+        return out
+
+    tx, ty, tz = taps(x, W), taps(y, H), taps(z, D)
+    flat = vol.to(compute_dtype).float().reshape(B, D * H * W, C)
+    out = torch.zeros(x.shape + (C,), dtype=torch.float32, device=vol.device)
+    for zi, wz, vz in tz:
+        for yi, wy, vy in ty:
+            row = 0.0
+            for xi, wx, vx in tx:
+                wx = torch.where(vx, wx.to(compute_dtype).float(), 0.0)
+                row = row + _take(flat, (zi * H + yi) * W + xi) * wx[..., None]
+            term = (row * wy[..., None] * wz[..., None]).to(compute_dtype).float()
+            out = out + torch.where((vy & vz)[..., None], term, 0.0)
+    return out
 
 
 def _lerp_taps(n_out: int, n_in: int, device, dtype):

@@ -19,10 +19,11 @@ phase. Three main paths are driven, each with its kernels checked first:
    event time also counts the host's share of a call), and the bound
    (bytes over 3.35 TB/s, or bf16 tensor-core operations over 989 TFLOP/s
    plus f32 operations over 67 TFLOP/s, the H100 SXM's published peaks,
-   whichever is larger). The bf16 kernels (the eval warp, renderer MLP,
-   ENeRF head) are held against their plain versions at bf16, and their
-   error against the f32 plain version must be bf16 rounding and nothing
-   else. The head is also checked at 2, 4 and 8 views (HEAD_VIEWS).
+   whichever is larger). The bf16 kernels (the eval warp, the volume
+   sampler, renderer MLP, ENeRF head) are held against their plain
+   versions at bf16, and their error against the f32 plain version must
+   be bf16 rounding and nothing else; the volume sampler's f32 instance
+   is held against the f32 plain version. The head is also checked at 2, 4 and 8 views (HEAD_VIEWS).
 4. frame   - a reduced-geometry BoostENeRF frame on the card against the
    port on the CPU (plain versions): rgb PSNR must exceed 45 dB.
 5. main    - the first main path, bench.py's workload: BoostENeRF K=4 of
@@ -263,7 +264,8 @@ def sample_bwd_work(imgs, x, y, g, padding_mode="border"):
     return 4 * (maps + imgs.numel() + 4 * n + n * C), n * (20 + 18 * C)
 
 
-def tri_work(vol, xyz):
+def tri_work(vol, xyz, *_):
+    """Both instances read the f32 volume (the bf16 one rounds it)."""
     C, n = vol.shape[-1], xyz.numel() // 3
     return 4 * (vol.numel() + xyz.numel() + n * C), n * (8 * (2 + 2 * C) + 12)
 
@@ -339,6 +341,7 @@ def mvs_kernel_inputs(model, batch) -> dict:
     params, uvd, feat, dirs, freqs = calls["renderer_mlp"]
     return {
         "tri_sample": [("render", calls["tri_sample"])],
+        "tri_sample/f32": [("render", (*calls["tri_sample"], torch.float32))],
         "img_sample": [("render", calls["img_sample"])],
         "renderer_mlp": [("render", calls["renderer_mlp"])],
         "renderer_mlp/encoded": [("render", (params, positional_encoding(uvd, freqs), feat,
@@ -388,7 +391,10 @@ ENERF_KERNELS = {
 }
 MVS_KERNELS = {
     "tri_sample": ("tri_sample", None, "boostmvsnerfs_tpu/ops/pallas/tri_sample.py:37",
-                   tri_work, grid_sample_3d_library, F32),
+                   tri_work, grid_sample_3d_library, BF16),
+    "tri_sample/f32": ("tri_sample", "compute_dtype float32",
+                       "boostmvsnerfs_tpu/ops/pallas/tri_sample.py:37", tri_work,
+                       grid_sample_3d_library, F32),
     "img_sample": ("img_sample", None, "boostmvsnerfs_tpu/ops/pallas/img_sample.py:106",
                    sample_work, grid_sample_library, F32),
     "renderer_mlp": ("renderer_mlp", "raw coordinates, encoded in the kernel",

@@ -9,8 +9,8 @@ where tests/conftest.py (which imports JAX) is left out:
 Tolerances: the warp and sampler kernels round their coordinates in the
 plain versions' order (every tap the same) and their tap sums in that
 order or with FMAs, so they agree to a few ulps (rtol 1e-5 / atol 1e-6).
-The head, the renderer MLP and the warp at bf16 (the head's one contract,
-the MLP's and the eval warp's default) are held against their plain
+The head, the renderer MLP, the warp and the volume sampler at bf16 (the
+head's one contract, the others' default) are held against their plain
 versions at bf16: the products are exact in f32 on both sides, but the
 head's and the MLP's sums run in another order, and a sum that straddles
 a bf16 rounding boundary moves the next layer's operand by one bf16 ulp;
@@ -178,16 +178,61 @@ def test_img_sample_kernel_rgb(dev):
     assert launch_counts()["img_sample"] == 1
 
 
-def test_tri_sample_kernel(dev):
+def _tri_coords(rng, order, B, D, H, W):
+    """(xyz (B, P, 3), samples per ray). ``flat``: 7001 samples anywhere in
+    and around the volume, in no order. ``rays<S>``: 101 rays of S samples
+    each, ray by ray (P = 101 S leaves a ragged last tile of 1024), each ray
+    a line through the volume's depth drifting in (x, y), the rays' starts
+    a grid over (x, y) as a target image's pixels map into the MVSNeRF
+    volume."""
+    if order == "flat":
+        P = 7001
+        xyz = np.stack([rng.uniform(-3, W + 2, (B, P)), rng.uniform(-3, H + 2, (B, P)),
+                        rng.uniform(-3, D + 2, (B, P))], -1)
+        return xyz.astype(np.float32), 1
+    S, R = int(order[4:]), 101
+    px, py = np.arange(R) % 11, np.arange(R) // 11
+    t = np.linspace(0.0, 1.0, S)
+    x = (px[:, None] * (W - 1) / 10 + 2.0 * t - 1.0)[None] + rng.normal(0, 0.05, (B, R, S))
+    y = (py[:, None] * (H - 1) / 9 - 1.5 * t + 0.5)[None] + rng.normal(0, 0.05, (B, R, S))
+    z = np.broadcast_to(-0.5 + t * D, (B, R, S)) + rng.normal(0, 0.05, (B, R, S))
+    return np.stack([x, y, z], -1).reshape(B, R * S, 3).astype(np.float32), S
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", ["flat", "rays32", "rays8"])
+@pytest.mark.parametrize("C", [4, 8, 16])
+def test_tri_sample_kernel(dev, C, order, compute_dtype):
+    """Both instances against their plain versions; the samples-per-ray hint
+    changes which thread takes which sample, never the result."""
     rng = np.random.default_rng(4)
-    B, D, H, W, C, P = 2, 9, 13, 17, 8, 7001
+    B, D, H, W = 2, 9, 13, 17
     vol = torch.from_numpy(rng.standard_normal((B, D, H, W, C)).astype(np.float32)).to(dev)
-    xyz = np.stack([rng.uniform(-3, W + 2, (B, P)), rng.uniform(-3, H + 2, (B, P)),
-                    rng.uniform(-3, D + 2, (B, P))], -1).astype(np.float32)
+    xyz, per_ray = _tri_coords(rng, order, B, D, H, W)
     xyz[0, :3] = [[1e10, -1e10, 2.0], [0.0, 0.0, 0.0], [W - 1, H - 1, D - 1]]
     xyz = torch.from_numpy(xyz).to(dev)
-    _close(fused_tri_sample(vol, xyz), tri_sample_plain(vol, xyz), 1e-5, 1e-6)
-    assert launch_counts()["tri_sample"] == 1
+    got = fused_tri_sample(vol, xyz, per_ray, compute_dtype)
+    want = tri_sample_plain(vol, xyz, per_ray, compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        _close_bf16(got, want, tri_sample_plain(vol, xyz))
+    else:
+        _close(got, want, 1e-5, 1e-6)
+    assert torch.equal(fused_tri_sample(vol, xyz, 1, compute_dtype), got)
+    assert launch_counts()["tri_sample"] == 2
+
+
+def test_tri_sample_kernel_default_is_bf16(dev):
+    """The wrapper's default compute dtype is bf16, as in JAX: the same
+    output bit for bit."""
+    rng = np.random.default_rng(5)
+    vol = torch.from_numpy(rng.standard_normal((2, 9, 13, 17, 8)).astype(np.float32)).to(dev)
+    xyz, per_ray = _tri_coords(rng, "rays32", 2, 9, 13, 17)
+    xyz = torch.from_numpy(xyz).to(dev)
+    a = fused_tri_sample(vol, xyz, per_ray)
+    b = fused_tri_sample(vol, xyz, per_ray, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert launch_counts()["tri_sample"] == 2
 
 
 @pytest.mark.parametrize("compute_dtype", [torch.bfloat16, torch.float32])

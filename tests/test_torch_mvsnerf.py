@@ -11,7 +11,9 @@ through ``port_mvsnerf`` and comes back to the port through
   against the Pallas kernels in interpret mode at f32, with windows that
   hold every tap: rtol 1e-4 / atol 1e-5; the MLP's plain version at bf16
   against the Pallas kernels at their default bf16: 1e-3 of the output's
-  magnitude (MLP_BF16_BAR);
+  magnitude (MLP_BF16_BAR); tri_sample's at bf16 against the Pallas kernel
+  at its default bf16: 1e-6 of the output's magnitude (the same roundings;
+  only the order of a four-term f32 sum may differ);
 * the slice, BoostMVSNeRF and MVSNeRF at 64x96 (4 views, K=2 of C(4,3),
   pad 24, full MLP widths, 8 samples, every pixel): rgb PSNR > 45 dB, the
   model bar of tests/test_reference_parity.py. The JAX model takes its
@@ -239,20 +241,54 @@ def test_state_dict_round_trip_through_jax():
 # --------------------------------------------------------- plain kernels
 
 
-def test_tri_sample_plain_matches_pallas_interpret():
-    """Kernel #6 with windows over the whole volume (exact everywhere);
-    smooth per-row coordinate curves with out-of-volume excursions."""
-    rng = np.random.default_rng(10)
+def _tri_case(seed, far=False):
+    """Kernel #6's inputs: smooth per-row coordinate curves with
+    out-of-volume excursions; with ``far``, also coordinates just outside
+    each face, far outside and at +-1e10 (behind-camera projections)."""
+    rng = np.random.default_rng(seed)
     B, Dp, Hp, Wp, C, R, T = 2, 10, 20, 24, 8, 6, 40
     vol = rng.standard_normal((B, Dp, Hp, Wp, C)).astype(np.float32)
     x = np.linspace(-2, Wp + 1, T)[None, None] + rng.normal(0, 0.3, (B, R, T))
     y = (np.arange(R) * 3.5)[None, :, None] + rng.normal(0, 0.8, (B, R, T))
     z = (np.arange(R) % 5 * 2.2)[None, :, None] + rng.normal(0, 0.2, (B, R, T))
     x, y, z = (a.astype(np.float32) for a in (x, y, z))
+    if far:
+        x[:, 0, :8] = [1e10, -1e10, -0.5, Wp - 0.5, Wp + 7, -1.0, 3.25, Wp - 1]
+        y[:, 0, :8] = [2.5, -1e10, 1e10, -0.25, 4.5, Hp - 0.75, -3.0, Hp - 1]
+        z[:, 0, :8] = [-1e10, 3.5, 1.0, Dp + 4, -0.5, Dp - 0.5, 1e10, Dp - 1]
+    return vol, x, y, z
+
+
+def test_tri_sample_plain_matches_pallas_interpret():
+    """Kernel #6 with windows over the whole volume (exact everywhere)."""
+    vol, x, y, z = _tri_case(10)
+    B, Dp, Hp, Wp, C = vol.shape
+    R, T = x.shape[1:]
     got = tri_sample_plain(*t(vol, np.stack([x, y, z], -1).reshape(B, R * T, 3)))
     want = pallas_tri(*j(vol, x, y, z), window_h=Hp, window_z=Dp,
                       compute_dtype=jnp.float32, interpret=True)
     close(got, np.asarray(want).reshape(B, R * T, C))
+
+
+@pytest.mark.parametrize("seed,far", [(10, False), (3, True)])
+def test_tri_sample_plain_bf16_matches_pallas_interpret(seed, far):
+    """Kernel #6 at bf16, the Pallas kernel's default, with windows over the
+    whole volume: the volume and the x tap weights rounded to bf16, each
+    (y, z)-weighted tap row's partial rounded again. The same rounding at
+    the same points; only the order of the final four-term f32 sum may
+    differ, so max |error| <= 1e-6 of the output's largest magnitude."""
+    vol, x, y, z = _tri_case(seed, far)
+    B, Dp, Hp, Wp, C = vol.shape
+    R, T = x.shape[1:]
+    xyz = np.stack([x, y, z], -1).reshape(B, R * T, 3)
+    got = tri_sample_plain(*t(vol, xyz), compute_dtype=torch.bfloat16).numpy()
+    want = np.asarray(pallas_tri(*j(vol, x, y, z), window_h=Hp, window_z=Dp,
+                                 interpret=True)).reshape(B, R * T, C)
+    assert np.all(np.isfinite(got))
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    # and it is bf16 rounding of the f32 sample, not another function
+    f32 = tri_sample_plain(*t(vol, xyz)).numpy()
+    assert 0 < np.abs(got - f32).mean() < 5e-3 * np.abs(f32).mean()
 
 
 @pytest.mark.parametrize("encode_freqs", [0, 10])
@@ -395,6 +431,7 @@ def test_new_wrappers_take_plain_on_cpu_and_do_not_count(weights):
     vol = torch.from_numpy(rng.standard_normal((1, 4, 5, 6, 8)).astype(np.float32))
     xyz = torch.from_numpy(rng.uniform(-1, 6, (1, 30, 3)).astype(np.float32))
     assert torch.equal(fused_tri_sample(vol, xyz), tri_sample_plain(vol, xyz))
+    assert torch.equal(fused_tri_sample(vol, xyz, 5), tri_sample_plain(vol, xyz))
     pts, feat, dirs = t(*_mlp_inputs(14, N=20, width=3))
     params = model.nerf.nerf.mlp_params()
     with torch.no_grad():
@@ -428,6 +465,10 @@ def _meta_params(n_feat=20, depth=6):
                                 _meta(1, 9, 3)), ValueError),  # features wider than 128
     (lambda: fused_renderer_mlp(_meta_params(80), _meta(1, 9, 63), _meta(1, 9, 80),
                                 _meta(1, 9, 3)), ValueError),  # wider than the bf16 kernel stages
+    (lambda: fused_tri_sample(_meta(1, 4, 5, 6, 8), _meta(1, 10, 3), 1, torch.float16),
+     TypeError),
+    (lambda: fused_tri_sample(_meta(1, 4, 5, 6, 8), _meta(1, 10, 3), 0), ValueError),
+    (lambda: fused_tri_sample(_meta(1, 4, 5, 6, 8), _meta(1, 10, 3), 8.0), ValueError),
 ])
 def test_new_wrappers_reject_bad_inputs_off_cpu(call, error):
     reset_launch_counts()
@@ -574,8 +615,11 @@ def test_chip_smoke_mvs_kernel_inputs_rehearse_on_cpu(weights, batch):
     with torch.no_grad():
         inputs = smoke.mvs_kernel_inputs(model, to_tensors(batch, torch.device("cpu")))
         n = 64 * 96 * 8
-        (_, (vol, xyz)), = inputs["tri_sample"]
+        (_, (vol, xyz, samples_per_ray)), = inputs["tri_sample"]
         assert vol.shape == (2, 8, 64, 72, 8) and xyz.shape == (2, n, 3)
+        assert samples_per_ray == 8
+        (_, (*_, dtype)), = inputs["tri_sample/f32"]
+        assert dtype == torch.float32
         (_, (imgs, x, y, mode)), = inputs["img_sample"]
         assert imgs.shape == (6, 64, 96, 3) and x.shape == y.shape == (6, n) and mode == "border"
         (_, (params, uvd, feat, dirs, freqs)), = inputs["renderer_mlp"]
