@@ -1,9 +1,11 @@
 """PyTorch/CUDA build of BoostMVSNeRFs.
 
-The eval render of BoostENeRF (ENeRF backbone, K fused cost volumes) in
-PyTorch, with hand-written CUDA kernels for its three hot loops
-(``ops/cuda``). Public functions keep the JAX package's layouts (NHWC /
-NDHWC) and batch keys, so one numpy batch feeds both builds.
+BoostENeRF and BoostMVSNeRF (ENeRF / MVSNeRF backbones, K fused cost
+volumes) in PyTorch, with hand-written CUDA kernels for their hot loops
+(``ops/cuda``), the view selection, the datasets and the eval entry
+(``python -m boostmvsnerfs_torch.run``). Public functions keep the JAX
+package's layouts (NHWC / NDHWC) and batch keys, so one numpy batch feeds
+both builds.
 """
 
 import torch
@@ -20,3 +22,12 @@ def resolve_device(device=None) -> torch.device:
             "is available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def set_numerics() -> None:
+    """The numerics of the port's entry points: strict float32 for cuDNN
+    convolutions and CUDA matmuls (TF32 off; PyTorch leaves it on for
+    convolutions). ``chip_smoke.py`` checks the card against the CPU under
+    this setting, and ``run.py`` runs under it."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -44,6 +44,18 @@ from boostmvsnerfs_torch.ops.cuda.warp_variance import (
 # channels of the FPN's level_0/1/2 maps, the cost-volume inputs per level
 FPN_CHANNELS = (32, 16, 8)
 WARP_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the JAX CascadeConfig's TPU implementation knobs (Pallas, windowed and
+# structured paths, their windows and tilings), which ``from_cfg`` drops
+TPU_KNOBS = ("warp_mode", "warp_window_h", "warp_rows_per_tile", "pallas_window_h",
+             "warp_cols_per_tile", "warp_window_w", "eval_sampling", "eval_head",
+             "img_window_h", "pallas_img_window_h", "pallas_img_window_w",
+             "pallas_img_chunk_bands", "img_cols_per_tile", "img_window_w",
+             "warp_remat_planes")
+# settings of the JAX config the port does not have: key -> (the one value
+# taken, the ROADMAP item that brings the others)
+REFUSED = {"conv_dtype": ("float32", "queue 1 item 3"),
+           "min_cost_reg_all": (False, "queue 1 item 7, the variants"),
+           "use_vox_feat": (True, "queue 1 item 7, the variants")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +76,20 @@ class CascadeConfig:
     nerf_model_feat_ch: tuple = (32, 8)
     render_if: tuple = (True, True)
     num_samples: tuple = (8, 2)
+    # training: random rays per level, and patches of patch_size^2 pixels
+    # appended to them, mask-weighted ray sampling (read by the data's
+    # train split; the port's training renders full images)
+    num_rays: tuple = (4096, 32768)
+    num_patchs: tuple = (0, 0)
+    patch_size: tuple = (-1, -1)
+    sample_on_mask: bool = False
     # training: levels that train on full images, and each level's weight
     # in the loss
     train_img: tuple = (True, True)
     loss_weight: tuple = (0.1, 1.0)
     viewdir_agg: bool = True
     k_best: int = 4
+    cost_volume_input_views: int = 3
     # operands of the eval plane-sweep warp on the card (JAX's default):
     # "bfloat16" rounds the features and tap weights to bf16 and sums in
     # float32; "float32" runs the f32 kernel. Training warps in float32.
@@ -78,6 +98,31 @@ class CascadeConfig:
     def __post_init__(self):
         if self.warp_dtype not in WARP_DTYPES:
             raise ValueError(f"warp_dtype {self.warp_dtype!r} not in {sorted(WARP_DTYPES)}")
+
+    @staticmethod
+    def from_cfg(node) -> "CascadeConfig":
+        """Build from a cfg ``enerf`` subtree, as the JAX ``from_cfg`` does.
+        The JAX config's TPU knobs (``TPU_KNOBS``) are dropped by name; a
+        setting the port does not have raises, naming the ROADMAP item that
+        brings it (``REFUSED``), and so does a key no config knows."""
+        cas = node["cas_config"]
+        fields = {f.name for f in dataclasses.fields(CascadeConfig)}
+        kw = {}
+        for k, v in cas.items():
+            if k in REFUSED:
+                ok, item = REFUSED[k]
+                if v != ok:
+                    raise NotImplementedError(
+                        f"cas_config.{k}: {v!r} is not in the port yet (ROADMAP {item}); "
+                        f"it takes {ok!r}")
+            elif k in fields:
+                kw[k] = tuple(v) if isinstance(v, list) else v
+            elif k not in TPU_KNOBS:
+                raise ValueError(f"cas_config.{k}: unknown setting")
+        for k in ("viewdir_agg", "cost_volume_input_views", "sample_on_mask"):
+            if k in node:  # these live at the enerf level of the tree
+                kw[k] = node[k]
+        return CascadeConfig(**kw)
 
 
 def to_tensors(batch: dict, device: torch.device, dtype=torch.float32) -> dict:

@@ -55,6 +55,28 @@ class MVSNeRFConfig:
     near_far_scale: tuple = (0.8, 1.2)
     k_best: int = 4
 
+    @staticmethod
+    def from_cfg(cfg) -> "MVSNeRFConfig":
+        """Build from a whole cfg tree, reading what the JAX ``from_cfg``
+        reads. ``net_type`` other than ``v0`` (queue 1 item 5) and a
+        ``feat_dim`` other than the U-Net's 8 channels raise."""
+        mv = cfg.get("mvsnerf", {})
+        cas = cfg["enerf"]["cas_config"]
+        if mv.get("net_type", "v0") != "v0":
+            raise NotImplementedError(
+                f"mvsnerf.net_type: {mv['net_type']!r} is not in the port yet "
+                "(ROADMAP queue 1 item 5); it takes 'v0'")
+        if mv.get("feat_dim", 8) != 8:
+            raise NotImplementedError(
+                f"mvsnerf.feat_dim: {mv['feat_dim']!r}; the port's volume has 8 channels")
+        kw = {k: mv[k] for k in ("pad", "mlp_width", "mlp_depth", "pos_freqs") if k in mv}
+        if "near_far_scale" in mv:
+            kw["near_far_scale"] = tuple(mv["near_far_scale"])
+        kw["num_samples"] = int(cas["num_samples"][0])
+        if "k_best" in cas:
+            kw["k_best"] = int(cas["k_best"])
+        return MVSNeRFConfig(**kw)
+
 
 class MVSFeatureNet(nn.Module):
     """(N, H, W, 3) -> (N, H/4, W/4, 32). Names ``conv0.{0,1}``,

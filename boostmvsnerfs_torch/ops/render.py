@@ -133,29 +133,40 @@ def normalize_blend_masks(masks: torch.Tensor) -> torch.Tensor:
     return torch.where(total > 0, masks / total, 1.0 / K)
 
 
+def viewport_visibility(
+    world_xyz: torch.Tensor,  # (B, N, S, 3)
+    src_exts: torch.Tensor,  # (B, V, 4, 4)
+    src_ixts: torch.Tensor,  # (B, V, 3, 3)
+    inv_scale: torch.Tensor,  # (B, 2) = [W-1, H-1] at render scale
+) -> torch.Tensor:
+    """Whether each source view sees each sample, (B, V, N*S) as float
+    0/1: its normalised projection lies in [0, 1]^2 with positive depth."""
+    B, N, S = world_xyz.shape[:3]
+    pts = world_xyz.reshape(B, N * S, 3)
+    vis = []
+    for v in range(src_exts.shape[1]):
+        xy, depth = geometry.project_points(pts, src_exts[:, v], src_ixts[:, v])
+        uv = xy / inv_scale[:, None, :]
+        vis.append((
+            (uv[..., 0] >= 0) & (uv[..., 0] <= 1)
+            & (uv[..., 1] >= 0) & (uv[..., 1] <= 1)
+            & (depth[..., 0] > 0)
+        ).float())
+    return torch.stack(vis, 1)
+
+
 def mask_viewport(
     world_xyz: torch.Tensor,  # (B, N, S, 3)
     src_exts: torch.Tensor,  # (B, V, 4, 4)
     src_ixts: torch.Tensor,  # (B, V, 3, 3)
     inv_scale: torch.Tensor,  # (B, 2) = [W-1, H-1] at render scale
 ) -> torch.Tensor:
-    """Fraction of source views seeing each sample, (B, N, S): visible in a
-    view when its normalised projection lies in [0, 1]^2 with positive
-    depth."""
+    """Fraction of source views seeing each sample (``viewport_visibility``),
+    (B, N, S)."""
     V = src_exts.shape[1]
     B, N, S = world_xyz.shape[:3]
-    pts = world_xyz.reshape(B, N * S, 3)
-    acc = torch.zeros((B, N * S), dtype=torch.float32, device=world_xyz.device)
-    for v in range(V):
-        xy, depth = geometry.project_points(pts, src_exts[:, v], src_ixts[:, v])
-        uv = xy / inv_scale[:, None, :]
-        vis = (
-            (uv[..., 0] >= 0) & (uv[..., 0] <= 1)
-            & (uv[..., 1] >= 0) & (uv[..., 1] <= 1)
-            & (depth[..., 0] > 0)
-        )
-        acc = acc + vis.float()
-    return (acc / V).reshape(B, N, S)
+    vis = viewport_visibility(world_xyz, src_exts, src_ixts, inv_scale)
+    return (vis.sum(1) / V).reshape(B, N, S)
 
 
 def unpreprocess(src_inps: torch.Tensor, render_scale: float = 1.0) -> torch.Tensor:

@@ -203,3 +203,15 @@ def random_state_dict(module: torch.nn.Module, seed: int, prefix: str = "") -> d
             a = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[1:])), shape)
         sd[prefix + k] = a.astype(np.float32)
     return sd
+
+
+def vgg_state_dict_from_jax(variables: dict) -> dict:
+    """A JAX ``VGG16Features`` ``{'params': {'conv{i}': {'kernel', 'bias'}}}``
+    tree -> the port's ``eval/vgg.py::VGG16Features`` state dict (CPU
+    tensors)."""
+    params = variables["params"]
+    sd = {}
+    for name, p in params.items():
+        sd[f"{name}.weight"] = torch.tensor(_conv(np.asarray(p["kernel"])))
+        sd[f"{name}.bias"] = torch.tensor(np.asarray(p["bias"]))
+    return sd

@@ -36,7 +36,27 @@ phase. Three main paths are driven, each with its kernels checked first:
    the second main path, scripts/bench_mvsnerf.py's workload: BoostMVSNeRF
    K=4 of C(6,3) (combinations 0, 5, 9, 14), 224x352, 32 samples per ray,
    the published widths (pad 24, 8-ch volume, MLP 6x128), every pixel.
-8. kernels_train, train_step_check, train, profile_train - the third main
+8. evaluate, evaluate_mvsnerf - the eval entry from YAML, as a user runs
+   it (``boostmvsnerfs_torch.runner.run_evaluate``, what ``python -m
+   boostmvsnerfs_torch.run --type evaluate`` calls), on scenes written to
+   a temporary workspace with seeded random weights saved as the port's
+   ``latest.pt``. BoostENeRF from
+   configs/exps/evaluate/enerf_ours/free_eval.yaml on a Free scene of 16
+   images at 480x736 (test views 0 and 8, 6 source views, K=4 of 20; the
+   fixture LPIPS on), BoostMVSNeRF from
+   configs/exps/evaluate/mvsnerf_ours/scannet_plus_eval.yaml on a ScanNet
+   scene of 16 images at 224x352; each camera of both scenes turned its
+   own way, so that every combination of views covers a target
+   differently. The view-selection pre-pass, every test frame and the
+   metrics; launches of the whole run against the design's count; each
+   kernel against its plain version on the entry's first test batch; the
+   pre-pass per target view (and its launches, per chunk of K
+   combinations), LPIPS per image and the peak memory; then the same
+   scene at 128x192 on the card against the CPU port: coverage masks
+   within limits that a fault planted in the CPU port must fail, picks
+   equal on at least the first two greedy steps of every view, rendered
+   rgb over 45 dB and the psnr within 0.05 dB.
+9. kernels_train, train_step_check, train, profile_train - the third main
    path, the BoostENeRF fine-tuning step of scripts/bench_train.py
    (--modes fast --ray-blocks 16): K=4 of C(6,3), 480x736, forward rig,
    both levels rendered on full images, Adam (lr 5e-5, ep_iter 500) after
@@ -46,7 +66,6 @@ phase. Three main paths are driven, each with its kernels checked first:
    card against the CPU port, with faults planted in the CPU port to show
    the bars catch them; launches per step, step times over three batches;
    one profiled step.
-
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and a last status line. Any failed check raises,
 and the script exits non-zero; it also exits non-zero, printing no
@@ -59,9 +78,12 @@ import contextlib
 import functools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -91,6 +113,23 @@ MVS_K_BEST = (0, 5, 9, 14)
 HEAD_VIEWS = (2, 4, 8)
 NO_LAUNCHES = {"warp_variance": 0, "img_sample": 0, "enerf_head": 0, "tri_sample": 0,
                "renderer_mlp": 0, "warp_variance_bwd": 0, "img_sample_bwd": 0}
+FREE_EVAL = "configs/exps/evaluate/enerf_ours/free_eval.yaml"
+SCANNET_EVAL = "configs/exps/evaluate/mvsnerf_ours/scannet_plus_eval.yaml"
+EVAL_IMAGES = 16  # a Free scene's test views are every 8th: 0 and 8
+SCANNET_TEST_IDS = (3, 11)
+EVAL_CHECK_HW = (128, 192)  # the card-vs-CPU check of the eval entry
+EVAL_PSNR_TOL_DB = 0.05
+# The card's coverage masks against the CPU port's (``compare_masks``), per
+# combination and relative to the masks' largest value: the mean absolute
+# difference, and the share of pixels that differ by more than 1e-3. On the
+# H100 at 128x192 the card read at most 7.3e-6 and 4.1e-5 on both eval
+# scenes, and the controls (the CPU port with a fault of MASK_FAULTS
+# planted) at least 1.4e-3 and 7.0e-3 (PERF.md, section 6): the limits lie
+# between, near the geometric means, and every run checks both sides.
+MASK_MEAN_DIFF_TOL = 1e-4
+MASK_PIXEL_SHARE_TOL = 5e-4
+# greedy steps that the card-vs-CPU check must compare on every target view
+EVAL_STEPS_COMPARED = 2
 TRAIN_HW = (480, 736)
 TRAIN_RAYS = 120 * 184 + 480 * 736  # both levels' full images
 TRAIN_CFG = {"lr": 5e-5, "optim": "adam", "eps": 1e-8}
@@ -123,24 +162,67 @@ def median_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 5) -> float:
-    """Device time of one call of ``fn``: the summed time of the kernels it
-    launches (torch.profiler), without the host's share of the call, which
-    ``median_ms`` counts and which rivals a small grid's kernel time. A
-    profile can miss some launches' records (two of five calls, once on the
-    H100), so each kernel counts its mean time as many times per call as it
-    was seen per call, rounded up."""
+# On the H100 machines torch.profiler dropped the device records of a
+# profile's first kernels as lying outside its window (kineto's
+# "Out-of-range" count): the first one early in a run, more later, every
+# kernel of a 5-kernel profile by its end, and up to 8 of a burst of spin
+# kernels at a profile's start (PERF.md, section 6). So a profile starts
+# with PRIMER_KERNELS spin kernels and PROFILE_LEAD_S of idle time before
+# the block it measures, and every kernel that the block launches must
+# have its device record.
+PRIMER_KERNELS = 32
+PROFILE_LEAD_S = 0.25
+PROFILE_TAIL_S = 0.05
+
+
+@contextlib.contextmanager
+def complete_profile():
+    """torch.profiler over the block, after the primer; raises when a
+    kernel launched in the block has no device record."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PRIMER_KERNELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_LEAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_TAIL_S)
+    lost = lost_launches(prof)
+    require(lost == 0, f"torch.profiler lost the device records of {lost} kernel launches")
+
+
+def lost_launches(prof) -> int:
+    """Kernel launches of a ``complete_profile`` block (those after the
+    primer's) whose kernel has no device record: launches and kernels pair
+    by their correlation ids."""
+    events = prof.profiler.kineto_results.events()
+    recorded = {e.correlation_id() for e in events
+                if e.device_type() == torch.autograd.DeviceType.CUDA}
+    launches = sorted(e.correlation_id() for e in events
+                      if e.device_type() == torch.autograd.DeviceType.CPU
+                      and e.name().startswith(("cudaLaunch", "cuLaunch")))
+    return sum(c not in recorded for c in launches[PRIMER_KERNELS:])
+
+
+def block_kernels(prof) -> list:
+    """The kernels of a ``complete_profile``'s block (the primer's spin
+    kernels left out), from ``key_averages``."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
+
+
+def device_ms(fn, iters: int = 5) -> float:
+    """Device time of one call of ``fn``: the summed time of the kernels it
+    launches (``complete_profile``), without the host's share of the call,
+    which ``median_ms`` counts and which rivals a small grid's kernel time."""
+    fn()
+    with complete_profile() as prof:
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total / e.count * math.ceil(e.count / iters)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.count) / 1e3
+    return sum(e.device_time_total for e in block_kernels(prof)) / iters / 1e3
 
 
 def timings(run, library=None) -> dict:
@@ -592,18 +674,14 @@ def phase_profile(run, phase: str, kernels, frames: int = 2, unit: str = "frame"
     the busy time under cuDNN convolutions and batch norm (forward and
     backward), under each ported kernel and in the rest (the glue), and
     the top kernels by time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with complete_profile() as prof:
         start.record()
         for _ in range(frames):
             run()
         end.record()
-        torch.cuda.synchronize()
     events = prof.key_averages()
-    kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_events = block_kernels(prof)
     per_run = lambda us: us / 1e3 / frames  # noqa: E731
     busy = per_run(sum(e.device_time_total for e in kernel_events))
     wall = start.elapsed_time(end) / frames
@@ -686,6 +764,265 @@ def run_mvsnerf() -> list:
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
     return list(summary.values())
+
+
+# ------------------------------------------------------------ eval entry
+
+
+def eval_cfg(cfg_file: str, ws: str, scene: str, *opts):
+    """The port's config from ``cfg_file`` with the workspace, scene and
+    further key/value overrides, as the CLI's trailing options give them."""
+    from boostmvsnerfs_torch.config import make_cfg
+
+    return make_cfg(cfg_file, ["workspace", ws, "scene", scene, *opts])
+
+
+def save_seeded_weights(cfg) -> None:
+    """Seeded random weights (``random_weights``) as the port's
+    ``latest.pt`` in ``cfg.trained_model_dir``."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
+
+    model = runner.make_network(cfg, "cpu")
+    CheckpointManager(cfg.trained_model_dir).save({"model": random_weights(model, 0)}, 0)
+
+
+def expected_eval_launches(views: int, combos: int, chunk: int, per_chunk: dict,
+                           per_frame: dict) -> dict:
+    """Launches of an eval run of ``views`` target views, one per batch:
+    each view's pre-pass in ceil(combos / chunk) chunks, then its frame."""
+    chunks = math.ceil(combos / chunk)
+    return {k: views * (chunks * per_chunk.get(k, 0) + per_frame.get(k, 0))
+            for k in {**per_chunk, **per_frame}}
+
+
+def compare_masks(masks: np.ndarray, ref: np.ndarray, k: int) -> dict:
+    """Coverage masks (n_combos, H, W) against ``ref``: their differences
+    (``MASK_*_TOL``) and the greedy picks over each (``greedy_steps``), as
+    far as the margin rule allows. With e the largest mean absolute
+    difference of one combination's masks, a covered share moves by at
+    most e through its own mask and e per earlier pick through the
+    coverage so far; so a step after t picks is compared when its margin
+    exceeds 2 (t + 1) e and every earlier step was."""
+    from boostmvsnerfs_torch.models.boost_enerf import greedy_steps
+
+    diff = np.abs(masks - ref)
+    scale = float(np.abs(ref).max())
+    e = float(diff.mean(axis=(1, 2)).max())
+    (got, margins), want = greedy_steps(masks, k), greedy_steps(ref, k)[0]
+    compared = 0
+    for t, margin in enumerate(margins):
+        if margin <= 2 * (t + 1) * e:
+            break
+        compared += 1
+    return {"picks": got, "ref_picks": want, "steps_compared": compared, "margins": margins,
+            "mask_max_abs_diff": float(diff.max()), "mask_mean_abs_diff": e,
+            "mask_mean_rel_diff": e / scale,
+            "mask_pixel_share": float((diff > 1e-3 * scale).mean(axis=(1, 2)).max())}
+
+
+def masks_within_limits(r: dict) -> bool:
+    return (r["mask_mean_rel_diff"] <= MASK_MEAN_DIFF_TOL
+            and r["mask_pixel_share"] <= MASK_PIXEL_SHARE_TOL)
+
+
+def first_test_batch(cfg, view_selection, device):
+    """The entry's first test batch with its k_best attached, on ``device``."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.data import make_dataset
+    from boostmvsnerfs_torch.data.loader import Loader
+
+    np_batch = next(iter(Loader(make_dataset(cfg, "test"), batch_size=1)))
+    return runner._device_batch(runner.attach_boost_inputs(np_batch, view_selection, cfg),
+                                device)
+
+
+def prepass_per_view(cfg, model) -> dict:
+    """The pre-pass of each target view alone (``greedy_select``, masks to
+    the host and the greedy search): its time and launches, and the
+    per-combination cost (``combo_coverage_mask`` of the first 4
+    combinations, the FPN on each combination's views) scaled to all."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.data import make_dataset
+    from boostmvsnerfs_torch.data.loader import Loader
+    from boostmvsnerfs_torch.models.boost_enerf import view_combinations
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    k = int(cfg.enerf.cas_config.k_best)
+    ms, launches, per_combo = [], [], []
+    for np_batch in Loader(make_dataset(cfg, "test"), batch_size=1):
+        batch = runner._device_batch(np_batch, model.device)
+        combos = view_combinations(batch["all_src_inps"].shape[1],
+                                   int(cfg.enerf.cost_volume_input_views))
+        runner.greedy_select(model, batch, combos, k)  # warm
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        runner.greedy_select(model, batch, combos, k)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({n: c for n, c in launch_counts().items() if c})
+        for c in combos[:4]:
+            per_combo.append(median_ms(lambda: model.combo_coverage_mask(batch, c), 3, 1))
+    return {"prepass_ms_per_view": ms, "prepass_launches_per_view": launches,
+            "per_combination_ms_x_combinations": statistics.mean(per_combo) * len(combos)}
+
+
+def eval_check(cfg_file: str, ws: str, scene: str, mask_fault: str) -> dict:
+    """The entry at EVAL_CHECK_HW on the card against the CPU port, same
+    weights. For each test view the coverage masks (``compare_masks``):
+    within the MASK_*_TOL limits, which the CPU port with ``mask_fault``
+    of MASK_FAULTS planted must fail, and the greedy picks equal on at
+    least EVAL_STEPS_COMPARED steps. The first view's frame rendered with
+    the card's picks (rgb PSNR over 45 dB), and ``run_evaluate``'s psnr
+    (the CPU run reads the card run's view selection, so that both render
+    the same combinations)."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.data import make_dataset
+    from boostmvsnerfs_torch.data.loader import Loader
+    from boostmvsnerfs_torch.models.boost_enerf import search_k_best, view_combinations
+
+    hw = "[{}, {}]".format(*EVAL_CHECK_HW)
+    cfgs = {d: eval_cfg(cfg_file, ws, scene, "test_dataset.input_h_w", hw, "save_tag",
+                        f"check_{d}") for d in ("cuda", "cpu")}
+    models = {}
+    for d, c in cfgs.items():
+        models[d] = runner.make_network(c, d)
+        runner._init_or_load(c, models[d])
+    cfg = cfgs["cuda"]
+    k = int(cfg.enerf.cas_config.k_best)
+    views, rgb_psnr = [], []
+    for np_batch in Loader(make_dataset(cfg, "test"), batch_size=1):
+        arrays = {k_: v for k_, v in np_batch.items() if k_ != "meta"}
+        combos = view_combinations(np_batch["all_src_inps"].shape[1],
+                                   int(cfg.enerf.cost_volume_input_views))
+        masks = {d: m.forward_view_selection(arrays, combos).cpu().numpy()[:, 0]
+                 for d, m in models.items()}
+        with planted(mask_fault, MASK_FAULTS):
+            control = models["cpu"].forward_view_selection(arrays, combos).numpy()[:, 0]
+        rep, ctl = compare_masks(masks["cuda"], masks["cpu"], k), compare_masks(
+            control, masks["cpu"], k)
+        rep["control"] = {key: ctl[key] for key in ("mask_mean_rel_diff", "mask_pixel_share")}
+        views.append(rep)
+        n = rep["steps_compared"]
+        require(masks_within_limits(rep), f"card vs CPU coverage masks {rep}")
+        require(not masks_within_limits(ctl), f"control {mask_fault!r} within the limits {ctl}")
+        require(n >= EVAL_STEPS_COMPARED and rep["picks"][:n] == rep["ref_picks"][:n],
+                f"card vs CPU picks {rep}")
+        if rgb_psnr:
+            continue
+        picks = search_k_best(masks["cuda"], k)
+        sel = {f"{m['scene']}_{m['tar_view']}": (picks + picks[-1:] * k)[:k]
+               for m in np_batch["meta"]}
+        b = runner.attach_boost_inputs(dict(np_batch), sel, cfg)
+        outs = {d: m({k_: v for k_, v in b.items() if k_ != "meta"}) for d, m in models.items()}
+        key = max(k_ for k_ in outs["cpu"] if k_.startswith("rgb_level"))
+        rgb_psnr.append(psnr_db(outs["cuda"][key].cpu().numpy(), outs["cpu"][key].numpy()))
+    ret_card = runner.run_evaluate(cfgs["cuda"])
+    os.makedirs(cfgs["cpu"].result_dir, exist_ok=True)
+    shutil.copy(runner.view_selection_path(cfgs["cuda"]),
+                runner.view_selection_path(cfgs["cpu"]))
+    ret_cpu = runner.run_evaluate(cfgs["cpu"], device="cpu")
+    out = {"geometry": list(EVAL_CHECK_HW), "views": views, "rgb_psnr_db": rgb_psnr,
+           "psnr_card": ret_card["psnr"], "psnr_cpu": ret_cpu["psnr"],
+           "psnr_diff_db": abs(ret_card["psnr"] - ret_cpu["psnr"]),
+           "ssim_diff": abs(ret_card["ssim"] - ret_cpu["ssim"])}
+    require(min(rgb_psnr) > 45.0, f"card vs CPU rgb PSNR {rgb_psnr} dB <= 45")
+    require(out["psnr_diff_db"] < EVAL_PSNR_TOL_DB, f"card vs CPU psnr {out}")
+    return out
+
+
+def drive_eval_entry(cfg_file: str, phase: str, write_scene, scene: str, table: dict,
+                     kernel_inputs, per_chunk: dict, per_frame: dict, mask_fault: str) -> list:
+    """One eval-entry phase (module docstring, item 8): returns its kernels'
+    summary records, with the launches of the entry's run."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.eval.lpips import fixture_lpips
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        write_scene(ws)
+        cfg = eval_cfg(cfg_file, ws, scene)
+        save_seeded_weights(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ret = runner.run_evaluate(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        vs = runner.load_view_selection(cfg)
+        views = len(ret["frame_ms"])
+        n_views = int(cfg.enerf.test_input_views)
+        combos = math.comb(n_views, int(cfg.enerf.cost_volume_input_views))
+        k = int(cfg.enerf.cas_config.k_best)
+        expect = expected_eval_launches(views, combos, k, per_chunk, per_frame)
+        require(launches == {**NO_LAUNCHES, **expect}, f"{phase}: launches {launches}")
+        require(len(vs) == views == 2 and all(len(v) == k and all(0 <= i < combos for i in v)
+                                              for v in vs.values()), f"view selection {vs}")
+        for key in ("psnr", "ssim", "lpips_uncalibrated"):
+            require(math.isfinite(ret[key]), f"{phase}: {key} {ret.get(key)}")
+
+        model = runner.make_network(cfg)
+        runner._init_or_load(cfg, model)
+        batch = first_test_batch(cfg, vs, model.device)
+        with torch.no_grad():
+            summary = phase_kernels(table, kernel_inputs(model, batch), phase)
+        prepass = prepass_per_view(cfg, model)
+        per_view = {n: math.ceil(combos / k) * c for n, c in per_chunk.items()}
+        for got in prepass["prepass_launches_per_view"]:
+            require(got == per_view, f"{phase}: pre-pass launches per view {got}")
+        H, W = batch["all_src_inps"].shape[2:4]
+        lp = fixture_lpips()
+        a, b = (torch.rand(1, H, W, 3, device="cuda") * 2 - 1 for _ in range(2))
+        lpips_ms = median_ms(lambda: lp(a, b), 5)
+        del model, batch, lp
+        torch.cuda.empty_cache()
+        check = eval_check(cfg_file, ws, scene, mask_fault)
+    frame_ms = ret["frame_ms"]
+    emit(phase=phase, config=cfg_file, geometry=[int(H), int(W)], views=n_views,
+         combinations=combos, k_best=k, target_views=views, view_selection=vs,
+         summary={k_: v for k_, v in ret.items() if k_ != "frame_ms"},
+         launches=launches, frame_ms=frame_ms, frame_ms_median=statistics.median(frame_ms),
+         frame_ms_min=min(frame_ms), frame_ms_max=max(frame_ms), entry_seconds=seconds,
+         **prepass, lpips_ms_per_image=lpips_ms, peak_mem_gib=peak_gib, check=check,
+         phase_seconds=time.perf_counter() - t_phase)
+    for rec in summary.values():
+        rec["launches"] = launches[rec["name"]]
+    return list(summary.values())
+
+
+def run_evaluate_path() -> list:
+    """The eval entry over BoostENeRF at 480x736 (phase ``evaluate``); its
+    pre-pass launches the warp at both levels per chunk of combinations."""
+    from boostmvsnerfs_torch.utils.synthetic import write_free_scene
+
+    per = {"warp_variance": 2, "img_sample": 1, "enerf_head": 1}
+    return drive_eval_entry(
+        FREE_EVAL, "evaluate",
+        lambda ws: write_free_scene(os.path.join(ws, "Free"), "grass", EVAL_IMAGES, 480, 736,
+                                    rig="varied"),
+        "grass", {k: ENERF_KERNELS[k] for k in per}, main_path_kernel_inputs,
+        {"warp_variance": 2}, per, "warp_variance: the first view's features lost")
+
+
+def run_evaluate_mvsnerf_path() -> list:
+    """The eval entry over BoostMVSNeRF at 224x352 (phase
+    ``evaluate_mvsnerf``); its pre-pass is geometry and launches none."""
+    from boostmvsnerfs_torch.utils.synthetic import write_scannet_scene
+
+    per = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
+    return drive_eval_entry(
+        SCANNET_EVAL, "evaluate_mvsnerf",
+        lambda ws: write_scannet_scene(os.path.join(ws, "scannet_plus"), "scene0000_01",
+                                       EVAL_IMAGES, *MVS_HW, test_ids=SCANNET_TEST_IDS,
+                                       rig="varied"),
+        "scene0000_01", {k: MVS_KERNELS[k] for k in per}, mvs_kernel_inputs, {}, per,
+        "viewport_visibility: the first view sees nothing")
 
 
 # ----------------------------------------------------------------- training
@@ -941,12 +1278,23 @@ PLANTED_FAULTS = {
 }
 
 
+# Faults planted into the CPU port's view-selection pre-pass, the controls
+# of its card-vs-CPU check (``eval_check``): name -> as PLANTED_FAULTS.
+MASK_FAULTS = {
+    "warp_variance: the first view's features lost": (
+        "cuda.warp_variance", "warp_variance_plain",
+        lambda fn: lambda feats, *args: fn(_first_zeroed(feats, 1), *args)),
+    "viewport_visibility: the first view sees nothing": (
+        "render", "viewport_visibility", lambda fn: lambda *args: _first_zeroed(fn(*args), 1)),
+}
+
+
 @contextlib.contextmanager
-def planted(fault: str):
-    """Run the block with ``fault`` of PLANTED_FAULTS in place."""
+def planted(fault: str, faults: dict = PLANTED_FAULTS):
+    """Run the block with ``fault`` of ``faults`` in place."""
     import importlib
 
-    module, attr, replace = PLANTED_FAULTS[fault]
+    module, attr, replace = faults[fault]
     mod = importlib.import_module(f"boostmvsnerfs_torch.ops.{module}")
     original = getattr(mod, attr)
     setattr(mod, attr, replace(original))
@@ -1140,10 +1488,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
+    from boostmvsnerfs_torch import set_numerics
     from boostmvsnerfs_torch.ops.cuda import _build
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_numerics()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     name = torch.cuda.get_device_name(0)
@@ -1162,6 +1510,10 @@ def main() -> int:
     records = run_enerf()
     torch.cuda.empty_cache()
     records += run_mvsnerf()
+    torch.cuda.empty_cache()
+    records += run_evaluate_path()
+    torch.cuda.empty_cache()
+    records += run_evaluate_mvsnerf_path()
     torch.cuda.empty_cache()
     records += run_train_path()
     print(json.dumps({"kernels": records}))

@@ -9,6 +9,7 @@ the f32 units at f32 (67 TFLOP/s).
 """
 
 import importlib.util
+import os
 from pathlib import Path
 
 import numpy as np
@@ -73,3 +74,146 @@ def test_mlp_bound_at_the_main_paths_sample_count(smoke, compute_dtype, want_ms)
     ms, by = smoke.bound(*smoke.mlp_work(params, pts, feat, dirs, 0, compute_dtype))
     assert by == "operations"
     assert round(ms, 3 if compute_dtype == torch.bfloat16 else 2) == want_ms
+
+
+def test_eval_entry_launch_design(smoke):
+    """The eval entry's launches: each target view's pre-pass in
+    ceil(combinations / k_best) chunks (BoostENeRF: the warp at both
+    levels, no sampler or head), then its frame."""
+    per = {"warp_variance": 2, "img_sample": 1, "enerf_head": 1}
+    chunk = {"warp_variance": 2}
+    assert smoke.expected_eval_launches(2, 20, 4, chunk, per) == {
+        "warp_variance": 24, "img_sample": 2, "enerf_head": 2}
+    assert smoke.expected_eval_launches(3, 4, 3, chunk, per) == {
+        "warp_variance": 18, "img_sample": 3, "enerf_head": 3}
+    mvs = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
+    assert smoke.expected_eval_launches(2, 20, 4, {}, mvs) == dict.fromkeys(mvs, 2)
+
+
+def test_greedy_steps_follow_search_k_best(smoke):
+    from boostmvsnerfs_torch.models.boost_enerf import greedy_steps, search_k_best
+
+    masks = np.random.default_rng(0).uniform(size=(20, 12, 16)).astype(np.float32) ** 4
+    picks, margins = greedy_steps(masks, 4)
+    assert picks == search_k_best(masks, 4) and len(margins) == 4
+    assert all(m > 0 for m in margins)
+    masks[3] = masks[7]  # an exact tie: the lowest id wins, with a zero margin
+    picks, margins = greedy_steps(masks, 20)
+    assert picks.index(3) < picks.index(7) and margins[picks.index(3)] == 0.0
+    rep = smoke.compare_masks(masks, masks, 4)
+    assert rep["mask_max_abs_diff"] == 0.0 and rep["picks"] == rep["ref_picks"]
+    assert smoke.masks_within_limits(rep)
+
+
+def test_compare_picks_stops_at_a_near_tie(smoke):
+    """Steps are compared while their margin exceeds 2 (t + 1) e, e the
+    largest mean difference of one combination's masks, where no
+    difference can reorder them."""
+    H, W = 8, 8
+    masks = np.zeros((3, H, W), np.float32)
+    masks[0, :, :6] = 1.0  # covers 0.75
+    masks[1, :, 4:] = 0.5
+    masks[2, :, 4:] = 0.5 + 1e-3  # beats combination 1 by a hair
+    ref = masks.copy()
+    ref[2] -= 2e-3  # e = 2e-3: step 1's margin is ample, step 2's is not
+    rep = smoke.compare_masks(masks, ref, 2)
+    assert rep["picks"] == [0, 2] and rep["ref_picks"] == [0, 1]
+    assert rep["steps_compared"] == 1
+    assert rep["mask_mean_abs_diff"] == pytest.approx(2e-3, rel=1e-5)
+    assert not smoke.masks_within_limits(rep)  # every pixel of combination 2 moved
+    rep = smoke.compare_masks(masks, masks + 1e-7, 2)  # margins far above 6e-7
+    assert rep["steps_compared"] == 2 and rep["picks"] == rep["ref_picks"] == [0, 2]
+    assert smoke.masks_within_limits(rep)
+
+
+def test_mask_limits_count_a_few_pixels_against_the_mean(smoke):
+    """A large difference at a few pixels (a sample crossing a viewport
+    edge) passes; the same difference spread over a share of pixels
+    above MASK_PIXEL_SHARE_TOL fails."""
+    ref = np.full((4, 100, 100), 0.5, np.float32)
+    masks = ref.copy()
+    masks[1, 0, :2] += 0.05
+    assert smoke.masks_within_limits(smoke.compare_masks(masks, ref, 2))
+    masks[1, :1, :] += 2e-3
+    rep = smoke.compare_masks(masks, ref, 2)
+    assert rep["mask_pixel_share"] == pytest.approx(1e-2)
+    assert not smoke.masks_within_limits(rep)
+
+
+@pytest.mark.parametrize("family", ["boost_enerf", "boost_mvsnerf"])
+def test_mask_faults_fail_the_limits(smoke, tmp_path, family):
+    """The eval check's controls (MASK_FAULTS) on the CPU port over a small
+    scene of the eval phases' rig: each moves the coverage masks past the
+    limits, and leaves the port unpatched after the block."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.data import make_dataset
+    from boostmvsnerfs_torch.data.loader import Loader
+    from boostmvsnerfs_torch.models.boost_enerf import view_combinations
+    from boostmvsnerfs_torch.ops import render
+    from boostmvsnerfs_torch.ops.cuda import warp_variance
+    from boostmvsnerfs_torch.utils.synthetic import write_free_scene, write_scannet_scene
+
+    ws = str(tmp_path)
+    if family == "boost_enerf":
+        write_free_scene(f"{ws}/Free", "grass", rig="varied")
+        cfg_file, scene = smoke.FREE_EVAL, "grass"
+        fault = "warp_variance: the first view's features lost"
+    else:
+        write_scannet_scene(f"{ws}/scannet_plus", "scene0000_01", n=8, H=64, W=96, rig="varied")
+        cfg_file, scene = smoke.SCANNET_EVAL, "scene0000_01"
+        fault = "viewport_visibility: the first view sees nothing"
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        cfg = smoke.eval_cfg(cfg_file, ws, scene, "test_dataset.input_h_w", "[64, 96]")
+    finally:
+        os.chdir(cwd)
+    model = runner.make_network(cfg, "cpu")
+    runner._init_or_load(cfg, model)
+    batch = next(iter(Loader(make_dataset(cfg, "test"), 1)))
+    arrays = {k: v for k, v in batch.items() if k != "meta"}
+    combos = view_combinations(arrays["all_src_inps"].shape[1], 3)
+    k = int(cfg.enerf.cas_config.k_best)
+    originals = (warp_variance.warp_variance_plain, render.viewport_visibility)
+    sound = model.forward_view_selection(arrays, combos).numpy()[:, 0]
+    with smoke.planted(fault, smoke.MASK_FAULTS):
+        faulty = model.forward_view_selection(arrays, combos).numpy()[:, 0]
+    assert (warp_variance.warp_variance_plain, render.viewport_visibility) == originals
+    assert smoke.masks_within_limits(smoke.compare_masks(sound, sound, k))
+    assert not smoke.masks_within_limits(smoke.compare_masks(faulty, sound, k))
+
+
+class _Event:
+    def __init__(self, name, device, corr):
+        self._name, self._device, self._corr = name, device, corr
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._device
+
+    def correlation_id(self):
+        return self._corr
+
+
+class _Profile:
+    def __init__(self, events):
+        self.profiler = type("P", (), {"kineto_results": type("R", (), {
+            "events": staticmethod(lambda: events)})})
+
+
+def test_lost_launches_leave_out_the_primer(smoke):
+    """A complete profile's check pairs each kernel launch after the
+    primer's with its device record by correlation id: the primer's lost
+    records do not count, the block's do."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    n = smoke.PRIMER_KERNELS
+    events = [_Event("cudaLaunchKernel", cpu, c) for c in range(1, n + 4)]
+    events += [_Event("aten::mul", cpu, 0), _Event("cudaStreamSynchronize", cpu, n + 9)]
+    events += [_Event("spin_kernel(long)", cuda, c) for c in range(3, n + 1)]  # 2 lost
+    events += [_Event("k", cuda, c) for c in (n + 1, n + 2, n + 3)]
+    assert smoke.lost_launches(_Profile(events)) == 0
+    events.pop()  # the block's last record
+    events.append(_Event("cuLaunchKernel", cpu, n + 5))
+    assert smoke.lost_launches(_Profile(events)) == 2
