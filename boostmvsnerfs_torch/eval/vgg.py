@@ -1,5 +1,5 @@
-"""VGG16 feature extractor for LPIPS (counterpart of
-``boostmvsnerfs_tpu/eval/vgg.py::VGG16Features``).
+"""VGG16 feature extractor for LPIPS and the perceptual loss (counterpart
+of ``boostmvsnerfs_tpu/eval/vgg.py``).
 
 The torchvision VGG16 conv topology, channels-last in and out: the
 activations after relu1_2, relu2_2, relu3_3, relu4_3 and relu5_3. Modules
@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from boostmvsnerfs_torch import resolve_device
 from boostmvsnerfs_torch.utils.port_weights import vgg_state_dict_from_jax
 
 # VGG16 feature config: conv channels per layer, 'M' = maxpool
@@ -58,3 +59,38 @@ def vgg_state_dict_from_npz(npz_path: str) -> dict:
     return vgg_state_dict_from_jax({"params": {
         f"conv{i}": {"kernel": data[f"conv{i}_kernel"], "bias": data[f"conv{i}_bias"]}
         for i in range(n)}})
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def normalize_imagenet(img01: torch.Tensor) -> torch.Tensor:
+    """[0, 1] RGB, channels-last -> ImageNet-normalized (reference
+    lib/train/losses/vgg_perceptual_loss.py:12-14, 24-25)."""
+    mean = img01.new_tensor(IMAGENET_MEAN)
+    std = img01.new_tensor(IMAGENET_STD)
+    return (img01 - mean) / std
+
+
+def load_vgg(npz_path: str, device=None) -> VGG16Features:
+    """``VGG16Features`` with the converted torchvision weights of
+    ``npz_path`` (``vgg_state_dict_from_npz``), frozen, in eval mode, on
+    CUDA unless ``device`` says otherwise."""
+    vgg = VGG16Features()
+    vgg.load_state_dict(vgg_state_dict_from_npz(npz_path))
+    return vgg.to(resolve_device(device)).eval().requires_grad_(False)
+
+
+def perceptual_loss_fn(vgg: VGG16Features, n_blocks: int = 4):
+    """``fn(pred01, tar01) -> scalar``: the mean L1 distance over the first
+    ``n_blocks`` feature slices of the ImageNet-normalized images (B, H, W, 3)
+    (reference vgg_perceptual_loss.py:27-43, feature_layers=[0, 1, 2, 3]).
+    Gradients flow to ``pred01``."""
+
+    def fn(pred: torch.Tensor, tar: torch.Tensor) -> torch.Tensor:
+        fp = vgg(normalize_imagenet(pred))
+        ft = vgg(normalize_imagenet(tar))
+        return sum(torch.mean(torch.abs(a - b)) for a, b in list(zip(fp, ft))[:n_blocks])
+
+    return fn

@@ -44,6 +44,9 @@ from boostmvsnerfs_torch.ops.cuda.warp_variance import (
 # channels of the FPN's level_0/1/2 maps, the cost-volume inputs per level
 FPN_CHANNELS = (32, 16, 8)
 WARP_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# computation type of the FPN's and the cost-regularisation nets'
+# convolutions and batch norms (``models/blocks.py``); None: the parameters'
+CONV_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 # the JAX CascadeConfig's TPU implementation knobs (Pallas, windowed and
 # structured paths, their windows and tilings), which ``from_cfg`` drops
 TPU_KNOBS = ("warp_mode", "warp_window_h", "warp_rows_per_tile", "pallas_window_h",
@@ -53,8 +56,7 @@ TPU_KNOBS = ("warp_mode", "warp_window_h", "warp_rows_per_tile", "pallas_window_
              "warp_remat_planes")
 # settings of the JAX config the port does not have: key -> (the one value
 # taken, the ROADMAP item that brings the others)
-REFUSED = {"conv_dtype": ("float32", "queue 1 item 3"),
-           "min_cost_reg_all": (False, "queue 1 item 7, the variants"),
+REFUSED = {"min_cost_reg_all": (False, "queue 1 item 7, the variants"),
            "use_vox_feat": (True, "queue 1 item 7, the variants")}
 
 
@@ -94,10 +96,17 @@ class CascadeConfig:
     # "bfloat16" rounds the features and tap weights to bf16 and sums in
     # float32; "float32" runs the f32 kernel. Training warps in float32.
     warp_dtype: str = "bfloat16"
+    # computation type of the FPN's and both cost-regularisation nets'
+    # convolutions and batch norms (JAX's ``conv_dtype``, the reference AMP
+    # trainer's autocast): "bfloat16" computes them in bf16 with float32
+    # parameters, statistics and outputs
+    conv_dtype: str = "float32"
 
     def __post_init__(self):
         if self.warp_dtype not in WARP_DTYPES:
             raise ValueError(f"warp_dtype {self.warp_dtype!r} not in {sorted(WARP_DTYPES)}")
+        if self.conv_dtype not in CONV_DTYPES:
+            raise ValueError(f"conv_dtype {self.conv_dtype!r} not in {sorted(CONV_DTYPES)}")
 
     @staticmethod
     def from_cfg(node) -> "CascadeConfig":
@@ -144,10 +153,11 @@ class ENeRF(nn.Module):
     def __init__(self, cas: CascadeConfig = CascadeConfig(), device=None):
         super().__init__()
         self.cas = cas
-        self.feature_net = FeatureNet()
+        dtype = CONV_DTYPES[cas.conv_dtype]
+        self.feature_net = FeatureNet(dtype)
         for i in range(cas.num):
             reg = MinCostRegNet if i == 0 else CostRegNet
-            setattr(self, f"cost_reg_{i}", reg(FPN_CHANNELS[i]))
+            setattr(self, f"cost_reg_{i}", reg(FPN_CHANNELS[i], dtype))
             setattr(self, f"nerf_{i}", NeRFHead(cas.nerf_model_feat_ch[i] + 3,
                                                 viewdir_agg=cas.viewdir_agg))
         self.to(resolve_device(device))

@@ -227,13 +227,19 @@ def _grid_sample_3d_bf16(vol, x, y, z, compute_dtype):
 def _lerp_taps(n_out: int, n_in: int, device, dtype):
     """Align-corners linear interpolation from n_in to n_out samples: the
     two taps of each output and their triangle weights max(0, 1-|pos-j|),
-    in the image's float type (as the JAX resize builds its matrices)."""
-    pos = linspace(0.0, n_in - 1, n_out, device=device, dtype=dtype)
+    in the image's float type (as the JAX resize builds its matrices).
+    A 16-bit image takes positions and weights computed in float32, its
+    weights then rounded to its type: bf16 holds integers exactly only to
+    256, so wider rows would round positions and taps onto each other (and
+    the last tap past the row). JAX builds its bf16 matrices in bf16, and
+    above 256 pixels their rows sum to up to 3 (ROADMAP fault 14)."""
+    calc = torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+    pos = linspace(0.0, n_in - 1, n_out, device=device, dtype=calc)
     i0 = torch.floor(pos).clamp(0, n_in - 1)
     i1 = i0 + 1
     w0 = (1.0 - (pos - i0).abs()).clamp_min(0.0)
     w1 = (1.0 - (pos - i1).abs()).clamp_min(0.0)
-    return i0.long(), i1.clamp(max=n_in - 1).long(), w0, w1
+    return i0.long(), i1.clamp(max=n_in - 1).long(), w0.to(dtype), w1.to(dtype)
 
 
 def _resize_axis(img: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:

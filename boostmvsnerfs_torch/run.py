@@ -3,17 +3,22 @@
 
 Usage, from the repository root:
 
-    python -m boostmvsnerfs_torch.run --type {dataset,network,preprocess,evaluate} \\
+    python -m boostmvsnerfs_torch.run \\
+        --type {dataset,network,preprocess,evaluate,visualize,path,gui} \\
         --cfg_file configs/... [--device cuda] [key value ...]
 
 e.g. ``--type evaluate --cfg_file configs/exps/evaluate/enerf_ours/free_eval.yaml
-workspace <dir> scene <name>``. Runs on CUDA unless ``--device cpu`` is
-given, under the package's numerics (``set_numerics``).
+workspace <dir> scene <name>``; ``--type path`` renders ``render_num``
+(default 30) frames of a ``path_type`` (``interpolate`` or ``spiral``)
+camera path. Runs on CUDA unless ``--device cpu`` is given, under the
+package's numerics (``set_numerics``). Each run returns its result to
+``main``'s caller.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 
@@ -74,11 +79,54 @@ def run_preprocess(cfg, device):
 def run_evaluate(cfg, device):
     from boostmvsnerfs_torch import runner
 
-    runner.run_evaluate(cfg, device=device)
+    return runner.run_evaluate(cfg, device=device)
+
+
+def run_visualize(cfg, device):
+    """Every test view through the model into the ``Visualizer``: colour
+    and depth videos, or PNG frames (reference run.py:81-108). A boost
+    model's view selection is read from ``view_selection.json``, which the
+    pre-pass writes first when it is missing (as ``run_evaluate`` does)."""
+    from boostmvsnerfs_torch import resolve_device, runner
+    from boostmvsnerfs_torch.data import make_dataset
+    from boostmvsnerfs_torch.data.loader import Loader
+    from boostmvsnerfs_torch.eval.visualizer import Visualizer
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+
+    device = resolve_device(device)
+    model = runner.make_network(cfg, device)
+    runner._init_or_load(cfg, model)
+    loader = Loader(make_dataset(cfg, "test"), batch_size=1)
+    boost = runner.requires_view_selection(cfg)
+    if boost:
+        if not os.path.exists(runner.view_selection_path(cfg)):
+            runner.run_view_selection(cfg, model, [loader])
+        vs = runner.load_view_selection(cfg)
+    vis = Visualizer(CascadeConfig.from_cfg(cfg["enerf"]), cfg["result_dir"],
+                     write_video=cfg.get("write_video", True), fps=int(cfg.get("fps", 10)))
+    for np_batch in loader:
+        if boost:
+            np_batch = runner.attach_boost_inputs(np_batch, vs, cfg)
+        vis.visualize(model(runner._device_batch(np_batch, device)), np_batch)
+    return vis.summarize()
+
+
+def run_path(cfg, device):
+    """A novel camera path to video (``runner.render_novel_path``)."""
+    from boostmvsnerfs_torch import runner
+
+    return runner.render_novel_path(cfg, n_frames=int(cfg.get("render_num", 30)),
+                                    path_type=cfg.get("path_type", "interpolate"),
+                                    device=device)
+
+
+def run_gui(cfg, device):
+    raise NotImplementedError(
+        "the interactive viewer is not in the port yet (ROADMAP queue 1 item 7, interactive/)")
 
 
 RUNS = {"dataset": run_dataset, "network": run_network, "preprocess": run_preprocess,
-        "evaluate": run_evaluate}
+        "evaluate": run_evaluate, "visualize": run_visualize, "path": run_path, "gui": run_gui}
 
 
 def main(argv=None):
@@ -93,7 +141,7 @@ def main(argv=None):
     from boostmvsnerfs_torch.config import make_cfg
 
     set_numerics()
-    RUNS[args.type](make_cfg(args.cfg_file, args.opts), args.device)
+    return RUNS[args.type](make_cfg(args.cfg_file, args.opts), args.device)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,11 @@ and the training loop (counterpart of ``boostmvsnerfs_tpu/runner.py``).
 loader from ``make_dataset``, the view-selection pre-pass writing
 ``view_selection.json`` when a boost model finds none (reference
 run.py:39-69), every test view rendered, and PSNR/SSIM/LPIPS per scene plus
-the frame rate (reference run.py:87-129). ``run_train`` takes the model and
+the frame rate (reference run.py:87-129). ``render_novel_path`` renders a
+camera path through the test views to video. ``run_train`` is the training
+entry over a YAML config; its loop, ``train_epochs``, takes the model and
 an epoch of numpy batches (the JAX batch convention; BoostENeRF batches
-carry ``combos`` and ``k_best`` from a view selection); its YAML
-counterpart is queue 1 item 3 of ROADMAP.md.
+carry ``combos`` and ``k_best`` from a view selection).
 
 Not carried from the JAX runner: ``autotune_model`` and the
 ``host_sync`` / ``frame_sync`` calls (TPU machinery), ``make_forward``'s
@@ -20,7 +21,6 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Sequence
 
 import numpy as np
 import torch
@@ -241,13 +241,92 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# novel camera paths
+# ---------------------------------------------------------------------------
+
+
+def novel_path_batches(cfg, dataset, n_frames: int, path_type: str = "interpolate"):
+    """The batches of a camera path (``render_novel_path``), numpy, one
+    frame each, from ``dataset`` (the test split): cameras interpolated
+    through, or spiralled around, the first scene's test views; each
+    frame's source views the ``test_input_views`` nearest its camera, its
+    target image the nearest view's, its ``tar_ext`` the path's."""
+    from boostmvsnerfs_torch.data.base import collate, nearest_src_views
+    from boostmvsnerfs_torch.utils import camera_paths
+
+    scene = next(iter(dataset.scene_infos))
+    c2ws = np.asarray(dataset.scene_infos[scene]["c2ws"])
+    anchors = c2ws[sorted({m[1] for m in dataset.metas if m[0] == scene})]
+    if path_type == "spiral":
+        path = camera_paths.spiral_path(anchors, n_frames)
+    else:
+        path = camera_paths.interpolate_path(anchors, n_frames)
+    n_views = int(cfg["enerf"]["test_input_views"])
+    for c2w in path:
+        order = [int(i) for i in nearest_src_views(c2ws, c2w, n_views, exclude_self=False)]
+        dataset.metas = [(scene, order[0], order)]  # a crafted meta per frame
+        sample = dataset.get_sample(0)
+        sample["tar_ext"] = np.linalg.inv(c2w).astype(np.float32)
+        yield collate([sample])
+
+
+def render_novel_path(cfg, n_frames: int = 60, path_type: str = "interpolate",
+                      device=None) -> dict:
+    """Render a novel camera trajectory (JAX ``runner.render_novel_path``,
+    the reference's cfg.render_path flow): the frames of
+    ``novel_path_batches``, for boost models each with the greedy coverage
+    selection of its combinations (``greedy_select``), through the model
+    into the ``Visualizer``. The weights come from ``_init_or_load``.
+    Returns the visualizer's summary with, per frame, the selection's and
+    the forward's times (ms, to a device synchronisation) and the
+    ``k_best`` picks. Runs on CUDA unless ``device`` says otherwise."""
+    from boostmvsnerfs_torch.eval.visualizer import Visualizer
+
+    device = resolve_device(device)
+    cas = CascadeConfig.from_cfg(cfg["enerf"])
+    model = make_network(cfg, device)
+    _init_or_load(cfg, model)
+    dataset = make_dataset(cfg, "test")
+    boost = requires_view_selection(cfg)
+
+    if boost:
+        combos = view_combinations(int(cfg["enerf"]["test_input_views"]),
+                                   int(cfg["enerf"].get("cost_volume_input_views", 3)))
+        k = int(cfg["enerf"]["cas_config"]["k_best"])
+    vis = Visualizer(cas, cfg["result_dir"], write_video=cfg.get("write_video", True),
+                     fps=int(cfg.get("fps", 10)))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    frames = []
+    for fi, np_batch in enumerate(novel_path_batches(cfg, dataset, n_frames, path_type)):
+        t0 = time.perf_counter()
+        if boost:
+            np_batch["combos"] = combos
+            np_batch["k_best"] = greedy_select(model, _device_batch(np_batch, device), combos, k)
+        batch = _device_batch(np_batch, device)
+        sync()
+        t1 = time.perf_counter()
+        out = model(batch)
+        sync()
+        t2 = time.perf_counter()
+        np_batch["meta"][0]["tar_view"] = fi
+        vis.visualize(out, np_batch)
+        frames.append({"select_ms": (t1 - t0) * 1e3, "frame_ms": (t2 - t1) * 1e3,
+                       "k_best": np_batch["k_best"][0].tolist() if boost else None})
+    return {**vis.summarize(), "path_type": path_type, "per_frame": frames}
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
 
-def run_train(
+def train_epochs(
     model: nn.Module,
-    batches: Sequence[dict],
+    batches,
     train_cfg: dict,
     model_dir: str,
     *,
@@ -258,17 +337,31 @@ def run_train(
     resume: bool = True,
     pretrain_dir: str | None = None,
     ray_blocks: int = 0,
+    perceptual_fn=None,
+    image_hw: tuple | None = None,
+    prepare=None,
+    eval_ep: int = 0,
+    validate=None,
+    on_record=None,
     device=None,
 ) -> TrainState:
-    """Train ``model`` for ``train_cfg['epoch']`` epochs over ``batches``
-    (one epoch; ``train_cfg`` also holds ``lr``, ``optim``, ``eps``,
-    ``weight_decay`` and ``scheduler`` as the reference configs'
-    ``train`` node does). Logs the windowed statistics every
-    ``log_interval`` steps, saves a numbered and the latest checkpoint into
-    ``model_dir`` every ``save_ep`` / ``save_latest_ep`` epochs, and resumes
-    from the latest one there (or warm-starts from ``pretrain_dir``).
-    ``ray_blocks > 1`` takes the ray-blocked step (``make_blocked_train_step``).
-    Runs on CUDA unless ``device`` says otherwise; returns the final state."""
+    """Train ``model`` for ``train_cfg['epoch']`` epochs over ``batches``,
+    one epoch: a list of batches, or a ``Loader`` (``set_epoch`` before
+    each epoch). ``train_cfg`` holds ``lr``, ``optim``, ``eps``,
+    ``weight_decay`` and ``scheduler`` as the reference configs' ``train``
+    node does. ``prepare(batch)`` completes each batch before the step
+    (``attach_boost_inputs``); ``meta`` never reaches the step. Logs the
+    windowed statistics every ``log_interval`` steps, saves a numbered and
+    the latest checkpoint into ``model_dir`` every ``save_ep`` /
+    ``save_latest_ep`` epochs, and resumes from the latest one there (or
+    warm-starts from ``pretrain_dir``). Every ``eval_ep`` epochs
+    ``validate()`` returns a summary whose scalars are recorded as
+    ``val_*``; a validation that raises is printed and training goes on.
+    ``on_record(kind, state, scalars)`` sees every record ('train', with
+    ``epoch`` and ``iter``, or 'val'). ``ray_blocks > 1`` takes the
+    ray-blocked step (``make_blocked_train_step``); ``perceptual_fn`` and
+    ``image_hw`` add the perceptual term (``train.loss.enerf_loss``). Runs
+    on CUDA unless ``device`` says otherwise; returns the final state."""
     model.to(resolve_device(device))
     ep_iter = len(batches)
     state = create_train_state(model, make_optimizer(train_cfg, ep_iter))
@@ -283,19 +376,138 @@ def run_train(
     elif pretrain_dir and load_pretrain(pretrain_dir, model):
         print(f"warm start from {os.path.abspath(pretrain_dir)}", flush=True)
 
-    step_fn = (make_blocked_train_step(model, ray_blocks) if ray_blocks > 1
-               else make_train_step(model))
+    step_fn = (make_blocked_train_step(model, ray_blocks, perceptual_fn, image_hw)
+               if ray_blocks > 1 else make_train_step(model, perceptual_fn, image_hw))
+
+    def record(kind, scalars, **where):
+        recorder.update(scalars)
+        recorder.record(kind)
+        if on_record is not None:
+            on_record(kind, state, {**where, **scalars})
+
     for epoch in range(begin_epoch, int(train_cfg["epoch"])):
+        if hasattr(batches, "set_epoch"):
+            batches.set_epoch(epoch)
         t_ep = time.time()
         for it, batch in enumerate(batches):
-            stats = step_fn(state, batch)
+            if prepare is not None:
+                batch = prepare(batch)
+            stats = step_fn(state, {k: v for k, v in batch.items() if k != "meta"})
             recorder.step += 1
             if it % log_interval == 0:
-                recorder.update({k: float(v) for k, v in stats.items()})
-                recorder.record("train")
+                record("train", {k: float(v) for k, v in stats.items()}, epoch=epoch, iter=it)
                 print(f"epoch {epoch} iter {it}/{ep_iter} {recorder}", flush=True)
         if (epoch + 1) % save_ep == 0 or (epoch + 1) % save_latest_ep == 0:
             mgr.save(state.state_dict(), epoch, latest=True)
+        if validate is not None and eval_ep > 0 and (epoch + 1) % eval_ep == 0:
+            try:
+                ret = validate()
+            except Exception as e:  # validation must not kill training
+                print(f"validation failed: {e!r}", flush=True)
+            else:
+                record("val", {f"val_{k}": v for k, v in ret.items() if np.isscalar(v)},
+                       epoch=epoch)
+                print(f"epoch {epoch} validation {ret}", flush=True)
         print(f"epoch {epoch} done in {time.time() - t_ep:.1f}s", flush=True)
     recorder.close()
     return state
+
+
+def boost_views_num(views_num, n_input: int):
+    """The sampler's view counts for a boost model: a batch needs at least
+    ``n_input`` views for one combination, so fewer are raised to
+    ``n_input`` (ROADMAP fault 13: JAX's ``run_train`` fails on such a
+    batch). The counts' probabilities, and so the random stream, stay."""
+    return None if views_num is None else [max(int(n), n_input) for n in views_num]
+
+
+def train_loader(cfg, train_ds) -> Loader:
+    """The training ``Loader`` of JAX's ``run_train``: shuffled, ``ep_iter``
+    batches an epoch, the view counts of ``train.sampler_meta`` (raised for
+    boost models, ``boost_views_num``), per-batch image sizes under the
+    ``image_size`` batch sampler."""
+    train = cfg["train"]
+    meta = train.get("sampler_meta", {})
+    views_num = meta.get("input_views_num")
+    if requires_view_selection(cfg):
+        views_num = boost_views_num(views_num, int(cfg["enerf"].get("cost_volume_input_views", 3)))
+    return Loader(
+        train_ds,
+        batch_size=int(train["batch_size"]),
+        shuffle=True,
+        ep_iter=int(cfg.get("ep_iter", -1)),
+        input_views_num=views_num,
+        input_views_prob=meta.get("input_views_prob"),
+        num_workers=int(train.get("num_workers", 4)),
+        image_size_meta=dict(meta) if train.get("batch_sampler") == "image_size" else None,
+    )
+
+
+def run_train(cfg, device=None, ray_blocks: int = 0, on_record=None) -> TrainState:
+    """Train from a YAML config (JAX ``runner.run_train``, the root
+    ``train.py``), in JAX's order: the network, the train split's
+    ``Loader`` (shuffled, ``ep_iter`` steps an epoch, the view counts of
+    ``train.sampler_meta``, per-batch image sizes under the
+    ``image_size`` batch sampler), the optimizer; for boost models the
+    view-selection pre-pass over the train and test splits when
+    ``view_selection.json`` is missing (weights from ``_init_or_load``);
+    resume from ``trained_model_dir`` or a warm start from
+    ``<workspace>/trained_model/pretrain/<cfg.pretrain>``; the perceptual
+    term when ``cfg.vgg_weights`` names converted VGG16 weights and a level
+    trains on full images; then ``train_epochs`` with JAX's unblocked step
+    (``ray_blocks`` > 1 takes the ray-blocked one, for batches whose
+    unblocked step outgrows the card) and validation through
+    ``run_evaluate`` every ``eval_ep`` epochs. ``cfg.debug_nans`` turns on
+    autograd's anomaly detection (reference
+    lib/networks/enerf/network.py:110-111). ``on_record`` as in
+    ``train_epochs``. Runs on CUDA unless ``device`` says otherwise."""
+    from boostmvsnerfs_torch.eval.vgg import load_vgg, perceptual_loss_fn
+
+    name = cfg["network_module"].rsplit(".", 1)[-1]
+    if "mvsnerf" in name:
+        raise NotImplementedError(
+            f"training {name!r} is not in the port yet (ROADMAP queue 1 item 5)")
+    device = resolve_device(device)
+    cas = CascadeConfig.from_cfg(cfg["enerf"])
+    model = make_network(cfg, device)
+    train_ds = make_dataset(cfg, "train")
+    loader = train_loader(cfg, train_ds)
+
+    prepare = None
+    if requires_view_selection(cfg):
+        if not os.path.exists(view_selection_path(cfg)):
+            _init_or_load(cfg, model)
+            run_view_selection(cfg, model, [Loader(train_ds, 1),
+                                            Loader(make_dataset(cfg, "test"), 1)])
+        vs = load_view_selection(cfg)
+        prepare = lambda b: attach_boost_inputs(b, vs, cfg)  # noqa: E731
+
+    perceptual_fn, image_hw = None, None
+    vgg_npz = cfg.get("vgg_weights", "")
+    if vgg_npz and os.path.exists(vgg_npz) and any(cas.train_img[: cas.num]):
+        perceptual_fn = perceptual_loss_fn(load_vgg(vgg_npz, device))
+        H, W = train_ds.get_sample(0)["src_inps"].shape[1:3]
+        image_hw = tuple((int(H * cas.render_scale[i]), int(W * cas.render_scale[i]))
+                         for i in range(cas.num))
+        print(f"perceptual loss enabled (VGG16 weights: {vgg_npz})", flush=True)
+
+    pretrain_dir = (os.path.join(cfg["workspace"], "trained_model", "pretrain", cfg["pretrain"])
+                    if cfg.get("pretrain") else None)
+    with torch.autograd.set_detect_anomaly(bool(cfg.get("debug_nans", False))):
+        return train_epochs(
+            model, loader, cfg["train"], cfg["trained_model_dir"],
+            record_dir=cfg.get("record_dir"),
+            log_interval=int(cfg.get("log_interval", 20)),
+            save_ep=int(cfg.get("save_ep", 1)),
+            save_latest_ep=int(cfg.get("save_latest_ep", 1)),
+            resume=bool(cfg.get("resume", True)),
+            pretrain_dir=pretrain_dir,
+            ray_blocks=ray_blocks,
+            perceptual_fn=perceptual_fn,
+            image_hw=image_hw,
+            prepare=prepare,
+            eval_ep=0 if cfg.get("skip_eval", False) else int(cfg.get("eval_ep", 0)),
+            validate=lambda: run_evaluate(cfg, model=model, device=device),
+            on_record=on_record,
+            device=device,
+        )

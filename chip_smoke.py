@@ -56,7 +56,34 @@ phase. Three main paths are driven, each with its kernels checked first:
    within limits that a fault planted in the CPU port must fail, picks
    equal on at least the first two greedy steps of every view, rendered
    rgb over 45 dB and the psnr within 0.05 dB.
-9. kernels_train, train_step_check, train, profile_train - the third main
+9. visualize, path - the novel-view entries over
+   configs/exps/evaluate/enerf_ours/free_eval.yaml on the same Free scene
+   with seeded weights as ``latest.pt``: ``python -m boostmvsnerfs_torch.run
+   --type visualize`` (the pre-pass, every test view, the videos written
+   through the first writer that works), then
+   ``runner.render_novel_path`` (3 interpolated frames and 1 spiral one):
+   per frame the greedy selection's time, the frame's and the picks,
+   launches per frame against the design (the pre-pass's 5 chunks, then
+   the frame), the peak memory and the files; the kernels on the first
+   frame's inputs; the middle frame at 128x192 on the card against the CPU port
+   (masks within the limits, a planted fault outside them, picks, rgb over
+   45 dB).
+10. train_entry - the training entry from YAML (``runner.run_train``, what
+   ``python -m boostmvsnerfs_torch.train`` calls) over
+   configs/exps/finetune/enerf_ours/free/base.yaml with seeded weights as
+   the ``pretrain: enerf`` checkpoint, shortened only (one epoch of 4
+   steps, a log line, a checkpoint and a validation per epoch): batches
+   of 4 at 480x736, BoostENeRF K=4, both levels on full images, lr 5e-5,
+   in TRAIN_ENTRY_RAY_BLOCKS ray blocks (the unblocked step of 4 images
+   does not fit the card). The pre-pass over the train and test views,
+   the steps (times, launches per step against the design, stats), the
+   validation record, the checkpoint; then the run resumed with
+   ``train.epoch 2``: it begins at epoch 1 and takes 4 more steps. The
+   kernels on the first batch; one validation frame with the
+   convolutions at bf16 (``conv_dtype``) against float32; ``run_train``
+   at 128x192 for 2 steps on the card against the CPU port (losses and
+   the parameters' change, with a skipped Adam step as the control).
+11. kernels_train, train_step_check, train, profile_train - the third main
    path, the BoostENeRF fine-tuning step of scripts/bench_train.py
    (--modes fast --ray-blocks 16): K=4 of C(6,3), 480x736, forward rig,
    both levels rendered on full images, Adam (lr 5e-5, ep_iter 500) after
@@ -76,6 +103,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import math
 import os
@@ -868,6 +896,43 @@ def prepass_per_view(cfg, model) -> dict:
             "per_combination_ms_x_combinations": statistics.mean(per_combo) * len(combos)}
 
 
+def check_selection(models: dict, np_batch: dict, cfg, mask_fault: str, render: bool):
+    """One target view (batch of one) of the card-vs-CPU check
+    (``models``: 'cuda' and 'cpu', the same weights): the coverage masks
+    of every combination (``compare_masks``) within the MASK_*_TOL limits,
+    which the CPU port with ``mask_fault`` of MASK_FAULTS planted must
+    fail, and the greedy picks equal on at least EVAL_STEPS_COMPARED steps.
+    With ``render``, the frame rendered on both with the card's picks.
+    Returns (the masks' report, the rgb PSNR in dB or None)."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.models.boost_enerf import search_k_best, view_combinations
+
+    k = int(cfg.enerf.cas_config.k_best)
+    arrays = {k_: v for k_, v in np_batch.items() if k_ != "meta"}
+    combos = view_combinations(np_batch["all_src_inps"].shape[1],
+                               int(cfg.enerf.cost_volume_input_views))
+    masks = {d: m.forward_view_selection(arrays, combos).cpu().numpy()[:, 0]
+             for d, m in models.items()}
+    with planted(mask_fault, MASK_FAULTS):
+        control = models["cpu"].forward_view_selection(arrays, combos).numpy()[:, 0]
+    rep, ctl = compare_masks(masks["cuda"], masks["cpu"], k), compare_masks(
+        control, masks["cpu"], k)
+    rep["control"] = {key: ctl[key] for key in ("mask_mean_rel_diff", "mask_pixel_share")}
+    n = rep["steps_compared"]
+    require(masks_within_limits(rep), f"card vs CPU coverage masks {rep}")
+    require(not masks_within_limits(ctl), f"control {mask_fault!r} within the limits {ctl}")
+    require(n >= EVAL_STEPS_COMPARED and rep["picks"][:n] == rep["ref_picks"][:n],
+            f"card vs CPU picks {rep}")
+    if not render:
+        return rep, None
+    picks = search_k_best(masks["cuda"], k)
+    sel = {f"{m['scene']}_{m['tar_view']}": (picks + picks[-1:] * k)[:k] for m in np_batch["meta"]}
+    b = runner.attach_boost_inputs(dict(np_batch), sel, cfg)
+    outs = {d: m({k_: v for k_, v in b.items() if k_ != "meta"}) for d, m in models.items()}
+    key = max(k_ for k_ in outs["cpu"] if k_.startswith("rgb_level"))
+    return rep, psnr_db(outs["cuda"][key].cpu().numpy(), outs["cpu"][key].numpy())
+
+
 def eval_check(cfg_file: str, ws: str, scene: str, mask_fault: str) -> dict:
     """The entry at EVAL_CHECK_HW on the card against the CPU port, same
     weights. For each test view the coverage masks (``compare_masks``):
@@ -880,7 +945,6 @@ def eval_check(cfg_file: str, ws: str, scene: str, mask_fault: str) -> dict:
     from boostmvsnerfs_torch import runner
     from boostmvsnerfs_torch.data import make_dataset
     from boostmvsnerfs_torch.data.loader import Loader
-    from boostmvsnerfs_torch.models.boost_enerf import search_k_best, view_combinations
 
     hw = "[{}, {}]".format(*EVAL_CHECK_HW)
     cfgs = {d: eval_cfg(cfg_file, ws, scene, "test_dataset.input_h_w", hw, "save_tag",
@@ -890,34 +954,11 @@ def eval_check(cfg_file: str, ws: str, scene: str, mask_fault: str) -> dict:
         models[d] = runner.make_network(c, d)
         runner._init_or_load(c, models[d])
     cfg = cfgs["cuda"]
-    k = int(cfg.enerf.cas_config.k_best)
     views, rgb_psnr = [], []
     for np_batch in Loader(make_dataset(cfg, "test"), batch_size=1):
-        arrays = {k_: v for k_, v in np_batch.items() if k_ != "meta"}
-        combos = view_combinations(np_batch["all_src_inps"].shape[1],
-                                   int(cfg.enerf.cost_volume_input_views))
-        masks = {d: m.forward_view_selection(arrays, combos).cpu().numpy()[:, 0]
-                 for d, m in models.items()}
-        with planted(mask_fault, MASK_FAULTS):
-            control = models["cpu"].forward_view_selection(arrays, combos).numpy()[:, 0]
-        rep, ctl = compare_masks(masks["cuda"], masks["cpu"], k), compare_masks(
-            control, masks["cpu"], k)
-        rep["control"] = {key: ctl[key] for key in ("mask_mean_rel_diff", "mask_pixel_share")}
+        rep, psnr = check_selection(models, np_batch, cfg, mask_fault, render=not rgb_psnr)
         views.append(rep)
-        n = rep["steps_compared"]
-        require(masks_within_limits(rep), f"card vs CPU coverage masks {rep}")
-        require(not masks_within_limits(ctl), f"control {mask_fault!r} within the limits {ctl}")
-        require(n >= EVAL_STEPS_COMPARED and rep["picks"][:n] == rep["ref_picks"][:n],
-                f"card vs CPU picks {rep}")
-        if rgb_psnr:
-            continue
-        picks = search_k_best(masks["cuda"], k)
-        sel = {f"{m['scene']}_{m['tar_view']}": (picks + picks[-1:] * k)[:k]
-               for m in np_batch["meta"]}
-        b = runner.attach_boost_inputs(dict(np_batch), sel, cfg)
-        outs = {d: m({k_: v for k_, v in b.items() if k_ != "meta"}) for d, m in models.items()}
-        key = max(k_ for k_ in outs["cpu"] if k_.startswith("rgb_level"))
-        rgb_psnr.append(psnr_db(outs["cuda"][key].cpu().numpy(), outs["cpu"][key].numpy()))
+        rgb_psnr += [psnr] if psnr is not None else []
     ret_card = runner.run_evaluate(cfgs["cuda"])
     os.makedirs(cfgs["cpu"].result_dir, exist_ok=True)
     shutil.copy(runner.view_selection_path(cfgs["cuda"]),
@@ -1028,7 +1069,7 @@ def run_evaluate_mvsnerf_path() -> list:
 # ----------------------------------------------------------------- training
 
 
-def train_kernel_inputs(model, batch, seed: int = 7) -> dict:
+def train_kernel_inputs(model, batch, seed: int = 7, ray_blocks: int = RAY_BLOCKS) -> dict:
     """The training path's sampler inputs and the backward kernels' inputs,
     from the model's own train-mode stages, each backward with a seeded
     normal cotangent of its output's shape: #2 at both levels, #3 and #4 at
@@ -1059,7 +1100,7 @@ def train_kernel_inputs(model, batch, seed: int = 7) -> dict:
         rs = cas.render_scale[level]
         H_r, W_r = int(H * rs), int(W * rs)
         ray_idx = sub[f"ray_idx_{level}"]
-        nb = level_ray_blocks(RAY_BLOCKS, ray_idx.shape[1], n_max, H_r, True)
+        nb = level_ray_blocks(max(ray_blocks, 1), ray_idx.shape[1], n_max, H_r, True)
         ridx = ray_idx[:, : ray_idx.shape[1] // nb]
         bounds_map, maps = model.level_maps(level, feats, depth, std, nf_map, sub["src_inps"])
         world_xyz, _, _ = model.sample_rays(level, bounds_map, sub, ridx)
@@ -1115,7 +1156,7 @@ TRAIN_KERNELS = {
 }
 
 
-def phase_kernels_train(inputs: dict) -> dict:
+def phase_kernels_train(inputs: dict, phase: str = "kernels_train", path: str = "train") -> dict:
     """Each kernel of TRAIN_KERNELS against its plain version on the
     training path's inputs: every output's max abs error within the
     entry's tolerance of that output's largest magnitude (KERNEL_RTOL for
@@ -1126,7 +1167,7 @@ def phase_kernels_train(inputs: dict) -> dict:
     for entry, (name, instance, replaces, work, library, rtol) in TRAIN_KERNELS.items():
         kernel, plain = kernel_pair(name)
         rec = {"name": name, "route": "cuda", "source": f"boostmvsnerfs_torch/csrc/{name}.cu",
-               "replaces": replaces, "path": "train", "compute_dtype": "float32",
+               "replaces": replaces, "path": path, "compute_dtype": "float32",
                "max_abs_err": 0.0, "ms": 0.0,
                "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
         if instance:
@@ -1144,7 +1185,7 @@ def phase_kernels_train(inputs: dict) -> dict:
             plain_ms = median_ms(lambda: plain(*args), 3, warmup=1)
             nbytes, ops = work(*args)
             bms, by = bound(nbytes, ops)
-            emit(phase="kernels_train", kernel=name, instance=instance, at=label,
+            emit(phase=phase, kernel=name, instance=instance, at=label,
                  shapes=[list(a.shape) for a in args if torch.is_tensor(a)], max_abs_err=errs,
                  largest=scales, relative_err=[e / max(c, 1e-30) for e, c in zip(errs, scales)],
                  tolerance=rtol, **t, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -1378,11 +1419,12 @@ def phase_train_step_check(state: dict) -> None:
     require(record["card_blocked_vs_plain_loss_rel_err"] <= 1e-5, "card: blocked vs plain loss")
 
 
-def expected_train_launches(model, batch) -> dict:
-    """Launches of one blocked step, from the code: per level one warp and
-    its backward; per rendered level one sampler launch per ray block, one
-    more per block for the checkpoint's recomputation when the level has
-    more than one block, and one backward per block."""
+def expected_train_launches(model, batch, ray_blocks: int = RAY_BLOCKS) -> dict:
+    """Launches of one step with ``ray_blocks`` (0: unblocked), from the
+    code: per level one warp and its backward; per rendered level one
+    sampler launch per ray block, one more per block for the checkpoint's
+    recomputation when the level has more than one block, and one backward
+    per block."""
     from boostmvsnerfs_torch.parallel.train import level_ray_blocks
 
     cas = model.cas
@@ -1394,7 +1436,8 @@ def expected_train_launches(model, batch) -> dict:
             continue
         H_r, W_r = int(H * cas.render_scale[i]), int(W * cas.render_scale[i])
         N = batch[f"ray_idx_{i}"].shape[1]
-        nb = level_ray_blocks(RAY_BLOCKS, N, n_max, H_r, N == H_r * W_r and cas.train_img[i])
+        nb = level_ray_blocks(max(ray_blocks, 1), N, n_max, H_r,
+                              N == H_r * W_r and cas.train_img[i])
         out["img_sample"] += nb + (nb if nb > 1 else 0)
         out["img_sample_bwd"] += nb
     return out
@@ -1484,6 +1527,491 @@ def run_train_path() -> list:
     return list(summary.values())
 
 
+# ------------------------------------ visualize, path and the training entry
+
+PATH_FRAMES = 3
+FINETUNE = "configs/exps/finetune/enerf_ours/free/base.yaml"
+# the fine-tuning recipe, shortened only: one epoch of 4 steps, with a log
+# line, a checkpoint and a validation at its end
+TRAIN_ENTRY_OPTS = ("train.epoch", "1", "ep_iter", "4", "eval_ep", "1", "log_interval", "1",
+                    "save_ep", "1")
+# The recipe's batch of 4 at 480x736 does not fit the card in JAX's
+# unblocked step (scripts/torch_train_memory.py on the NVIDIA H100 80GB
+# HBM3: out of memory with 74.9 GiB held, where batch 1 peaks at 19.3 GiB
+# and batch 2 at 38.4; PERF.md, section 5): the entry takes the fewest ray
+# blocks that fit.
+TRAIN_ENTRY_RAY_BLOCKS = 2
+TRAIN_CHECK_HW = (128, 192)
+TRAIN_CHECK_STEPS = 2
+# Card vs CPU port over ``run_train(cfg)``: each step's loss (relative),
+# and the parameters' change after TRAIN_CHECK_STEPS steps, relative L2 of
+# all parameters together. Adam moves each parameter by about the learning
+# rate whatever the size of its gradient, so where a gradient is small
+# against its rounding (the U-Nets' convolutions on noise images) float32
+# alone flips the step's sign: on the CPU port at 64x96 float32 against
+# float64 reads 0.27 after two steps, and the control, a skipped last Adam
+# step, 0.76 (tests/test_torch_chip_smoke_work.py). The losses carry the
+# tight bar; the change's bar lies between those readings.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_DELTA_RTOL = 0.5
+
+
+def sync() -> None:
+    """Wait for the card, where there is one (the CPU rehearsal has none)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, log: list, after=None):
+    """Within the block each call of ``module.<name>`` appends its wall time
+    (ms, device synchronised) and its kernel launches to ``log``, then
+    calls ``after()``."""
+    from boostmvsnerfs_torch.ops.cuda import launch_counts
+
+    original = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        sync()
+        before, t0 = launch_counts(), time.perf_counter()
+        out = original(*args, **kw)
+        sync()
+        log.append({"ms": (time.perf_counter() - t0) * 1e3, "launches": launch_delta(before)})
+        if after is not None:
+            after()
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def launch_delta(before: dict) -> dict:
+    from boostmvsnerfs_torch.ops.cuda import launch_counts
+
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def scaled(launches: dict, n: int) -> dict:
+    return {k: n * v for k, v in launches.items()}
+
+
+def added(*launches: dict) -> dict:
+    return {k: sum(x.get(k, 0) for x in launches) for k in NO_LAUNCHES}
+
+
+def free_scene(ws: str, H: int = 480, W: int = 736) -> None:
+    from boostmvsnerfs_torch.utils.synthetic import write_free_scene
+
+    write_free_scene(os.path.join(ws, "Free"), "grass", EVAL_IMAGES, H, W, rig="varied")
+
+
+def prepass_design(views: int, combos: int, k: int) -> dict:
+    """The BoostENeRF pre-pass's launches over ``views`` target views:
+    ceil(combos / k) chunks each, each chunk 2 warps (one per level)."""
+    return {"warp_variance": views * math.ceil(combos / k) * 2}
+
+
+ENERF_FRAME = {"warp_variance": 2, "img_sample": 1, "enerf_head": 1}
+
+
+def phase_visualize(ws: str) -> None:
+    """``python -m boostmvsnerfs_torch.run --type visualize`` over
+    free_eval.yaml unchanged: the pre-pass, every test view through the
+    model, the videos (or frames) written."""
+    from boostmvsnerfs_torch import run as trun
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    out = trun.main(["--type", "visualize", "--cfg_file", FREE_EVAL, "workspace", ws,
+                     "scene", "grass"])
+    torch.cuda.synchronize()
+    launches, views = launch_counts(), 2
+    expect = added(prepass_design(views, 20, 4), scaled(ENERF_FRAME, views))
+    emit(phase="visualize", config=FREE_EVAL, writer=out["writer"],
+         files={os.path.relpath(f, ws): os.path.getsize(f) for f in out["files"]},
+         frames=out["frames"], test_views=views, launches=launches, expected_launches=expect,
+         seconds=time.perf_counter() - t0)
+    require(launches == expect, f"visualize: launches {launches}, expected {expect}")
+    require(out["frames"] == views and out["writer"] in ("imageio", "cv2", "png")
+            and out["files"] and all(os.path.getsize(f) > 0 for f in out["files"]),
+            f"visualize: {out}")
+
+
+def phase_path(ws: str) -> list:
+    """``runner.render_novel_path`` over free_eval.yaml unchanged:
+    PATH_FRAMES interpolated frames, then one spiral frame; per frame the
+    greedy selection (the pre-pass's chunks) and the forward, launches
+    against the design; the kernels on the first frame's inputs; the
+    first frame at TRAIN_CHECK_HW on the card against the CPU port.
+    Returns the kernels' summary records."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.data import make_dataset
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = eval_cfg(FREE_EVAL, ws, "grass", "save_tag", "path")
+    per_frame = added(prepass_design(1, 20, 4), ENERF_FRAME)
+    runs = {}
+    for path_type, n in (("interpolate", PATH_FRAMES), ("spiral", 1)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = runner.render_novel_path(cfg, n_frames=n, path_type=path_type)
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t0, launches=launch_counts(),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   files={os.path.relpath(f, ws): os.path.getsize(f) for f in out["files"]})
+        runs[path_type] = out
+        require(out["launches"] == scaled(per_frame, n),
+                f"path ({path_type}): launches {out['launches']}, {per_frame} per frame")
+        require(out["frames"] == n == len(out["per_frame"])
+                and all(len(f["k_best"]) == 4 and all(0 <= i < 20 for i in f["k_best"])
+                        for f in out["per_frame"]), f"path ({path_type}): {out}")
+
+    model = runner.make_network(cfg)
+    runner._init_or_load(cfg, model)
+    np_batch = next(runner.novel_path_batches(cfg, make_dataset(cfg, "test"), PATH_FRAMES))
+    np_batch["combos"] = combos = runner.view_combinations(6, 3)
+    np_batch["k_best"] = runner.greedy_select(model, runner._device_batch(np_batch, "cuda"),
+                                              combos, 4)
+    require(np_batch["k_best"][0].tolist() == runs["interpolate"]["per_frame"][0]["k_best"],
+            "path: the first frame's picks differ from the run's")
+    with torch.no_grad():
+        summary = phase_kernels({k: ENERF_KERNELS[k] for k in ENERF_FRAME},
+                                main_path_kernel_inputs(model, runner._device_batch(np_batch,
+                                                                                  "cuda")),
+                                "path")
+    del model
+    torch.cuda.empty_cache()
+    check = path_check(ws)
+    emit(phase="path", config=FREE_EVAL, geometry=[480, 736], views=6, combinations=20, k_best=4,
+         launches_per_frame=per_frame, runs=runs, check=check)
+    for rec in summary.values():
+        rec["launches"] = runs["interpolate"]["launches"][rec["name"]]
+    return list(summary.values())
+
+
+def path_check(ws: str) -> dict:
+    """The path's middle frame at TRAIN_CHECK_HW on the card against the
+    CPU port, the same weights (``check_selection``). Not the first: an
+    interpolated path starts on a test view's camera, which is also one of
+    its nearest source views, so the rays along the frame's border project
+    onto that view's border, where the coverage masks step (ROADMAP fault
+    4) and flip between two builds by rounding."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.data import make_dataset
+
+    hw = "[{}, {}]".format(*TRAIN_CHECK_HW)
+    cfg = eval_cfg(FREE_EVAL, ws, "grass", "test_dataset.input_h_w", hw)
+    models = {}
+    for d in ("cuda", "cpu"):
+        models[d] = runner.make_network(cfg, d)
+        runner._init_or_load(cfg, models[d])
+    frame = PATH_FRAMES // 2
+    batches = runner.novel_path_batches(cfg, make_dataset(cfg, "test"), PATH_FRAMES)
+    np_batch = next(itertools.islice(batches, frame, None))
+    rep, psnr = check_selection(models, np_batch, cfg,
+                                "warp_variance: the first view's features lost", render=True)
+    require(psnr > 45.0, f"path: card vs CPU rgb PSNR {psnr} dB <= 45")
+    return {"geometry": list(TRAIN_CHECK_HW), "frame": frame, **rep, "rgb_psnr_db": psnr}
+
+
+def run_visualize_and_path() -> list:
+    """Phases ``visualize`` and ``path`` on a Free scene of 16 images at
+    480x736 with seeded weights as ``latest.pt``."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        free_scene(ws)
+        save_seeded_weights(eval_cfg(FREE_EVAL, ws, "grass"))
+        phase_visualize(ws)
+        return phase_path(ws)
+
+
+def train_entry_cfg(ws: str, *opts):
+    from boostmvsnerfs_torch.config import make_cfg
+
+    return make_cfg(FINETUNE, ["workspace", ws, "scene", "grass", *TRAIN_ENTRY_OPTS, *opts])
+
+
+def save_pretrain(cfg) -> dict:
+    """Seeded random weights (``random_weights``) as the ``pretrain: enerf``
+    checkpoint the recipe warm-starts from; returns them."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
+
+    weights = random_weights(runner.make_network(cfg, "cpu"), 0)
+    CheckpointManager(os.path.join(cfg.workspace, "trained_model", "pretrain", cfg.pretrain)).save(
+        {"model": weights}, 0)
+    return weights
+
+
+def drive_train_entry(cfg, ray_blocks: int, device=None) -> dict:
+    """``run_train(cfg)`` on the card (or ``device``): per logged step its
+    wall time (from the previous record, or from the end of the pre-pass;
+    the stats' float conversion synchronises), its launches and stats; the
+    validation records; the pre-pass's and each validation's time and
+    launches; the launches and the peak memory (on the card) of the whole
+    run."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    steps, vals, prepass, validations = [], [], [], []
+    mark = {}
+
+    def restart():
+        mark.update(t=time.perf_counter(), launches=launch_counts())
+
+    def on_record(kind, state, r):
+        if kind == "train":
+            steps.append({"ms": (time.perf_counter() - mark["t"]) * 1e3,
+                          "launches": launch_delta(mark["launches"]), "step": state.step, **r})
+        else:
+            vals.append(r)
+        restart()
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    restart()
+    t0 = time.perf_counter()
+    with timed_calls(runner, "run_view_selection", prepass, restart), \
+            timed_calls(runner, "run_evaluate", validations):
+        state = runner.run_train(cfg, device=device, ray_blocks=ray_blocks, on_record=on_record)
+    sync()
+    return {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+            "final_step": state.step, "steps": steps, "val": vals, "prepass": prepass,
+            "validations": validations}
+
+
+def step_summary(run: dict) -> dict:
+    ms = [s["ms"] for s in run["steps"]]
+    return {"step_ms": ms, "step_ms_median_after_first": statistics.median(ms[1:]),
+            "step_ms_min_after_first": min(ms[1:]), "step_ms_max_after_first": max(ms[1:]),
+            "losses": [{k: v for k, v in s.items() if k not in ("ms", "launches")}
+                       for s in run["steps"]]}
+
+
+def phase_train_entry(ws: str) -> list:
+    """``run_train(cfg)`` over the fine-tuning recipe (module docstring,
+    item 10): the first run (pre-pass, 4 steps, a checkpoint, a
+    validation), its launches against the design, the resumed run, the
+    kernels on the first batch, the bf16 convolutions, the card against the
+    CPU port. Returns the kernels' summary records, with the first run's
+    launches."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
+
+    cfg = train_entry_cfg(ws)
+    pretrain = save_pretrain(cfg)
+    first = drive_train_entry(cfg, TRAIN_ENTRY_RAY_BLOCKS)
+    resumed = drive_train_entry(train_entry_cfg(ws, "train.epoch", "2"), TRAIN_ENTRY_RAY_BLOCKS)
+
+    vs = runner.load_view_selection(cfg)
+    model = runner.make_network(cfg)
+    model.load_state_dict(pretrain, strict=True)
+    batch = first_train_batch(cfg, vs, "cuda")
+    design = train_entry_design(model, batch, TRAIN_ENTRY_RAY_BLOCKS, steps=4)
+    record = {"config": FINETUNE, "overrides": list(TRAIN_ENTRY_OPTS), "geometry": [480, 736],
+              "batch": int(batch["all_src_inps"].shape[0]),
+              "views": int(batch["all_src_inps"].shape[1]), "k_best": 4,
+              "ray_blocks": TRAIN_ENTRY_RAY_BLOCKS, "design": design}
+    for name, run, epoch in (("first", first, 0), ("resumed", resumed, 1)):
+        record[name] = {**{k: run[k] for k in ("seconds", "launches", "peak_mem_gib",
+                                               "final_step", "val", "prepass", "validations")},
+                        **step_summary(run),
+                        "launches_per_step": [s["launches"] for s in run["steps"]]}
+        check_train_entry_run(name, run, design, epoch, steps=4)
+    require(first["final_step"] == 4 and resumed["final_step"] == 8, "train_entry: resume")
+    require(CheckpointManager(cfg.trained_model_dir).numbered_epochs() == [0, 1],
+            "train_entry: checkpoints")
+    with torch.no_grad():
+        summary = phase_kernels_train(
+            train_kernel_inputs(model, batch, ray_blocks=TRAIN_ENTRY_RAY_BLOCKS),
+            "kernels_train_entry", "train_entry")
+    del model, batch
+    torch.cuda.empty_cache()
+    record["bf16_conv"] = bf16_conv_check(ws, vs)
+    record["check"] = train_check(ws)
+    emit(phase="train_entry", **record)
+    for rec in summary.values():
+        rec["launches"] = first["launches"][rec["name"]]
+    return list(summary.values())
+
+
+def first_train_batch(cfg, view_selection, device):
+    """The training entry's first batch (``runner.train_loader``, epoch 0)
+    with its k_best attached, on ``device``."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.data import make_dataset
+
+    loader = runner.train_loader(cfg, make_dataset(cfg, "train"))
+    loader.set_epoch(0)
+    np_batch = runner.attach_boost_inputs(next(iter(loader)), view_selection, cfg)
+    return runner._device_batch(np_batch, device)
+
+
+def train_entry_design(model, batch, ray_blocks: int, steps: int,
+                       train_views: int = EVAL_IMAGES - 2, test_views: int = 2) -> dict:
+    """Launches of the training entry by design: per step
+    (``expected_train_launches``), the pre-pass over the train views (the
+    batch's view count, C(views, 3) combinations) and the test views (20),
+    a validation (a frame per test view, each rendering the levels of
+    ``render_if``: the recipe trains and validates both), and the whole
+    first run (the pre-pass, ``steps`` steps, a validation) and the resumed
+    run (no pre-pass)."""
+    cas = model.cas
+    step = expected_train_launches(model, batch, ray_blocks)
+    n_views = int(batch["all_src_inps"].shape[1])
+    prepass = added(prepass_design(train_views, math.comb(n_views, 3), cas.k_best),
+                    prepass_design(test_views, 20, cas.k_best))
+    rendered = sum(cas.render_if[: cas.num])
+    validation = added(scaled({"warp_variance": cas.num, "img_sample": rendered,
+                               "enerf_head": rendered}, test_views))
+    return {"step": step, "prepass": prepass, "validation": validation,
+            "first": added(prepass, scaled(step, steps), validation),
+            "resumed": added(scaled(step, steps), validation)}
+
+
+def check_train_entry_run(name: str, run: dict, design: dict, epoch: int, steps: int) -> None:
+    """A ``drive_train_entry`` run against the design: its launches, each
+    step's, ``steps`` steps of epoch ``epoch`` with finite losses, one
+    validation with a finite ``val_psnr``, the pre-pass in the first run
+    only."""
+    require(run["launches"] == design[name],
+            f"train_entry ({name}): launches {run['launches']}, expected {design[name]}")
+    require(len(run["steps"]) == steps and all(s["epoch"] == epoch for s in run["steps"])
+            and all(s["launches"] == design["step"] for s in run["steps"]),
+            f"train_entry ({name}): steps {run['steps']}")
+    require(all(math.isfinite(s["loss"]) for s in run["steps"]), f"train_entry ({name}): loss")
+    require(len(run["val"]) == 1 and math.isfinite(run["val"][0]["val_psnr"]),
+            f"train_entry ({name}): validation {run['val']}")
+    prepass = [design["prepass"]] if name == "first" else []
+    require([p["launches"] for p in run["prepass"]] == prepass,
+            f"train_entry ({name}): pre-pass {run['prepass']}")
+    require([v["launches"] for v in run["validations"]] == [design["validation"]],
+            f"train_entry ({name}): validation launches {run['validations']}")
+
+
+def run_train_entry() -> list:
+    """Phase ``train_entry`` on a Free scene of 16 images at 480x736 with
+    seeded pretrain weights."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        free_scene(ws)
+        return phase_train_entry(ws)
+
+
+def bf16_conv_check(ws: str, vs: dict) -> dict:
+    """The first validation frame with the trained weights, the convolutions
+    at ``conv_dtype`` bfloat16 against float32: the rgb mean absolute
+    difference under 0.05 (JAX's bar, tests/test_mixed_precision.py), and
+    forward hooks on the batch norms seeing bf16 inputs (the convolutions'
+    outputs) in the bf16 model and float32 ones in the other."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
+
+    cfg = train_entry_cfg(ws)
+    weights = CheckpointManager(cfg.trained_model_dir).restore()["model"]
+    batch = first_test_batch(cfg, vs, "cuda")
+    rgb, seen = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        model = runner.make_network(train_entry_cfg(ws, "enerf.cas_config.conv_dtype", dtype))
+        model.load_state_dict(weights, strict=True)
+        seen[dtype] = set()
+        hook = lambda m, inp, out, d=dtype: seen[d].add(str(inp[0].dtype))  # noqa: E731
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.register_forward_hook(hook)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb[dtype] = model(batch)["rgb_level1"].cpu().numpy()
+        torch.cuda.synchronize()
+        seen[f"{dtype}_frame_ms"] = (time.perf_counter() - t0) * 1e3
+    diff = float(np.abs(rgb["bfloat16"] - rgb["float32"]).mean())
+    out = {"rgb_mean_abs_diff": diff, "psnr_db": psnr_db(rgb["bfloat16"], rgb["float32"]),
+           "batch_norm_inputs": {k: sorted(v) if isinstance(v, set) else v
+                                 for k, v in seen.items()}}
+    require(diff < 0.05, f"bf16 convolutions: rgb mean difference {diff}")
+    require(seen["bfloat16"] == {"torch.bfloat16"} and seen["float32"] == {"torch.float32"},
+            f"bf16 convolutions: batch norm inputs {seen}")
+    return out
+
+
+def train_readings(losses, ref_losses, delta: dict, ref_delta: dict) -> dict:
+    """Each step's loss against the reference's (the largest relative
+    error) and the parameters' change (relative L2 of all together)."""
+    num = math.sqrt(sum(float(((delta[k] - v) ** 2).sum()) for k, v in ref_delta.items()))
+    den = math.sqrt(sum(float((v ** 2).sum()) for v in ref_delta.values()))
+    return {"loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+            "delta_rel_l2": num / den}
+
+
+def within_train_bars(r: dict) -> bool:
+    return r["loss_rel_err"] <= TRAIN_LOSS_RTOL and r["delta_rel_l2"] <= TRAIN_DELTA_RTOL
+
+
+def param_delta(params: dict, start: dict) -> dict:
+    return {k: params[k].double().cpu() - start[k].double() for k in start}
+
+
+def train_check(ws: str) -> dict:
+    """``run_train(cfg)`` at TRAIN_CHECK_HW for TRAIN_CHECK_STEPS steps
+    (unblocked, no validation) on the card and on the CPU port from the same
+    pretrain weights (the CPU run reads the card run's view selection):
+    the losses and the parameters' change (the saved checkpoint minus the
+    pretrain weights) within the TRAIN_* bars; the control, the CPU port
+    with its last Adam step skipped, must fail them."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
+
+    hw = "[{}, {}]".format(*TRAIN_CHECK_HW)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as small:
+        free_scene(small, *TRAIN_CHECK_HW)
+        opts = ("train_dataset.input_h_w", hw, "test_dataset.input_h_w", hw, "ep_iter",
+                str(TRAIN_CHECK_STEPS), "eval_ep", "0")
+        pretrain = save_pretrain(train_entry_cfg(small, *opts))
+        names = [k for k, _ in runner.make_network(train_entry_cfg(small, *opts),
+                                                   "cpu").named_parameters()]
+        start = {k: pretrain[k] for k in names}
+        runs = {}
+        for d in ("cuda", "cpu"):
+            cfg = train_entry_cfg(small, *opts, "exp_name_tag", f"check_{d}")
+            if d == "cpu":
+                os.makedirs(cfg.result_dir, exist_ok=True)
+                shutil.copy(runner.view_selection_path(runs["cuda"]["cfg"]),
+                            runner.view_selection_path(cfg))
+            losses, snaps = [], []
+
+            def on_record(kind, state, r, losses=losses, snaps=snaps):
+                losses.append(r["loss"])
+                snaps.append({k: p.detach().cpu().clone()
+                              for k, p in state.model.named_parameters()})
+
+            t0 = time.perf_counter()
+            runner.run_train(cfg, device=d, on_record=on_record)
+            saved = CheckpointManager(cfg.trained_model_dir).restore()["model"]
+            runs[d] = {"cfg": cfg, "losses": losses, "snaps": snaps,
+                       "seconds": time.perf_counter() - t0, "delta": param_delta(saved, start)}
+    card, cpu = runs["cuda"], runs["cpu"]
+    reading = train_readings(card["losses"], cpu["losses"], card["delta"], cpu["delta"])
+    control = train_readings(card["losses"], cpu["losses"], card["delta"],
+                             param_delta(cpu["snaps"][-2], start))
+    out = {"geometry": list(TRAIN_CHECK_HW), "steps": TRAIN_CHECK_STEPS,
+           "losses_card": card["losses"], "losses_cpu": cpu["losses"], "reading": reading,
+           "control_last_step_skipped": control,
+           "bars": {"loss": TRAIN_LOSS_RTOL, "delta": TRAIN_DELTA_RTOL},
+           "seconds": {d: r["seconds"] for d, r in runs.items()}}
+    require(within_train_bars(reading), f"train entry: card vs CPU {out}")
+    require(not within_train_bars(control), f"train entry: the control passes {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -1514,6 +2042,10 @@ def main() -> int:
     records += run_evaluate_path()
     torch.cuda.empty_cache()
     records += run_evaluate_mvsnerf_path()
+    torch.cuda.empty_cache()
+    records += run_visualize_and_path()
+    torch.cuda.empty_cache()
+    records += run_train_entry()
     torch.cuda.empty_cache()
     records += run_train_path()
     print(json.dumps({"kernels": records}))

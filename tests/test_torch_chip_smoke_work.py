@@ -217,3 +217,155 @@ def test_lost_launches_leave_out_the_primer(smoke):
     events.pop()  # the block's last record
     events.append(_Event("cuLaunchKernel", cpu, n + 5))
     assert smoke.lost_launches(_Profile(events)) == 2
+
+
+@pytest.fixture
+def one_thread():
+    """torch's intra-op threads at 1 for a test: with several test processes
+    sharing a machine's few cores, their pools' spinning threads slow each
+    other down many times over, while these small tensors gain little from
+    more than one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def counted(monkeypatch, one_thread):
+    """On the CPU every kernel wrapper takes its plain version; count those
+    calls as the wrappers count their launches on the card, so that
+    ``launch_counts`` reads what a card run would launch. The models import
+    first: a module that imports a plain version by name (the train-mode
+    head) keeps the original, which launches nothing on the card."""
+    import boostmvsnerfs_torch.runner  # noqa: F401
+    from boostmvsnerfs_torch.ops.cuda import _build, enerf_head, img_sample, warp_variance
+
+    for module, attr, name in ((warp_variance, "warp_variance_plain", "warp_variance"),
+                               (warp_variance, "warp_variance_bwd_plain", "warp_variance_bwd"),
+                               (img_sample, "row_sample_plain", "img_sample"),
+                               (img_sample, "row_sample_bwd_plain", "img_sample_bwd"),
+                               (enerf_head, "nerf_head_plain", "enerf_head")):
+        fn = getattr(module, attr)
+        monkeypatch.setattr(module, attr, lambda *a, fn=fn, name=name, **kw: (
+            _build.count_launch(name), fn(*a, **kw))[1])
+    _build.reset_launch_counts()
+
+
+def _in_repo(fn, *args):
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        return fn(*args)
+    finally:
+        os.chdir(cwd)
+
+
+def test_visualize_and_path_launch_designs(smoke, tmp_path, counted):
+    """The phases ``visualize`` and ``path`` on a Free scene at 64x96: the
+    launches of ``run.py --type visualize`` (the pre-pass, then a frame per
+    test view) and of ``render_novel_path`` (per frame the pre-pass's 5
+    chunks and the frame) equal the designs the phases check."""
+    from boostmvsnerfs_torch import run as trun
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    ws = str(tmp_path)
+    smoke.free_scene(ws, 64, 96)
+    cfg = _in_repo(smoke.eval_cfg, smoke.FREE_EVAL, ws, "grass", "test_dataset.input_h_w",
+                   "[64, 96]", "write_video", "false")
+    smoke.save_seeded_weights(cfg)
+    out = trun.run_visualize(cfg, "cpu")
+    assert out["frames"] == 2 and out["writer"] == "png"
+    assert launch_counts() == smoke.added(smoke.prepass_design(2, 20, 4),
+                                          smoke.scaled(smoke.ENERF_FRAME, 2))
+    reset_launch_counts()
+    out = runner.render_novel_path(cfg, n_frames=2, device="cpu")
+    per_frame = smoke.added(smoke.prepass_design(1, 20, 4), smoke.ENERF_FRAME)
+    assert per_frame == dict(smoke.NO_LAUNCHES, warp_variance=12, img_sample=1, enerf_head=1)
+    assert launch_counts() == smoke.scaled(per_frame, 2)
+    assert len(out["per_frame"]) == 2 and all(len(f["k_best"]) == 4 for f in out["per_frame"])
+
+
+def test_train_entry_design_and_resume(smoke, tmp_path, counted):
+    """``drive_train_entry`` over the fine-tuning recipe at 64x96 on the
+    CPU, one step an epoch (batch 1) in 2 ray blocks: the first run's and
+    the resumed run's launches, steps, validation and pre-pass pass the
+    phase's checks against ``train_entry_design``; the resumed run begins
+    at epoch 1. The per-step design does not depend on the batch size:
+    the folded batch goes through each kernel in one launch."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+
+    ws = str(tmp_path)
+    smoke.free_scene(ws, 64, 96)
+    opts = ("train_dataset.input_h_w", "[64, 96]", "test_dataset.input_h_w", "[64, 96]",
+            "ep_iter", "1", "train.batch_size", "1", "save_result", "false")
+    cfg = _in_repo(smoke.train_entry_cfg, ws, *opts)
+    smoke.save_pretrain(cfg)
+    first = smoke.drive_train_entry(cfg, 2, "cpu")
+    resumed = smoke.drive_train_entry(_in_repo(smoke.train_entry_cfg, ws, *opts, "train.epoch",
+                                               "2"), 2, "cpu")
+    model = runner.make_network(cfg, "cpu")
+    batch = smoke.first_train_batch(cfg, runner.load_view_selection(cfg), "cpu")
+    assert tuple(batch["all_src_inps"].shape[:2]) == (1, 3)  # 3 views: one combination
+    design = smoke.train_entry_design(model, batch, 2, steps=1)
+    assert design["step"] == dict(smoke.NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2,
+                                  img_sample=5, img_sample_bwd=3)
+    assert design["prepass"] == dict(smoke.NO_LAUNCHES, warp_variance=2 * 14 + 2 * 5 * 2)
+    smoke.check_train_entry_run("first", first, design, 0, steps=1)
+    smoke.check_train_entry_run("resumed", resumed, design, 1, steps=1)
+    assert (first["final_step"], resumed["final_step"]) == (1, 2)
+    unblocked = smoke.expected_train_launches(BoostENeRFLike(CascadeConfig(k_best=4)), batch, 0)
+    assert unblocked == dict(smoke.NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2,
+                             img_sample=2, img_sample_bwd=2)
+
+
+class BoostENeRFLike:
+    def __init__(self, cas):
+        self.cas = cas
+
+
+def _train_run(batches, dtype, steps_snaps):
+    """Two steps of ``train_epochs`` (BoostENeRF K=2, lr 5e-5) from seeded
+    weights, at ``dtype``: (losses, the parameters before, and after each
+    step)."""
+    from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+    from boostmvsnerfs_torch.runner import train_epochs
+    from boostmvsnerfs_torch.utils.port_weights import random_state_dict
+
+    model = BoostENeRF(CascadeConfig(k_best=2, volume_planes=(16, 8)), device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(model, 0).items()})
+    model.to(dtype)
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    losses, snaps = [], []
+
+    def on_record(kind, state, r):
+        losses.append(r["loss"])
+        snaps.append({k: p.detach().clone() for k, p in state.model.named_parameters()})
+
+    train_epochs(model, batches, {"lr": 5e-5, "epoch": 1}, steps_snaps, log_interval=1,
+                 on_record=on_record, device="cpu")
+    return losses, start, snaps
+
+
+def test_train_bars_pass_float32_and_fail_a_skipped_step(smoke, tmp_path, record_property,
+                                                          one_thread):
+    """The card-vs-CPU bars of the training entry on the CPU port at 64x96:
+    float32 against float64 (the same two steps, weights and batches)
+    passes them; float32 against float64 with its last Adam step skipped,
+    the smoke run's control, fails them."""
+    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
+
+    batches = [make_scene_batch(B=1, n_views=4, H=64, W=96, boost=True, k_best=2, seed=s,
+                                rig="orbit", with_targets=True) for s in (0, 1)]
+    l32, start32, s32 = _train_run(batches, torch.float32, str(tmp_path / "f32"))
+    l64, start64, s64 = _train_run(batches, torch.float64, str(tmp_path / "f64"))
+    d32 = smoke.param_delta(s32[-1], start32)
+    reading = smoke.train_readings(l32, l64, d32, smoke.param_delta(s64[-1], start64))
+    control = smoke.train_readings(l32, l64, d32, smoke.param_delta(s64[-2], start64))
+    record_property("float32_vs_float64", reading)
+    record_property("control_last_step_skipped", control)
+    assert smoke.within_train_bars(reading), reading
+    assert not smoke.within_train_bars(control), control

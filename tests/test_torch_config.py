@@ -57,10 +57,6 @@ def test_yaml_loads_to_jax_tree(at_repo, path):
 def test_cascade_from_cfg_matches_jax(at_repo, path):
     cfg = make_cfg(path)
     want = _fields(JaxCascadeConfig.from_cfg(jconfig.make_cfg(path).enerf))
-    if cfg.enerf.cas_config.get("conv_dtype", "float32") != "float32":
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            CascadeConfig.from_cfg(cfg.enerf)
-        return
     got = _fields(CascadeConfig.from_cfg(cfg.enerf))
     assert got == {k: want[k] for k in got}
 
@@ -89,8 +85,21 @@ def test_tpu_knobs_are_dropped(at_repo, knob):
     assert CascadeConfig.from_cfg(cfg.enerf) == base
 
 
+def test_amp_config_takes_bf16_convolutions(at_repo):
+    """The AMP recipe's ``conv_dtype: bfloat16`` reaches the model's FPN and
+    both cost-regularisation nets; an unknown type raises."""
+    cfg = make_cfg("configs/exps/pretrain/enerf/dtu_pretrain_amp.yaml")
+    assert CascadeConfig.from_cfg(cfg.enerf).conv_dtype == "bfloat16"
+    model = runner.make_network(cfg, "cpu")
+    nets = [model.feature_net, model.cost_reg_0, model.cost_reg_1]
+    assert all(net.dtype == torch.bfloat16 for net in nets)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    cfg.enerf.cas_config.conv_dtype = "float16"
+    with pytest.raises(ValueError, match="conv_dtype"):
+        CascadeConfig.from_cfg(cfg.enerf)
+
+
 @pytest.mark.parametrize("key,value,match", [
-    ("conv_dtype", "bfloat16", "queue 1 item 3"),
     ("min_cost_reg_all", True, "queue 1 item 7"),
     ("use_vox_feat", False, "queue 1 item 7"),
 ])

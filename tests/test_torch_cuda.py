@@ -405,3 +405,83 @@ def test_enerf_eval_renders_any_view_count(dev, n_views):
     assert bool(torch.isfinite(outs["cuda"]).all())
     mse = float(((outs["cuda"] - outs["cpu"]) ** 2).mean())
     assert -10 * np.log10(mse) > 45.0
+
+
+def _free_workspace(tmp_path):
+    """A Free scene of 16 images at 64x96 (each camera turned its own way)
+    and the repository root, where configs' ``parent_cfg`` paths resolve."""
+    from pathlib import Path
+
+    from boostmvsnerfs_torch.utils.synthetic import write_free_scene
+
+    ws = str(tmp_path)
+    write_free_scene(f"{ws}/Free", "grass", 16, 64, 96, rig="varied")
+    return ws, Path(__file__).resolve().parents[1]
+
+
+def test_render_novel_path_frame_on_the_card(dev, tmp_path, monkeypatch):
+    """One spiral ``render_novel_path`` frame on the card (64x96, K=4 of
+    20): the pre-pass's 5 chunks launch the warp twice each, then the
+    frame's warps, sampler and head; rgb within 45 dB of the CPU port's
+    frame. (Not an interpolated path's first frame: its camera is a source
+    view's, and the coverage masks step at that view's border, ROADMAP
+    fault 4.)"""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.config import make_cfg
+    from boostmvsnerfs_torch.eval.visualizer import Visualizer
+
+    ws, repo = _free_workspace(tmp_path)
+    monkeypatch.chdir(repo)
+    cfg = make_cfg("configs/exps/evaluate/enerf_ours/free_eval.yaml",
+                   ["workspace", ws, "scene", "grass", "test_dataset.input_h_w", "[64, 96]",
+                    "write_video", "false"])
+    frames = []
+    original = Visualizer.visualize
+    monkeypatch.setattr(Visualizer, "visualize", lambda self, out, batch: (
+        frames.append(out["rgb_level1"].cpu().numpy()), original(self, out, batch))[1])
+    reset_launch_counts()
+    out = runner.render_novel_path(cfg, n_frames=1, path_type="spiral")
+    counts = launch_counts()
+    assert [counts[k] for k in ("warp_variance", "img_sample", "enerf_head")] == [12, 1, 1]
+    runner.render_novel_path(cfg, n_frames=1, path_type="spiral", device="cpu")
+    assert out["frames"] == 1 and len(frames) == 2
+    assert -10 * np.log10(np.mean((frames[0] - frames[1]) ** 2)) > 45.0
+
+
+def test_run_train_step_on_the_card(dev, tmp_path, monkeypatch):
+    """One ``run_train(cfg)`` step of the fine-tuning recipe on the card
+    (64x96, batch 1, K=4, both levels on full images, no validation): the
+    f32 warp and the sampler with their backward kernels, and the loss
+    within 1e-4 of the CPU port's from the same pretrain weights and view
+    selection."""
+    import shutil
+
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.config import make_cfg
+    from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
+
+    ws, repo = _free_workspace(tmp_path)
+    monkeypatch.chdir(repo)
+    opts = ["workspace", ws, "scene", "grass", "train_dataset.input_h_w", "[64, 96]",
+            "test_dataset.input_h_w", "[64, 96]", "train.batch_size", "1", "train.epoch", "1",
+            "ep_iter", "1", "eval_ep", "0"]
+    cfgs = {d: make_cfg("configs/exps/finetune/enerf_ours/free/base.yaml",
+                        opts + ["exp_name_tag", d]) for d in ("cuda", "cpu")}
+    model = runner.make_network(cfgs["cpu"], "cpu")
+    CheckpointManager(f"{ws}/trained_model/pretrain/enerf").save(
+        {"model": {k: torch.from_numpy(v) for k, v in random_state_dict(model, 0).items()}}, 0)
+    losses = {}
+    for d, cfg in cfgs.items():
+        if d == "cpu":
+            shutil.copytree(cfgs["cuda"].result_dir, cfg.result_dir)
+        reset_launch_counts()
+        runner.run_train(cfg, device=d, on_record=lambda kind, state, r, d=d:
+                         losses.setdefault(d, r["loss"]))
+        if d == "cuda":
+            counts = launch_counts()
+            # the pre-pass: 14 train views of 1 combination and 2 test views
+            # of 5 chunks, 2 warps each; then the step
+            assert counts["warp_variance"] == 2 * 14 + 2 * 5 * 2 + 2
+            assert [counts[k] for k in ("warp_variance_bwd", "img_sample",
+                                        "img_sample_bwd")] == [2, 2, 2]
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])

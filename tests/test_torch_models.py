@@ -7,6 +7,7 @@ at rtol 1e-4 / atol 1e-4 (sums over up to 27*64 products in another order);
 the head at the op bar rtol 1e-4 / atol 1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,3 +130,91 @@ def test_search_k_best_equals_jax(k):
     masks = rng.uniform(0, 1, (6, 8, 10)).astype(np.float32) * (rng.uniform(0, 1, (6, 1, 1)) > 0.3)
     assert tbe.search_k_best(masks, k) == jbe.search_k_best(masks, k)
     assert tbe.search_k_best(np.zeros((3, 4, 4), np.float32), k) == [0]
+
+
+@pytest.fixture(scope="module")
+def bf16_renders():
+    """The port's ENeRF with ``conv_dtype`` bfloat16 and float32, and JAX's
+    with bfloat16, on the same weights and batch (32x64, 3 views, both
+    levels rendered; JAX's exact path)."""
+    from boostmvsnerfs_torch.models.enerf import ENeRF
+    from boostmvsnerfs_torch.utils.port_weights import enerf_state_dict_from_jax
+    from boostmvsnerfs_tpu.models.enerf import CascadeConfig as JaxCascadeConfig
+    from boostmvsnerfs_tpu.models.enerf import ENeRF as JaxENeRF
+
+    cas = dict(volume_planes=(8, 8), render_if=(True, True))
+    batch = tsyn.make_scene_batch(B=1, n_views=3, H=32, W=64, seed=1, rig="forward")
+    variables = jpw.port_enerf(random_state_dict(ENeRF(CascadeConfig(**cas), device="cpu"), 1))
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        model = ENeRF(CascadeConfig(conv_dtype=dtype, **cas), device="cpu")
+        model.load_state_dict(enerf_state_dict_from_jax(variables), strict=True)
+        out[dtype] = {k: v.numpy() for k, v in model(batch).items()}
+    jax_model = JaxENeRF(cas=JaxCascadeConfig(
+        warp_mode="gather", eval_sampling="gather", eval_head="xla", warp_dtype="float32",
+        conv_dtype="bfloat16", **cas))
+    want = jax.jit(lambda v, b: jax_model.apply(v, b, False))(
+        variables, {k: jnp.asarray(v) for k, v in batch.items()})
+    out["jax_bfloat16"] = {k: np.asarray(v) for k, v in want.items()}
+    return out
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_bf16_convolutions_match_jax_bf16(bf16_renders, level, record_property):
+    """JAX's own bar for its bf16 convolutions (tests/test_mixed_precision.py:
+    the rgb mean absolute difference under 0.05) between the two bf16
+    builds and between the port's bf16 and float32 builds; every output
+    float32 and finite."""
+    key = f"rgb_level{level}"
+    got, jax_bf16, f32 = (bf16_renders[k][key] for k in ("bfloat16", "jax_bfloat16", "float32"))
+    assert bf16_renders["bfloat16"].keys() == bf16_renders["jax_bfloat16"].keys()
+    for k, v in bf16_renders["bfloat16"].items():
+        assert v.dtype == np.float32 and np.isfinite(v).all(), k
+    vs_jax, vs_f32 = float(np.abs(got - jax_bf16).mean()), float(np.abs(got - f32).mean())
+    record_property("rgb_mean_abs_diff_vs_jax_bf16", vs_jax)
+    record_property("rgb_mean_abs_diff_vs_f32", vs_f32)
+    assert vs_jax < 0.05 and vs_f32 < 0.05
+    assert vs_f32 > 0.0  # the convolutions did round
+
+
+def test_bf16_convolutions_train_with_float32_state():
+    """A train-mode backward through the bf16 FPN: the convolutions run in
+    bf16 (the batch norms' inputs, seen by forward hooks), the gradients
+    and BatchNorm statistics stay float32 and finite."""
+    seen = set()
+    net = FeatureNet(torch.bfloat16).train()
+    hook = lambda m, inp, out: seen.update((inp[0].dtype, out.dtype))  # noqa: E731
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, torch.nn.BatchNorm2d)]
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (2, 16, 24, 3)).astype(np.float32))
+    out = net(x)
+    sum(v.square().mean() for v in out.values()).backward()
+    for h in handles:
+        h.remove()
+    assert all(v.dtype == torch.float32 for v in out.values())
+    assert seen == {torch.bfloat16}
+    for name, p in net.named_parameters():
+        assert p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
+    bn = net.conv0[0].bn
+    assert bn.running_var.dtype == torch.float32 and bool((bn.running_var != 1).any())
+
+
+def test_bf16_resize_keeps_rows_past_256_pixels():
+    """The FPN's upsampling of bf16 features to 480x736 (``conv_dtype``
+    bfloat16): taps computed in float32, so every output row interpolates
+    two neighbours with weights summing to 1 (bf16 holds integers exactly
+    only to 256; taps computed in bf16 fell past the row). The result is
+    the float32 resize within bf16 rounding (the input, the weights, each
+    pass's products and sums: 4 ulps of 1 at most, 2^-9 on average); JAX's
+    bf16 matrices at this
+    width sum rows to up to 3 (ROADMAP fault 14)."""
+    from boostmvsnerfs_torch.ops.sampling import resize_bilinear
+    from boostmvsnerfs_tpu.ops.sampling import _interp_matrix
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 120, 184, 4)).astype(np.float32))
+    got = resize_bilinear(x.to(torch.bfloat16), 480, 736)
+    want = resize_bilinear(x, 480, 736)
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - want).abs()
+    assert float(err.max()) < 2 ** -6 and float(err.mean()) < 2 ** -9
+    assert float(np.asarray(_interp_matrix(736, 368, jnp.bfloat16), np.float32).sum(1).max()) == 3.0

@@ -45,7 +45,7 @@ from boostmvsnerfs_torch.models.enerf import CascadeConfig, ENeRF, to_tensors
 from boostmvsnerfs_torch.ops import sampling
 from boostmvsnerfs_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from boostmvsnerfs_torch.parallel import train as tt
-from boostmvsnerfs_torch.runner import run_train
+from boostmvsnerfs_torch.runner import train_epochs
 from boostmvsnerfs_torch.train.checkpoint import CheckpointManager, load_pretrain
 from boostmvsnerfs_torch.train.loss import enerf_loss, mse2psnr
 from boostmvsnerfs_torch.train.schedule import make_optimizer as torch_optimizer
@@ -440,16 +440,16 @@ def test_run_train_resumes_and_saves(tmp_path, capsys):
 def _check_resume(tmp_path, capsys):
     cfg = {**TRAIN_CFG, "epoch": 2}
     model_a, batches = _small_setup()
-    state_a = run_train(model_a, batches, cfg, str(tmp_path / "a"), log_interval=1,
+    state_a = train_epochs(model_a, batches, cfg, str(tmp_path / "a"), log_interval=1,
                         ray_blocks=2, device="cpu")
     assert state_a.step == 4
     assert CheckpointManager(str(tmp_path / "a")).numbered_epochs() == [0, 1]
     assert "epoch 1 iter 1/2" in capsys.readouterr().out
     model_b, _ = _small_setup()
-    run_train(model_b, batches, {**cfg, "epoch": 1}, str(tmp_path / "b"), ray_blocks=2,
+    train_epochs(model_b, batches, {**cfg, "epoch": 1}, str(tmp_path / "b"), ray_blocks=2,
               device="cpu")
     model_c, _ = _small_setup()
-    state_c = run_train(model_c, batches, cfg, str(tmp_path / "b"), ray_blocks=2, device="cpu")
+    state_c = train_epochs(model_c, batches, cfg, str(tmp_path / "b"), ray_blocks=2, device="cpu")
     assert "resumed at epoch 1" in capsys.readouterr().out
     assert state_c.step == 4
     for k, v in model_a.state_dict().items():
@@ -460,9 +460,10 @@ def test_run_train_raises_without_cuda_unless_cpu_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model, batches = _small_setup()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        run_train(model, batches[:1], {**TRAIN_CFG, "epoch": 1}, str(tmp_path))
+        train_epochs(model, batches[:1], {**TRAIN_CFG, "epoch": 1}, str(tmp_path))
     reset_launch_counts()
-    state = run_train(model, batches[:1], {**TRAIN_CFG, "epoch": 1}, str(tmp_path), device="cpu")
+    state = train_epochs(model, batches[:1], {**TRAIN_CFG, "epoch": 1}, str(tmp_path),
+                         device="cpu")
     assert state.step == 1
     assert launch_counts() == dict.fromkeys(_build.KERNELS, 0)
 
