@@ -1,6 +1,6 @@
 """BoostMVSNeRF: multi cost-volume fusion on the MVSNeRF backbone
 (counterpart of ``boostmvsnerfs_tpu/models/boost_mvsnerf.py``: the view
-selection's coverage masks and the fused eval forward).
+selection's coverage masks and the fused forward, eval and training).
 
 Batch convention adds to MVSNeRF's: combos (n_combos, I) view-combination
 table, k_best (B, K) combination ids from the cached view selection.
@@ -40,9 +40,13 @@ class BoostMVSNeRF(MVSNeRF):
     def _coverage_visibility(self, batch: dict) -> torch.Tensor:
         """Whether each of the N views sees each of 128 uniform samples per
         ray over the scene's near/far, (B, N, H*W*128) (reference
-        boost_mvsnerf calc_mask :23-45)."""
+        boost_mvsnerf calc_mask :23-45), for the rays of every pixel of
+        the target view. JAX takes the batch's ``ray_idx_0`` and reshapes to
+        the image, so it fails on a training batch of random rays (the
+        mvsnerf_ours recipe's pre-pass over its train views, ROADMAP fault
+        17); on an eval batch, whose rays are every pixel, the two agree."""
         B, _, H, W = batch["all_src_inps"].shape[:4]
-        xy = geometry.flat_idx_to_xy(batch["ray_idx_0"], W)
+        xy = geometry.flat_idx_to_xy(torch.arange(H * W, device=self.device).expand(B, -1), W)
         ray_o, ray_d = geometry.rays_from_pixels(batch["tar_ixt"], batch["tar_ext"], xy)
         near, far = batch["near_far"][:, 0], batch["near_far"][:, 1]
         z_vals = depth_line(near, far, COVERAGE_SAMPLES)[:, None, :]  # (B, 1, Ns)
@@ -101,11 +105,11 @@ class BoostMVSNeRF(MVSNeRF):
                                    depth_line(near, far, self.cfg.num_samples))
         return sub, volume, near, far
 
-    @torch.no_grad()
-    def forward(self, batch: dict) -> dict:
-        """Fused multi-cost-volume render: the K radiance fields blend with
-        normalised visibility weights in one transmittance integral."""
-        batch = to_tensors(batch, self.device)
+    def render(self, batch: dict) -> dict:
+        """Fused multi-cost-volume render on a batch of tensors on the
+        model's device, in the module's mode (differentiable): the K
+        radiance fields blend with normalised visibility weights, which
+        carry no gradient, in one transmittance integral."""
         B, K = batch["all_src_inps"].shape[0], self.cfg.k_best
         sub, volume, near, far = self.fused_volumes(batch)
         raw = self.render_volume(sub, volume, sub["ray_idx_0"], near, far, with_mask=True)
@@ -117,3 +121,9 @@ class BoostMVSNeRF(MVSNeRF):
                                      render.normalize_blend_masks(unfold(raw["mask"])),
                                      unfold(raw["z_vals"]))
         return {f"{k}_level0": v for k, v in out.items()}
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> dict:
+        """The render of a batch (numpy arrays or tensors) without
+        gradients; the eval render after ``model.eval()``."""
+        return self.render(to_tensors(batch, self.device))

@@ -59,16 +59,40 @@ def positional_encoding(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
     return torch.cat([x, torch.sin(xs), torch.cos(xs)], dim=-1)
 
 
+def mlp_trunk(params: dict, pts: torch.Tensor, feat: torch.Tensor,
+              compute_dtype=torch.float32, additive_bias: bool = False) -> torch.Tensor:
+    """The trunk of the renderer heads: ``pts_bias(feat)`` multiplies each
+    ``pts_{i}`` layer's output before its ReLU (``Renderer_ours``), or is
+    added to it with ``additive_bias`` (``Renderer_linear``, the ``v2`` and
+    attention heads; the kernel has only the multiplying trunk). Depth and
+    skips are read from the layer shapes: a layer wider than the trunk
+    takes the encoding ``pts`` concatenated in front. -> the last hidden
+    state (B, N, W[+P])."""
+
+    def layer(x, name):
+        return dense(x, *params[name], compute_dtype=compute_dtype)
+
+    bias = layer(feat, "pts_bias")
+    h = pts
+    depth = sum(k.startswith("pts_") and k != "pts_bias" for k in params)
+    for i in range(depth):
+        h = layer(h, f"pts_{i}")
+        h = F.relu(h + bias if additive_bias else h * bias)
+        if params[f"pts_{i + 1}" if i + 1 < depth else "alpha"][0].shape[1] != h.shape[-1]:
+            h = torch.cat([pts, h], dim=-1)
+    return h
+
+
 def renderer_mlp_plain(
     params: dict, pts: torch.Tensor, feat: torch.Tensor, dirs: torch.Tensor,
-    encode_freqs: int = 0, compute_dtype=torch.float32,
+    encode_freqs: int = 0, compute_dtype=torch.float32, additive_bias: bool = False,
 ) -> torch.Tensor:
     """The plain PyTorch version (the XLA trunk of JAX ``RendererMLP``):
     pts (B, N, P) encoded, or raw (B, N, d) with ``encode_freqs``; feat
-    (B, N, F); dirs (B, N, 3) -> raw (rgb, alpha) (B, N, 4). Depth and
-    skips are read from the layer shapes: a layer wider than the trunk
-    takes the encoding concatenated in front. With bfloat16 every dense
-    layer, the alpha and rgb heads included, rounds its two operands."""
+    (B, N, F); dirs (B, N, 3) -> raw (rgb, alpha) (B, N, 4). The trunk is
+    ``mlp_trunk``'s; ``additive_bias`` selects the ``v2`` trunk, which only
+    the plain version has. With bfloat16 every dense layer, the alpha and
+    rgb heads included, rounds its two operands."""
     check_compute_dtype(NAME, compute_dtype)
 
     def layer(x, name):
@@ -76,13 +100,7 @@ def renderer_mlp_plain(
 
     if encode_freqs:
         pts = positional_encoding(pts, encode_freqs)
-    bias = layer(feat, "pts_bias")
-    h = pts
-    depth = sum(k.startswith("pts_") and k != "pts_bias" for k in params)
-    for i in range(depth):
-        h = F.relu(layer(h, f"pts_{i}") * bias)
-        if params[f"pts_{i + 1}" if i + 1 < depth else "alpha"][0].shape[1] != h.shape[-1]:
-            h = torch.cat([pts, h], dim=-1)
+    h = mlp_trunk(params, pts, feat, compute_dtype, additive_bias)
     alpha = F.relu(layer(h, "alpha"))
     feature = layer(h, "feature")
     h = F.relu(layer(torch.cat([feature, dirs], dim=-1), "views_0"))

@@ -1,5 +1,6 @@
 """Train and eval steps on one device (counterpart of
-``boostmvsnerfs_tpu/parallel/train.py`` without its mesh).
+``boostmvsnerfs_tpu/parallel/train.py`` without its mesh), for the ENeRF
+and MVSNeRF families.
 
 One step puts the model in train mode and computes the forward with
 batch-statistics BatchNorm, the cascade loss, the gradients, the clip at 40
@@ -66,10 +67,14 @@ def _update(state: TrainState, loss_fn: Callable, batch: dict) -> dict:
 
 
 def make_train_step(model, perceptual_fn: Callable | None = None,
-                    image_hw: tuple | None = None) -> Callable:
+                    image_hw: tuple | None = None, cas=None) -> Callable:
     """``step(state, batch) -> stats``: one update of ``state`` in place from
-    the whole forward's loss (every activation kept for the backward)."""
-    cas = model.cas
+    the whole forward's loss (every activation kept for the backward). The
+    loss settings (``loss_weight``, ``num``, ``render_if``, ``train_img``)
+    come from ``cas``, a ``CascadeConfig``, or else from the model's own:
+    an MVSNeRF has none, so its step takes the config's (JAX's step reads
+    ``model.cas`` and fails on every MVSNeRF, ROADMAP fault 15)."""
+    cas = model.cas if cas is None else cas
 
     def loss_fn(batch):
         out = model.render(batch)

@@ -51,10 +51,15 @@ from boostmvsnerfs_torch.utils.port_weights import random_state_dict
 # ---------------------------------------------------------------------------
 
 
+def _network_name(cfg) -> str:
+    return cfg["network_module"].rsplit(".", 1)[-1]
+
+
 def make_network(cfg, device=None) -> nn.Module:
     """Model from cfg.network_module's last component, in eval mode, on
-    CUDA unless ``device`` says otherwise."""
-    name = cfg["network_module"].rsplit(".", 1)[-1]
+    CUDA unless ``device`` says otherwise. MVSNeRF models take their
+    renderer head from ``cfg.mvsnerf.net_type``."""
+    name = _network_name(cfg)
     cas = CascadeConfig.from_cfg(cfg["enerf"])
     if name == "boost_enerf":
         return BoostENeRF(cas, device=device)
@@ -344,6 +349,7 @@ def train_epochs(
     validate=None,
     on_record=None,
     device=None,
+    cas: CascadeConfig | None = None,
 ) -> TrainState:
     """Train ``model`` for ``train_cfg['epoch']`` epochs over ``batches``,
     one epoch: a list of batches, or a ``Loader`` (``set_epoch`` before
@@ -360,8 +366,10 @@ def train_epochs(
     ``on_record(kind, state, scalars)`` sees every record ('train', with
     ``epoch`` and ``iter``, or 'val'). ``ray_blocks > 1`` takes the
     ray-blocked step (``make_blocked_train_step``); ``perceptual_fn`` and
-    ``image_hw`` add the perceptual term (``train.loss.enerf_loss``). Runs
-    on CUDA unless ``device`` says otherwise; returns the final state."""
+    ``image_hw`` add the perceptual term (``train.loss.enerf_loss``).
+    ``cas`` gives the loss settings where the model has none (MVSNeRF;
+    ``make_train_step``). Runs on CUDA unless ``device`` says otherwise;
+    returns the final state."""
     model.to(resolve_device(device))
     ep_iter = len(batches)
     state = create_train_state(model, make_optimizer(train_cfg, ep_iter))
@@ -377,7 +385,7 @@ def train_epochs(
         print(f"warm start from {os.path.abspath(pretrain_dir)}", flush=True)
 
     step_fn = (make_blocked_train_step(model, ray_blocks, perceptual_fn, image_hw)
-               if ray_blocks > 1 else make_train_step(model, perceptual_fn, image_hw))
+               if ray_blocks > 1 else make_train_step(model, perceptual_fn, image_hw, cas))
 
     def record(kind, scalars, **where):
         recorder.update(scalars)
@@ -414,10 +422,12 @@ def train_epochs(
 
 
 def boost_views_num(views_num, n_input: int):
-    """The sampler's view counts for a boost model: a batch needs at least
-    ``n_input`` views for one combination, so fewer are raised to
-    ``n_input`` (ROADMAP fault 13: JAX's ``run_train`` fails on such a
-    batch). The counts' probabilities, and so the random stream, stay."""
+    """The sampler's view counts raised to at least ``n_input``: a boost
+    model's batch needs ``n_input`` views for one combination (ROADMAP
+    fault 13), and a plain MVSNeRF builds its volume from exactly its
+    ``n_views`` (fault 16: JAX's U-Net, built for 9 + 32 input channels,
+    refuses a 2-view batch). The counts' probabilities, and so the random
+    stream, stay."""
     return None if views_num is None else [max(int(n), n_input) for n in views_num]
 
 
@@ -431,6 +441,8 @@ def train_loader(cfg, train_ds) -> Loader:
     views_num = meta.get("input_views_num")
     if requires_view_selection(cfg):
         views_num = boost_views_num(views_num, int(cfg["enerf"].get("cost_volume_input_views", 3)))
+    elif _network_name(cfg) == "mvsnerf":
+        views_num = boost_views_num(views_num, MVSNeRFConfig.from_cfg(cfg).n_views)
     return Loader(
         train_ds,
         batch_size=int(train["batch_size"]),
@@ -460,13 +472,16 @@ def run_train(cfg, device=None, ray_blocks: int = 0, on_record=None) -> TrainSta
     ``run_evaluate`` every ``eval_ep`` epochs. ``cfg.debug_nans`` turns on
     autograd's anomaly detection (reference
     lib/networks/enerf/network.py:110-111). ``on_record`` as in
-    ``train_epochs``. Runs on CUDA unless ``device`` says otherwise."""
+    ``train_epochs``. MVSNeRF models train unblocked on the recipes'
+    random rays, with the loss settings of ``cfg.enerf.cas_config`` (JAX's
+    step reads them from the model, which has none: ROADMAP fault 15).
+    Runs on CUDA unless ``device`` says otherwise."""
     from boostmvsnerfs_torch.eval.vgg import load_vgg, perceptual_loss_fn
 
-    name = cfg["network_module"].rsplit(".", 1)[-1]
-    if "mvsnerf" in name:
-        raise NotImplementedError(
-            f"training {name!r} is not in the port yet (ROADMAP queue 1 item 5)")
+    name = _network_name(cfg)
+    if "mvsnerf" in name and ray_blocks > 1:
+        raise ValueError(f"ray_blocks {ray_blocks}: the ray-blocked step renders ENeRF cascade "
+                         f"levels; {name} trains unblocked")
     device = resolve_device(device)
     cas = CascadeConfig.from_cfg(cfg["enerf"])
     model = make_network(cfg, device)
@@ -510,4 +525,5 @@ def run_train(cfg, device=None, ray_blocks: int = 0, on_record=None) -> TrainSta
             validate=lambda: run_evaluate(cfg, model=model, device=device),
             on_record=on_record,
             device=device,
+            cas=cas,
         )

@@ -5,10 +5,11 @@ The inverses of ``boostmvsnerfs_tpu/utils/port_weights.py::port_enerf`` and
 modules carry the reference checkpoints' names, so a reference
 ``state_dict`` goes into JAX through ``port_enerf`` / ``port_mvsnerf`` and a
 JAX ``{'params', 'batch_stats'}`` tree comes back here for
-``load_state_dict(strict=True)``. For ENeRF the carrier also runs the other
-way (``enerf_variables_from_state_dict``), so trained weights and BatchNorm
-statistics move between the packages in both directions (optimizer
-moments start at zero in both). ``random_state_dict`` makes seeded
+``load_state_dict(strict=True)``. Both carriers also run the other way
+(``enerf_variables_from_state_dict``, ``mvsnerf_variables_from_state_dict``,
+every MVSNeRF renderer head), so trained weights and BatchNorm statistics
+move between the packages in both directions (optimizer moments start at
+zero in both). ``random_state_dict`` makes seeded
 weights in that form for smoke runs and tests. Layout conversions:
 
 * flax Conv (kh,kw,I,O) / (kd,kh,kw,I,O) -> torch (O,I,kh,kw) / (O,I,kd,kh,kw)
@@ -72,12 +73,6 @@ def _bn_leaves(prefix, path):
             (f"{prefix}.bias", "params", path + ("bias",), "same"),
             (f"{prefix}.running_mean", "batch_stats", path + ("mean",), "same"),
             (f"{prefix}.running_var", "batch_stats", path + ("var",), "same")]
-
-
-def _bn(sd, prefix, params, stats, path):
-    for key, col, p, _ in _bn_leaves(prefix, path):
-        sd[key] = _get(params if col == "params" else stats, p)
-    sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
 
 
 def _enerf_leaves(num_levels: int, viewdir_agg: bool) -> list:
@@ -147,39 +142,97 @@ def enerf_variables_from_state_dict(state_dict: dict) -> dict:
 
 _MVS_FEATURE_BLOCKS = ("conv0.0", "conv0.1", "conv1.0", "conv1.1", "conv1.2",
                        "conv2.0", "conv2.1", "conv2.2")
-_MVS_HEADS = (("pts_bias", "pts_bias"), ("alpha_linear", "alpha"),
-              ("feature_linear", "feature"), ("views_linears.0", "views_0"), ("rgb_linear", "rgb"))
+# each head kind's dense layers: (torch name under nerf.nerf, JAX name
+# under renderer), and the attention block it holds, if any
+_MVS_DENSES = {
+    "mlp": (("pts_bias", "pts_bias"), ("alpha_linear", "alpha"), ("feature_linear", "feature"),
+            ("views_linears.0", "views_0"), ("rgb_linear", "rgb")),
+    "attention": (("pts_bias", "pts_bias"), ("alpha_linear", "alpha"),
+                  ("feature_linear", "feature"), ("views_linears.0", "views_0"),
+                  ("rgb_linear", "rgb"), ("weight_out", "weight_out")),
+    "color_fusion": (("pts_bias", "pts_bias"), ("alpha_linear.0", "alpha"),
+                     ("feature_linear.0", "feature"), ("rgb_out.0", "rgb_out")),
+}
+_MVS_ATTENTION = {"mlp": None, "attention": "color_attention", "color_fusion": "ray_attention"}
+
+
+def _mvsnerf_leaves(depth: int, head: str) -> list:
+    """Every leaf of an MVSNeRF/BoostMVSNeRF with a renderer head of kind
+    ``head`` ('mlp' for v0 / v2, 'attention' for v1, 'color_fusion') and
+    ``depth`` trunk layers: (torch key, JAX collection, JAX path, layout)."""
+    out = []
+    for i, t in enumerate(_MVS_FEATURE_BLOCKS):
+        path = ("feature", f"ConvBnLeaky_{i}")
+        out.append((f"feature.{t}.conv.weight", "params", path + ("Conv_0", "kernel"), "conv"))
+        out += _bn_leaves(f"feature.{t}.bn", path + ("BatchNorm_0",))
+    out.append(("feature.toplayer.weight", "params", ("feature", "toplayer", "kernel"), "conv"))
+    out.append(("feature.toplayer.bias", "params", ("feature", "toplayer", "bias"), "same"))
+    for i in range(7):
+        path = ("cost_reg", f"ConvBnLeaky_{i}")
+        out.append((f"cost_reg_2.conv{i}.conv.weight", "params", path + ("Conv_0", "kernel"),
+                    "conv"))
+        out += _bn_leaves(f"cost_reg_2.conv{i}.bn", path + ("BatchNorm_0",))
+    for i, t in enumerate(("conv7", "conv9", "conv11")):
+        path = ("cost_reg", f"DeconvBnLeaky_{i}")
+        out.append((f"cost_reg_2.{t}.0.weight", "params", path + ("ConvTranspose_0", "kernel"),
+                    "deconv"))
+        out += _bn_leaves(f"cost_reg_2.{t}.1", path + ("BatchNorm_0",))
+    denses = _MVS_DENSES[head] + tuple((f"pts_linears.{i}", f"pts_{i}") for i in range(depth))
+    for t, name in denses:
+        out.append((f"nerf.nerf.{t}.weight", "params", ("renderer", name, "kernel"), "dense"))
+        out.append((f"nerf.nerf.{t}.bias", "params", ("renderer", name, "bias"), "same"))
+    att = _MVS_ATTENTION[head]
+    if att:
+        for name in ("w_qs", "w_ks", "w_vs", "fc"):
+            out.append((f"nerf.nerf.{att}.{name}.weight", "params",
+                        ("renderer", att, name, "kernel"), "dense"))
+        for t, leaf in (("weight", "scale"), ("bias", "bias")):
+            out.append((f"nerf.nerf.{att}.layer_norm.{t}", "params",
+                        ("renderer", att, "layer_norm", leaf), "same"))
+    return out
+
+
+def _mvs_head_kind(names) -> str:
+    names = " ".join(names)
+    return ("attention" if "color_attention" in names
+            else "color_fusion" if "ray_attention" in names else "mlp")
 
 
 def mvsnerf_state_dict_from_jax(variables: dict) -> dict:
-    """A JAX MVSNeRF/BoostMVSNeRF (``v0`` renderer) ``{'params',
-    'batch_stats'}`` tree -> the port's ``state_dict`` (CPU tensors); the
-    inverse of ``boostmvsnerfs_tpu/utils/port_weights.py::port_mvsnerf``.
-    The MLP depth is read from the tree."""
-    params, stats = variables["params"], variables["batch_stats"]
-    sd: dict = {}
-    for i, t in enumerate(_MVS_FEATURE_BLOCKS):
-        path = ("feature", f"ConvBnLeaky_{i}")
-        sd[f"feature.{t}.conv.weight"] = _conv(_get(params, path + ("Conv_0", "kernel")))
-        _bn(sd, f"feature.{t}.bn", params, stats, path + ("BatchNorm_0",))
-    sd["feature.toplayer.weight"] = _conv(_get(params, ("feature", "toplayer", "kernel")))
-    sd["feature.toplayer.bias"] = _get(params, ("feature", "toplayer", "bias"))
-    for i in range(7):
-        path = ("cost_reg", f"ConvBnLeaky_{i}")
-        sd[f"cost_reg_2.conv{i}.conv.weight"] = _conv(_get(params, path + ("Conv_0", "kernel")))
-        _bn(sd, f"cost_reg_2.conv{i}.bn", params, stats, path + ("BatchNorm_0",))
-    for i, t in enumerate(("conv7", "conv9", "conv11")):
-        path = ("cost_reg", f"DeconvBnLeaky_{i}")
-        # (kd,kh,kw,O,I) -> (I,O,kd,kh,kw)
-        sd[f"cost_reg_2.{t}.0.weight"] = _get(
-            params, path + ("ConvTranspose_0", "kernel")).transpose(4, 3, 0, 1, 2)
-        _bn(sd, f"cost_reg_2.{t}.1", params, stats, path + ("BatchNorm_0",))
-    mlp = params["renderer"]
+    """A JAX MVSNeRF/BoostMVSNeRF ``{'params', 'batch_stats'}`` tree, any
+    ``net_type`` -> the port's ``state_dict`` (CPU tensors); for ``v0``
+    the inverse of ``boostmvsnerfs_tpu/utils/port_weights.py::
+    port_mvsnerf``. The head and the MLP depth are read from the tree:
+    ``color_attention`` marks the attention head (v1), ``ray_attention``
+    the colour-fusion head; v0 and v2 share one tree. A LayerNorm's
+    ``scale`` is the port's ``weight``.
+
+    The reference's ``Renderer_attention`` ties ``pts_linears.1..D-1`` to
+    one module, so its checkpoint holds one tensor under each of those
+    names; JAX keeps separate ``pts_{i}`` and so does the port. Each name
+    maps to its own layer here, so a reference checkpoint loads with the
+    tied values, and training then moves the layers apart, as in JAX."""
+    mlp = variables["params"]["renderer"]
     depth = sum(k.startswith("pts_") and k != "pts_bias" for k in mlp)
-    for t, name in _MVS_HEADS + tuple((f"pts_linears.{i}", f"pts_{i}") for i in range(depth)):
-        sd[f"nerf.nerf.{t}.weight"] = np.asarray(mlp[name]["kernel"]).T
-        sd[f"nerf.nerf.{t}.bias"] = np.asarray(mlp[name]["bias"])
-    return {k: torch.tensor(v) for k, v in sd.items()}
+    sd = {}
+    for key, col, path, kind in _mvsnerf_leaves(depth, _mvs_head_kind(mlp)):
+        sd[key] = torch.tensor(_LAYOUT[kind][0](_get(variables[col], path)))
+        if key.endswith(".running_var"):
+            sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return sd
+
+
+def mvsnerf_variables_from_state_dict(state_dict: dict) -> dict:
+    """The inverse of ``mvsnerf_state_dict_from_jax``: the port's MVSNeRF /
+    BoostMVSNeRF ``state_dict``, any ``net_type`` (after training steps
+    too) -> a JAX ``{'params', 'batch_stats'}`` tree of numpy arrays."""
+    sd = {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+          for k, v in state_dict.items()}
+    depth = sum(k.startswith("nerf.nerf.pts_linears.") and k.endswith(".weight") for k in sd)
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for key, col, path, kind in _mvsnerf_leaves(depth, _mvs_head_kind(sd)):
+        _put(tree[col], path, np.ascontiguousarray(_LAYOUT[kind][1](sd[key])))
+    return tree
 
 
 def random_state_dict(module: torch.nn.Module, seed: int, prefix: str = "") -> dict:

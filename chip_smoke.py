@@ -83,7 +83,28 @@ phase. Three main paths are driven, each with its kernels checked first:
    convolutions at bf16 (``conv_dtype``) against float32; ``run_train``
    at 128x192 for 2 steps on the card against the CPU port (losses and
    the parameters' change, with a skipped Adam step as the control).
-11. kernels_train, train_step_check, train, profile_train - the third main
+11. mvsnerf_heads - BoostMVSNeRF at the second main path's workload with
+   each of its other renderer heads (net_type v1, v2, color_fusion, whose
+   MLPs run plainly on every device): the volume and colour lookups
+   against their plain versions, then per head the reduced frame on the
+   card against the CPU port (rgb PSNR over 45 dB), launches per frame
+   (#6 and #3 once, the MLP kernel never), frame times and peak memory.
+12. train_entry_mvsnerf, train_step_check_mvsnerf, profile_train_mvsnerf -
+   MVSNeRF training from YAML: ``runner.run_train`` over
+   configs/exps/finetune/mvsnerf_ours/free/base.yaml (BoostMVSNeRF, batch
+   4 of 1024 random rays at 480x736, K=4, 8 samples, lr 5e-5) with seeded
+   weights as the ``pretrain: mvsnerf`` checkpoint, shortened only as in
+   item 10 and unblocked, then resumed; launches per step (the colour
+   lookup only: the volume lookup and the MLP run plainly under autograd)
+   and per validation frame (#6, #3, #8), the pre-pass (geometry, no
+   launches), the kernels on the step's and the validation's inputs; the
+   plain MVSNeRF recipe (configs/exps/finetune/mvsnerf/free/base.yaml,
+   512x512) for 2 steps and a validation. One BoostMVSNeRF step at 128x192
+   on the card against the float64 CPU port, with faults planted in the
+   CPU port outside the bars, and ``run_train`` at 128x192 card vs CPU.
+   One profiled step of the recipe, and its plain volume lookup and MLP
+   alone, forward and backward.
+13. kernels_train, train_step_check, train, profile_train - the third main
    path, the BoostENeRF fine-tuning step of scripts/bench_train.py
    (--modes fast --ray-blocks 16): K=4 of C(6,3), 480x736, forward rig,
    both levels rendered on full images, Adam (lr 5e-5, ep_iter 500) after
@@ -446,13 +467,21 @@ def mvs_kernel_inputs(model, batch) -> dict:
     positional_encoding."""
     from boostmvsnerfs_torch.ops.cuda.renderer_mlp import positional_encoding
 
+    from boostmvsnerfs_torch.models.mvsnerf import KERNEL_HEADS
+
     sub, volume, near, far = model.fused_volumes(batch)
-    calls, _, _ = model.render_stages(sub, volume, sub["ray_idx_0"], near, far)
-    params, uvd, feat, dirs, freqs = calls["renderer_mlp"]
-    return {
+    calls, (uvd, feat, dirs), _, _ = model.render_stages(sub, volume, sub["ray_idx_0"], near, far)
+    lookups = {
         "tri_sample": [("render", calls["tri_sample"])],
         "tri_sample/f32": [("render", (*calls["tri_sample"], torch.float32))],
         "img_sample": [("render", calls["img_sample"])],
+    }
+    if model.cfg.net_type not in KERNEL_HEADS:  # the head's MLP runs plainly
+        return lookups
+    params, freqs = model.nerf.nerf.mlp_params(), model.cfg.pos_freqs
+    calls["renderer_mlp"] = (params, uvd, feat, dirs, freqs)
+    return {
+        **lookups,
         "renderer_mlp": [("render", calls["renderer_mlp"])],
         "renderer_mlp/encoded": [("render", (params, positional_encoding(uvd, freqs), feat,
                                              dirs, 0))],
@@ -627,9 +656,10 @@ def phase_frame(state: dict) -> None:
     require(psnr > 45.0, f"card vs CPU rgb PSNR {psnr} dB <= 45")
 
 
-def phase_frame_mvsnerf(state: dict) -> None:
+def phase_frame_mvsnerf(state: dict, net_type: str = "v0", phase: str = "frame_mvsnerf") -> None:
     """Reduced geometry (128x192, 4 views, K=2 of C(4,3), 32 samples): the
-    port on the card against the port on the CPU, same weights and batch."""
+    port on the card against the port on the CPU, same weights and batch,
+    with the ``net_type`` head."""
     from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
     from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
     from boostmvsnerfs_torch.utils.synthetic import make_scene_batch, mvsnerf_batch
@@ -638,23 +668,23 @@ def phase_frame_mvsnerf(state: dict) -> None:
                                            rig="forward", render_scales=(1.0,)), k_best=(0, 3))
     outs = {}
     for device in ("cuda", "cpu"):
-        model = BoostMVSNeRF(MVSNeRFConfig(k_best=2), device=device)
+        model = BoostMVSNeRF(MVSNeRFConfig(k_best=2, net_type=net_type), device=device)
         model.load_state_dict(state, strict=True)
         outs[device] = {k: v.cpu().numpy() for k, v in model(batch).items()}
     g, c = outs["cuda"], outs["cpu"]
     require(g.keys() == c.keys(), "output keys differ between card and CPU")
     psnr = psnr_db(g["rgb_level0"], c["rgb_level0"])
     depth_err = float(np.abs(g["depth_level0"] - c["depth_level0"]).max())
-    emit(phase="frame_mvsnerf", geometry=[128, 192], views=4, k_best=2, samples=32,
+    emit(phase=phase, geometry=[128, 192], views=4, k_best=2, samples=32, net_type=net_type,
          rgb_psnr_db=psnr, depth_max_abs_err=depth_err)
     require(psnr > 45.0, f"card vs CPU rgb PSNR {psnr} dB <= 45")
 
 
 def phase_main(model, batches, phase: str, expect: dict, rgb_key: str, n_rays: int,
-               **describe) -> dict:
+               rgb_max: float = 1.0, **describe) -> dict:
     """Launches per frame (counts reset just before, read just after one
-    frame), three batches checked, then frame times over back-to-back
-    frames."""
+    frame), three batches checked (rgb finite, in [0, ``rgb_max``]), then
+    frame times over back-to-back frames."""
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 
     torch.cuda.reset_peak_memory_stats()
@@ -670,7 +700,8 @@ def phase_main(model, batches, phase: str, expect: dict, rgb_key: str, n_rays: i
         require(tuple(rgb.shape) == (1, n_rays, 3), f"rgb shape {tuple(rgb.shape)}")
         for k, v in out.items():
             require(bool(torch.isfinite(v).all()), f"non-finite {k} (seed {seed})")
-        require(float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0, f"rgb outside [0, 1] (seed {seed})")
+        require(float(rgb.min()) >= 0.0 and float(rgb.max()) <= rgb_max,
+                f"rgb outside [0, {rgb_max}] (seed {seed})")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     for _ in range(2):
@@ -700,8 +731,9 @@ def phase_profile(run, phase: str, kernels, frames: int = 2, unit: str = "frame"
     from torch.profiler: per run, the device-busy time (sum of kernel times;
     one stream, so they do not overlap) against the run's CUDA-event time,
     the busy time under cuDNN convolutions and batch norm (forward and
-    backward), under each ported kernel and in the rest (the glue), and
-    the top kernels by time."""
+    backward), under each ported kernel and in the rest (the glue), the
+    top kernels by time and, in a train step, autograd's top backward
+    functions by the device time of their kernels."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with complete_profile() as prof:
         start.record()
@@ -723,11 +755,15 @@ def phase_profile(run, phase: str, kernels, frames: int = 2, unit: str = "frame"
              "batch_norm_backward_ms": sum(v for k, v in by_op.items()
                                            if k.endswith("batch_norm_backward"))}
     top = sorted(kernel_events, key=lambda e: -e.device_time_total)[:12]
+    backward = sorted((e for e in events if e.key.startswith("autograd::engine::evaluate_function")),
+                      key=lambda e: -e.device_time_total)[:8]
+    extra = {"backward_functions_ms": {e.key.split(": ", 1)[-1]: per_run(e.device_time_total)
+                                       for e in backward}} if backward else {}
     emit(phase=phase, **{f"{unit}s": frames, f"{unit}_ms": wall}, device_busy_ms=busy,
          device_idle_share=1.0 - busy / wall, **parts, ported_kernels_ms=ported,
          glue_ms=busy - sum(parts.values()) - sum(ported.values()),
          top_kernels=[{"kernel": e.key[:120], "device_ms": per_run(e.device_time_total),
-                       "calls": e.count / frames} for e in top])
+                       "calls": e.count / frames} for e in top], **extra)
 
 
 def run_enerf() -> list:
@@ -1299,8 +1335,9 @@ def _near_far_with_gradient(fn):
 
 
 # Faults planted, one at a time, into the CPU port's float32 step, each a
-# wiring fault the card check exists to catch: name -> (module of
-# boostmvsnerfs_torch.ops, function, replacement of the function).
+# wiring fault the card check exists to catch: name -> (module, under
+# boostmvsnerfs_torch.ops unless it names the package, function,
+# replacement of the function).
 PLANTED_FAULTS = {
     "img_sample_bwd: d x = d y = 0": (
         "cuda.img_sample", "row_sample_bwd_plain",
@@ -1336,7 +1373,9 @@ def planted(fault: str, faults: dict = PLANTED_FAULTS):
     import importlib
 
     module, attr, replace = faults[fault]
-    mod = importlib.import_module(f"boostmvsnerfs_torch.ops.{module}")
+    if not module.startswith("boostmvsnerfs_torch."):
+        module = f"boostmvsnerfs_torch.ops.{module}"
+    mod = importlib.import_module(module)
     original = getattr(mod, attr)
     setattr(mod, attr, replace(original))
     try:
@@ -1351,29 +1390,33 @@ def grad_readings(grads: dict, ref: dict) -> dict:
             "global": global_rel_error(grads, ref)}
 
 
-def within_bars(r: dict) -> bool:
-    return r["worst"] <= GRAD_RTOL_TENSOR and r["global"] <= GRAD_RTOL_GLOBAL
+def within_bars(r: dict, bars: tuple = (GRAD_RTOL_TENSOR, GRAD_RTOL_GLOBAL)) -> bool:
+    return r["worst"] <= bars[0] and r["global"] <= bars[1]
 
 
-def cpu_bar_readings(state: dict, batch: dict, ref: dict, float32: list) -> dict:
+def cpu_bar_readings(state: dict, batch: dict, ref: dict, float32: list, grads=None,
+                     faults: dict = PLANTED_FAULTS) -> dict:
     """Both sides of the gradient bars on the CPU port against the float64
     gradients ``ref``: 'spread', float32's own errors (the ``float32``
-    gradients already taken, then plain steps on ULP_PERTURBATIONS copies
-    of the batch whose images moved by ~1 ulp), and 'faults', the plain
-    float32 step with each planted fault."""
+    gradients already taken, then steps on ULP_PERTURBATIONS copies of the
+    batch whose images moved by ~1 ulp), and 'faults', the float32 step
+    with each fault of ``faults`` planted. ``grads(batch)`` takes the CPU
+    port's float32 step (default: BoostENeRF's plain step from
+    ``state``)."""
+    if grads is None:
+        grads = lambda b: train_step_grads(state, b, "cpu", torch.float32, "plain")[1]  # noqa: E731
     spread = list(float32)
     rng = np.random.default_rng(11)
     for _ in range(ULP_PERTURBATIONS):
         moved = dict(batch)
         imgs = batch["src_inps"] * (1 + 2**-23 * rng.standard_normal(batch["src_inps"].shape))
         moved["src_inps"] = moved["all_src_inps"] = imgs.astype(np.float32)
-        spread.append(train_step_grads(state, moved, "cpu", torch.float32, "plain")[1])
-    faults = {}
-    for fault in PLANTED_FAULTS:
-        with planted(fault):
-            faults[fault] = grad_readings(
-                train_step_grads(state, batch, "cpu", torch.float32, "plain")[1], ref)
-    return {"spread": [grad_readings(g, ref) for g in spread], "faults": faults}
+        spread.append(grads(moved))
+    readings = {}
+    for fault in faults:
+        with planted(fault, faults):
+            readings[fault] = grad_readings(grads(batch), ref)
+    return {"spread": [grad_readings(g, ref) for g in spread], "faults": readings}
 
 
 def phase_train_step_check(state: dict) -> None:
@@ -1738,8 +1781,9 @@ def train_entry_cfg(ws: str, *opts):
 
 
 def save_pretrain(cfg) -> dict:
-    """Seeded random weights (``random_weights``) as the ``pretrain: enerf``
-    checkpoint the recipe warm-starts from; returns them."""
+    """Seeded random weights (``random_weights``) as the ``pretrain``
+    checkpoint the recipe warm-starts from (``enerf`` or ``mvsnerf``);
+    returns them."""
     from boostmvsnerfs_torch import runner
     from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
 
@@ -1879,11 +1923,12 @@ def train_entry_design(model, batch, ray_blocks: int, steps: int,
             "resumed": added(scaled(step, steps), validation)}
 
 
-def check_train_entry_run(name: str, run: dict, design: dict, epoch: int, steps: int) -> None:
+def check_train_entry_run(name: str, run: dict, design: dict, epoch: int, steps: int,
+                          prepass: bool = True) -> None:
     """A ``drive_train_entry`` run against the design: its launches, each
     step's, ``steps`` steps of epoch ``epoch`` with finite losses, one
-    validation with a finite ``val_psnr``, the pre-pass in the first run
-    only."""
+    validation with a finite ``val_psnr``, the pre-pass (of a boost recipe,
+    ``prepass``) in the first run only."""
     require(run["launches"] == design[name],
             f"train_entry ({name}): launches {run['launches']}, expected {design[name]}")
     require(len(run["steps"]) == steps and all(s["epoch"] == epoch for s in run["steps"])
@@ -1892,8 +1937,8 @@ def check_train_entry_run(name: str, run: dict, design: dict, epoch: int, steps:
     require(all(math.isfinite(s["loss"]) for s in run["steps"]), f"train_entry ({name}): loss")
     require(len(run["val"]) == 1 and math.isfinite(run["val"][0]["val_psnr"]),
             f"train_entry ({name}): validation {run['val']}")
-    prepass = [design["prepass"]] if name == "first" else []
-    require([p["launches"] for p in run["prepass"]] == prepass,
+    want = [design["prepass"]] if prepass and name == "first" else []
+    require([p["launches"] for p in run["prepass"]] == want,
             f"train_entry ({name}): pre-pass {run['prepass']}")
     require([v["launches"] for v in run["validations"]] == [design["validation"]],
             f"train_entry ({name}): validation launches {run['validations']}")
@@ -1960,13 +2005,15 @@ def param_delta(params: dict, start: dict) -> dict:
     return {k: params[k].double().cpu() - start[k].double() for k in start}
 
 
-def train_check(ws: str) -> dict:
+def train_check(ws: str, cfg_fn=None) -> dict:
     """``run_train(cfg)`` at TRAIN_CHECK_HW for TRAIN_CHECK_STEPS steps
     (unblocked, no validation) on the card and on the CPU port from the same
     pretrain weights (the CPU run reads the card run's view selection):
     the losses and the parameters' change (the saved checkpoint minus the
     pretrain weights) within the TRAIN_* bars; the control, the CPU port
-    with its last Adam step skipped, must fail them."""
+    with its last Adam step skipped, must fail them. ``cfg_fn(ws, *opts)``
+    makes the recipe's config (default ``train_entry_cfg``)."""
+    recipe_cfg = cfg_fn or train_entry_cfg
     from boostmvsnerfs_torch import runner
     from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
 
@@ -1975,13 +2022,13 @@ def train_check(ws: str) -> dict:
         free_scene(small, *TRAIN_CHECK_HW)
         opts = ("train_dataset.input_h_w", hw, "test_dataset.input_h_w", hw, "ep_iter",
                 str(TRAIN_CHECK_STEPS), "eval_ep", "0")
-        pretrain = save_pretrain(train_entry_cfg(small, *opts))
-        names = [k for k, _ in runner.make_network(train_entry_cfg(small, *opts),
+        pretrain = save_pretrain(recipe_cfg(small, *opts))
+        names = [k for k, _ in runner.make_network(recipe_cfg(small, *opts),
                                                    "cpu").named_parameters()]
         start = {k: pretrain[k] for k in names}
         runs = {}
         for d in ("cuda", "cpu"):
-            cfg = train_entry_cfg(small, *opts, "exp_name_tag", f"check_{d}")
+            cfg = recipe_cfg(small, *opts, "exp_name_tag", f"check_{d}")
             if d == "cpu":
                 os.makedirs(cfg.result_dir, exist_ok=True)
                 shutil.copy(runner.view_selection_path(runs["cuda"]["cfg"]),
@@ -2010,6 +2057,366 @@ def train_check(ws: str) -> dict:
     require(within_train_bars(reading), f"train entry: card vs CPU {out}")
     require(not within_train_bars(control), f"train entry: the control passes {out}")
     return out
+
+
+# ------------------------------- the MVSNeRF heads and MVSNeRF training
+
+MVS_HEADS = ("v1", "v2", "color_fusion")
+MVS_FINETUNE = "configs/exps/finetune/mvsnerf_ours/free/base.yaml"
+MVS_PLAIN_FINETUNE = "configs/exps/finetune/mvsnerf/free/base.yaml"
+MVS_PLAIN_HW = (512, 512)  # configs/exps/evaluate/mvsnerf/free_eval.yaml
+MVS_STEP_RAYS = 1024  # the recipes' num_rays (train_img false)
+MVS_FRAME = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
+
+
+def run_mvsnerf_heads() -> list:
+    """Phase ``mvsnerf_heads``: BoostMVSNeRF at the second main path's
+    workload with each other renderer head (MVS_HEADS): the lookups
+    against their plain versions at the first head's frame, then per head
+    the reduced frame against the CPU port and ``phase_main``'s launches
+    (#6 and #3 once, #8 never: these heads' MLPs run plainly), frame times
+    and peak memory. Returns the lookups' summary records."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+    from boostmvsnerfs_torch.models.enerf import to_tensors
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch, mvsnerf_batch
+
+    H, W = MVS_HW
+    summary, launches = None, None
+    for net_type in MVS_HEADS:
+        model = BoostMVSNeRF(MVSNeRFConfig(k_best=len(MVS_K_BEST), net_type=net_type))
+        state = random_weights(model, 0)
+        model.load_state_dict(state, strict=True)
+
+        def make_batch(seed):
+            batch = make_scene_batch(B=1, n_views=6, H=H, W=W, boost=True, seed=seed,
+                                     rig="forward", render_scales=(1.0,))
+            return to_tensors(mvsnerf_batch(batch, k_best=MVS_K_BEST), model.device)
+
+        if summary is None:
+            with torch.no_grad():
+                inputs = mvs_kernel_inputs(model, make_batch(0))
+                summary = phase_kernels({k: MVS_KERNELS[k] for k in ("tri_sample", "img_sample")},
+                                        inputs, "mvsnerf_heads")
+            del inputs
+            torch.cuda.empty_cache()
+        phase_frame_mvsnerf(state, net_type, "frame_mvsnerf_heads")
+        # color_fusion sums one sigmoid colour per view of a combination
+        rgb_max = 3.0 if net_type == "color_fusion" else 1.0
+        got = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "mvsnerf_heads",
+                         {"tri_sample": 1, "img_sample": 1}, "rgb_level0", H * W, rgb_max,
+                         net_type=net_type, geometry=[H, W], views=6, k_best=list(MVS_K_BEST),
+                         samples=model.cfg.num_samples)
+        launches = launches or got
+        del model
+        torch.cuda.empty_cache()
+    for rec in summary.values():
+        rec["launches"] = launches[rec["name"]]
+    return list(summary.values())
+
+
+def mvs_entry_cfg(ws: str, *opts, cfg_file: str = MVS_FINETUNE):
+    """The MVSNeRF fine-tuning recipe, shortened only (TRAIN_ENTRY_OPTS)."""
+    from boostmvsnerfs_torch.config import make_cfg
+
+    return make_cfg(cfg_file, ["workspace", ws, "scene", "grass", *TRAIN_ENTRY_OPTS, *opts])
+
+
+def mvs_entry_design(steps: int, test_views: int = 2) -> dict:
+    """Launches of the MVSNeRF training entry by design: a step launches
+    only the colour lookup (#3; the volume lookup and the MLP run plainly
+    under autograd), the pre-pass none (geometry), a validation frame
+    MVS_FRAME per test view."""
+    step = added({"img_sample": 1})
+    validation = added(scaled(MVS_FRAME, test_views))
+    return {"step": step, "prepass": added(), "validation": validation,
+            "first": added(scaled(step, steps), validation),
+            "resumed": added(scaled(step, steps), validation)}
+
+
+def mvs_step_inputs(cfg, weights: dict, batch: dict, device=None) -> dict:
+    """The colour lookup's inputs in the recipe's step (train mode), from
+    the model's own stages: {'img_sample': [(label, args)]}."""
+    from boostmvsnerfs_torch import runner
+
+    model = runner.make_network(cfg, device)
+    model.load_state_dict(weights, strict=True)
+    model.train()
+    with torch.no_grad():
+        sub, volume, near, far = model.fused_volumes(batch)
+        calls, _, _, _ = model.render_stages(sub, volume, sub["ray_idx_0"], near, far)
+    return {"img_sample": [("step", calls["img_sample"])]}
+
+
+def run_train_entry_mvsnerf() -> list:
+    """Phases ``train_entry_mvsnerf``, ``train_step_check_mvsnerf`` and
+    ``profile_train_mvsnerf`` (module docstring, item 12). Returns the
+    kernels' summary records."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        free_scene(ws)
+        records, profile_inputs = phase_train_entry_mvsnerf(ws)
+        torch.cuda.empty_cache()
+        phase_train_step_check_mvsnerf()
+        torch.cuda.empty_cache()
+        phase_profile_train_mvsnerf(*profile_inputs)
+    return records
+
+
+def phase_train_entry_mvsnerf(ws: str):
+    """``run_train(cfg)`` over the BoostMVSNeRF fine-tuning recipe
+    (MVS_FINETUNE), shortened only, on a Free scene at 480x736: the first
+    run (pre-pass, 4 steps, a checkpoint, a validation) and the resumed
+    run against ``mvs_entry_design``; the kernels on the first batch (the
+    step's colour lookup) and the first test batch (the validation frame's
+    three kernels); then the plain MVSNeRF recipe at 512x512 for 2 steps
+    and a validation. Returns (the kernels' summary records with the
+    runs' launches, the profile's inputs)."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
+    from boostmvsnerfs_torch.utils.synthetic import write_free_scene
+
+    t_phase = time.perf_counter()
+    cfg = mvs_entry_cfg(ws)
+    pretrain = save_pretrain(cfg)
+    first = drive_train_entry(cfg, 0)
+    resumed = drive_train_entry(mvs_entry_cfg(ws, "train.epoch", "2"), 0)
+    design = mvs_entry_design(steps=4)
+    for name, run, epoch in (("first", first, 0), ("resumed", resumed, 1)):
+        check_train_entry_run(name, run, design, epoch, steps=4)
+    require(first["final_step"] == 4 and resumed["final_step"] == 8, "train_entry_mvsnerf: resume")
+    require(CheckpointManager(cfg.trained_model_dir).numbered_epochs() == [0, 1],
+            "train_entry_mvsnerf: checkpoints")
+    vs = runner.load_view_selection(cfg)
+    require(len(vs) == EVAL_IMAGES, f"train_entry_mvsnerf: view selection {vs}")
+    batch = first_train_batch(cfg, vs, "cuda")
+    require(tuple(batch["ray_idx_0"].shape) == (4, MVS_STEP_RAYS)
+            and tuple(batch["all_src_inps"].shape[:2]) == (4, 3),
+            f"train_entry_mvsnerf: batch {tuple(batch['ray_idx_0'].shape)}")
+    record = {"config": MVS_FINETUNE, "overrides": list(TRAIN_ENTRY_OPTS), "geometry": [480, 736],
+              "batch": 4, "views": 3, "k_best": 4, "rays_per_image": MVS_STEP_RAYS,
+              "samples": int(cfg.enerf.cas_config.num_samples[0]), "design": design}
+    for name, run in (("first", first), ("resumed", resumed)):
+        record[name] = {**{k: run[k] for k in ("seconds", "launches", "peak_mem_gib",
+                                               "final_step", "val", "prepass", "validations")},
+                        **step_summary(run)}
+    with torch.no_grad():
+        step = phase_kernels({"img_sample": MVS_KERNELS["img_sample"]},
+                             mvs_step_inputs(cfg, pretrain, batch), "train_entry_mvsnerf/step")
+        model = runner.make_network(cfg)
+        model.load_state_dict(pretrain, strict=True)
+        val_batch = first_test_batch(cfg, vs, "cuda")
+        val = phase_kernels({k: MVS_KERNELS[k] for k in MVS_FRAME},
+                            mvs_kernel_inputs(model, val_batch), "train_entry_mvsnerf/validation")
+    del model, val_batch
+    torch.cuda.empty_cache()
+    for part, table in (("steps", step), ("validations", val)):
+        for rec in table.values():
+            rec["launches"] = sum(x["launches"][rec["name"]] for run in (first, resumed)
+                                  for x in run[part])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as plain_ws:
+        write_free_scene(os.path.join(plain_ws, "Free"), "grass", EVAL_IMAGES, *MVS_PLAIN_HW,
+                         rig="varied")
+        plain_cfg = mvs_entry_cfg(plain_ws, "ep_iter", "2", cfg_file=MVS_PLAIN_FINETUNE)
+        save_pretrain(plain_cfg)
+        plain = drive_train_entry(plain_cfg, 0)
+        check_train_entry_run("first", plain, mvs_entry_design(steps=2), 0, steps=2,
+                              prepass=False)
+    record["plain"] = {"config": MVS_PLAIN_FINETUNE, "geometry": list(MVS_PLAIN_HW),
+                       **{k: plain[k] for k in ("seconds", "launches", "peak_mem_gib",
+                                                "final_step", "val", "validations")},
+                       **step_summary(plain)}
+    record["phase_seconds"] = time.perf_counter() - t_phase
+    emit(phase="train_entry_mvsnerf", **record)
+    return [*step.values(), *val.values()], (cfg, pretrain, batch)
+
+
+def mvs_step_batch(H: int, W: int, seed: int) -> dict:
+    """``smooth_scene_batch`` completed for BoostMVSNeRF (K=2 of C(4,3):
+    combinations 0 and 3), with the recipe's MVS_STEP_RAYS random rays and
+    seeded target colours."""
+    from boostmvsnerfs_torch.utils.synthetic import mvsnerf_batch
+
+    b = mvsnerf_batch(smooth_scene_batch(H, W, seed), k_best=(0, 3))
+    rng = np.random.default_rng(seed)
+    b["ray_idx_0"] = np.sort(rng.choice(H * W, MVS_STEP_RAYS, replace=False))[None].astype(np.int32)
+    b["rgb_0"] = rng.uniform(0, 1, (1, MVS_STEP_RAYS, 3)).astype(np.float32)
+    return {k: v for k, v in b.items() if not k.endswith("_1")}
+
+
+def mvs_recipe_cas():
+    """The recipe's loss settings (its ``enerf.cas_config``)."""
+    from boostmvsnerfs_torch.config import make_cfg
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+
+    return CascadeConfig.from_cfg(make_cfg(MVS_FINETUNE).enerf)
+
+
+def mvs_step_grads(state: dict, batch: dict, device: str, dtype) -> tuple:
+    """One Adam step of BoostMVSNeRF (K=2, the recipe's 8 samples) from
+    ``state`` with the recipe's loss settings: (loss, gradients as float64
+    CPU tensors, a parameter without one reading 0)."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+    from boostmvsnerfs_torch.parallel.train import create_train_state, make_train_step
+    from boostmvsnerfs_torch.train.schedule import make_optimizer
+
+    model = BoostMVSNeRF(MVSNeRFConfig(k_best=2, num_samples=8), device=device).to(dtype)
+    model.load_state_dict(state, strict=True)
+    train_state = create_train_state(model, make_optimizer(TRAIN_CFG, TRAIN_EP_ITER))
+    loss = float(make_train_step(model, cas=mvs_recipe_cas())(train_state, batch)["loss"])
+    return loss, {k: (p.grad if p.grad is not None else torch.zeros_like(p)).double().cpu()
+                  for k, p in model.named_parameters()}
+
+
+def _detached_first(fn):
+    return lambda vol, *args, **kw: fn(vol.detach(), *args, **kw)
+
+
+def _pts_bias_detached(fn):
+    return lambda params, *args, **kw: fn(
+        {**params, "pts_bias": tuple(t.detach() for t in params["pts_bias"])}, *args, **kw)
+
+
+# The BoostMVSNeRF step's gradient bars (per tensor, all together; as
+# GRAD_RTOL_*). Its train-mode BatchNorms reduce over the volume's ~10^5-
+# 10^6 voxels per channel, and so do the convolutions' weight gradients, so
+# float32 reads as far from float64 as its sums' order allows: on the CPU
+# port at 128x192 (seeded weights 0-2) 0.008-0.020 per tensor and
+# 0.0035-0.0046 together at 8 threads, 0.024-0.043 and 0.005-0.010 at 4,
+# and 0.06-0.27 and 0.02-0.09 at one thread, which sums each reduction in
+# one sequence (the card's reductions are trees). The faults of MVS_FAULTS
+# read at least 1.0 per tensor and 0.11 together. The bars lie between the
+# spread at 4 or more threads and the faults, and every run checks both
+# sides at the machine's thread count.
+MVS_GRAD_BARS = (0.1, 0.025)
+# Faults planted into the CPU port's BoostMVSNeRF step (as PLANTED_FAULTS):
+# a volume lookup cut from the graph (the U-Net and the feature net lose
+# their gradients), the MLP's pts_bias without a gradient, and a colour
+# lookup that loses one view.
+MVS_FAULTS = {
+    "tri_sample_plain: the volume detached": (
+        "boostmvsnerfs_torch.models.mvsnerf", "tri_sample_plain", _detached_first),
+    "renderer_mlp_plain: pts_bias detached": (
+        "boostmvsnerfs_torch.models.mvsnerf", "renderer_mlp_plain", _pts_bias_detached),
+    "img_sample: the first view's colours lost": (
+        "cuda.img_sample", "row_sample_plain",
+        lambda fn: lambda imgs, *args: fn(_first_zeroed(imgs, 0), *args)),
+}
+
+
+def phase_train_step_check_mvsnerf() -> None:
+    """One BoostMVSNeRF Adam step at TRAIN_CHECK_HW (4 views, K=2, 1024
+    random rays) with the same weights and batch on the card (float32: the
+    colour lookup on kernel #3, nothing else launched) and on the CPU port
+    (float32, and float64 as the reference): the loss within 1e-4 and the
+    card's gradients within the MVS_GRAD_BARS of float64, bars tested in
+    the same run (float32's spread passes them, every fault of MVS_FAULTS
+    fails them); then ``run_train`` over the recipe at TRAIN_CHECK_HW for
+    TRAIN_CHECK_STEPS steps, card against CPU (``train_check``)."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    state = random_weights(BoostMVSNeRF(MVSNeRFConfig(k_best=2, num_samples=8), device="cpu"), 0)
+    batch = mvs_step_batch(*TRAIN_CHECK_HW, seed=3)
+    reset_launch_counts()
+    lg, gg = mvs_step_grads(state, batch, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    card_launches = launch_counts()
+    lc, gc = mvs_step_grads(state, batch, "cpu", torch.float32)
+    ref_loss, ref = mvs_step_grads(state, batch, "cpu", torch.float64)
+    bars = cpu_bar_readings(state, batch, ref, [gc], faults=MVS_FAULTS,
+                            grads=lambda b: mvs_step_grads(state, b, "cpu", torch.float32)[1])
+    vs_ref = grad_rel_errors(gg, ref)
+    worst = sorted(vs_ref, key=vs_ref.get, reverse=True)[:3]
+    record = {"geometry": list(TRAIN_CHECK_HW), "views": 4, "k_best": 2, "samples": 8,
+              "rays": MVS_STEP_RAYS, "launches_card_step": card_launches,
+              "loss_card": lg, "loss_cpu": lc, "loss_cpu_float64": ref_loss,
+              "loss_rel_err": abs(lg - lc) / abs(lc),
+              "card_vs_float64_worst": {k: vs_ref[k] for k in worst},
+              "card_vs_float64_global": global_rel_error(gg, ref),
+              "card_vs_cpu_worst": max(grad_rel_errors(gg, gc).values()),
+              "bars": {"tensor": MVS_GRAD_BARS[0], "global": MVS_GRAD_BARS[1]},
+              "cpu_float32_vs_float64": bars["spread"], "cpu_planted_faults": bars["faults"]}
+    require(card_launches == added({"img_sample": 1}),
+            f"train_step_check_mvsnerf: launches of the card's step {card_launches}")
+    require(all(within_bars(r, MVS_GRAD_BARS) for r in bars["spread"]),
+            "float32's own spread fails the bars")
+    for fault, r in bars["faults"].items():
+        require(not within_bars(r, MVS_GRAD_BARS), f"planted fault {fault!r} passes the bars: {r}")
+    require(record["loss_rel_err"] <= 1e-4, f"card vs CPU loss {record['loss_rel_err']}")
+    require(within_bars({"worst": max(vs_ref.values()), "global": record["card_vs_float64_global"]},
+                        MVS_GRAD_BARS), f"card gradients {record}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as small:
+        record["run_train"] = train_check(small, mvs_entry_cfg)
+    record["phase_seconds"] = time.perf_counter() - t_phase
+    emit(phase="train_step_check_mvsnerf", **record)
+
+
+def mvs_plain_times(model, batch, iters: int = 5) -> dict:
+    """The step's plain volume lookup and MLP alone at its shapes (train
+    mode, CUDA events): each one's forward, and forward with backward (a
+    seeded cotangent; the volume and the MLP's input features take
+    gradients), median ms of ``iters``."""
+    from boostmvsnerfs_torch.ops.cuda.tri_sample import tri_sample_plain
+
+    model.train()
+    with torch.no_grad():
+        sub, volume, near, far = model.fused_volumes(batch)
+        calls, (uvd, feat, dirs), _, _ = model.render_stages(sub, volume, sub["ray_idx_0"],
+                                                             near, far)
+    vol = volume.detach().requires_grad_()
+    feat = feat.detach().requires_grad_()
+    xyz, spr = calls["tri_sample"][1:]
+    gen = torch.Generator(device=vol.device).manual_seed(5)
+    g_vox = torch.randn(*xyz.shape[:2], vol.shape[-1], generator=gen, device=vol.device)
+    g_raw = torch.randn(*uvd.shape[:2], 4, generator=gen, device=vol.device)
+    head, freqs = model.nerf.nerf, model.cfg.pos_freqs
+
+    def fwd_tri():
+        with torch.no_grad():
+            tri_sample_plain(vol, xyz, spr)
+
+    def both_tri():
+        tri_sample_plain(vol, xyz, spr).backward(g_vox)
+
+    def fwd_mlp():
+        with torch.no_grad():
+            head(uvd, feat, dirs, freqs)
+
+    def both_mlp():
+        head(uvd, feat, dirs, freqs).backward(g_raw)
+
+    out = {"samples": int(xyz.shape[0] * xyz.shape[1]), "volume": list(vol.shape)}
+    for name, f, b in (("tri_sample_plain", fwd_tri, both_tri), ("mlp_plain", fwd_mlp, both_mlp)):
+        fwd, total = median_ms(f, iters), median_ms(b, iters)
+        out[name] = {"forward_ms": fwd, "forward_backward_ms": total, "backward_ms": total - fwd}
+    return out
+
+
+def phase_profile_train_mvsnerf(cfg, weights: dict, batch: dict) -> None:
+    """One profiled step of the BoostMVSNeRF recipe (the entry's first
+    batch: 4 images of 1024 rays, K=4, 480x736 volumes) after 2 warm-up
+    steps: device busy against the step's time, cuDNN forward and backward,
+    #3, the top kernels and the backward functions by device time; then the
+    plain volume lookup and MLP alone at the step's shapes
+    (``mvs_plain_times``)."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+    from boostmvsnerfs_torch.parallel.train import create_train_state, make_train_step
+    from boostmvsnerfs_torch.train.schedule import make_optimizer
+
+    model = runner.make_network(cfg)
+    model.load_state_dict(weights, strict=True)
+    state = create_train_state(model, make_optimizer(cfg.train, 4))
+    step = make_train_step(model, cas=CascadeConfig.from_cfg(cfg.enerf))
+    for _ in range(2):
+        step(state, batch)
+    phase_profile(lambda: step(state, batch), "profile_train_mvsnerf", ("img_sample",),
+                  frames=1, unit="step")
+    emit(phase="profile_train_mvsnerf_plain", **mvs_plain_times(model, batch))
 
 
 def main() -> int:
@@ -2046,6 +2453,10 @@ def main() -> int:
     records += run_visualize_and_path()
     torch.cuda.empty_cache()
     records += run_train_entry()
+    torch.cuda.empty_cache()
+    records += run_mvsnerf_heads()
+    torch.cuda.empty_cache()
+    records += run_train_entry_mvsnerf()
     torch.cuda.empty_cache()
     records += run_train_path()
     print(json.dumps({"kernels": records}))

@@ -239,13 +239,22 @@ def counted(monkeypatch, one_thread):
     first: a module that imports a plain version by name (the train-mode
     head) keeps the original, which launches nothing on the card."""
     import boostmvsnerfs_torch.runner  # noqa: F401
-    from boostmvsnerfs_torch.ops.cuda import _build, enerf_head, img_sample, warp_variance
+    from boostmvsnerfs_torch.ops.cuda import (
+        _build,
+        enerf_head,
+        img_sample,
+        renderer_mlp,
+        tri_sample,
+        warp_variance,
+    )
 
     for module, attr, name in ((warp_variance, "warp_variance_plain", "warp_variance"),
                                (warp_variance, "warp_variance_bwd_plain", "warp_variance_bwd"),
                                (img_sample, "row_sample_plain", "img_sample"),
                                (img_sample, "row_sample_bwd_plain", "img_sample_bwd"),
-                               (enerf_head, "nerf_head_plain", "enerf_head")):
+                               (enerf_head, "nerf_head_plain", "enerf_head"),
+                               (tri_sample, "tri_sample_plain", "tri_sample"),
+                               (renderer_mlp, "renderer_mlp_plain", "renderer_mlp")):
         fn = getattr(module, attr)
         monkeypatch.setattr(module, attr, lambda *a, fn=fn, name=name, **kw: (
             _build.count_launch(name), fn(*a, **kw))[1])
@@ -326,16 +335,17 @@ class BoostENeRFLike:
         self.cas = cas
 
 
-def _train_run(batches, dtype, steps_snaps):
-    """Two steps of ``train_epochs`` (BoostENeRF K=2, lr 5e-5) from seeded
-    weights, at ``dtype``: (losses, the parameters before, and after each
-    step)."""
+def _train_run(batches, dtype, steps_snaps, model=None, cas=None):
+    """Two steps of ``train_epochs`` (BoostENeRF K=2 unless ``model`` is
+    given, with the loss settings ``cas``; lr 5e-5) from seeded weights, at
+    ``dtype``: (losses, the parameters before, and after each step)."""
     from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
     from boostmvsnerfs_torch.models.enerf import CascadeConfig
     from boostmvsnerfs_torch.runner import train_epochs
     from boostmvsnerfs_torch.utils.port_weights import random_state_dict
 
-    model = BoostENeRF(CascadeConfig(k_best=2, volume_planes=(16, 8)), device="cpu")
+    if model is None:
+        model = BoostENeRF(CascadeConfig(k_best=2, volume_planes=(16, 8)), device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(model, 0).items()})
     model.to(dtype)
     start = {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -346,7 +356,7 @@ def _train_run(batches, dtype, steps_snaps):
         snaps.append({k: p.detach().clone() for k, p in state.model.named_parameters()})
 
     train_epochs(model, batches, {"lr": 5e-5, "epoch": 1}, steps_snaps, log_interval=1,
-                 on_record=on_record, device="cpu")
+                 on_record=on_record, device="cpu", cas=cas)
     return losses, start, snaps
 
 
@@ -362,6 +372,126 @@ def test_train_bars_pass_float32_and_fail_a_skipped_step(smoke, tmp_path, record
                                 rig="orbit", with_targets=True) for s in (0, 1)]
     l32, start32, s32 = _train_run(batches, torch.float32, str(tmp_path / "f32"))
     l64, start64, s64 = _train_run(batches, torch.float64, str(tmp_path / "f64"))
+    d32 = smoke.param_delta(s32[-1], start32)
+    reading = smoke.train_readings(l32, l64, d32, smoke.param_delta(s64[-1], start64))
+    control = smoke.train_readings(l32, l64, d32, smoke.param_delta(s64[-2], start64))
+    record_property("float32_vs_float64", reading)
+    record_property("control_last_step_skipped", control)
+    assert smoke.within_train_bars(reading), reading
+    assert not smoke.within_train_bars(control), control
+
+
+# ------------------------------------- the MVSNeRF heads and MVSNeRF training
+
+
+def test_mvsnerf_heads_check_the_lookups_only(smoke):
+    """``mvs_kernel_inputs`` of a head whose MLP runs plainly holds the
+    lookups (#6, #3) and no renderer-MLP entry; a v0 model's holds all."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+    from boostmvsnerfs_torch.models.enerf import to_tensors
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch, mvsnerf_batch
+
+    batch = to_tensors(mvsnerf_batch(make_scene_batch(B=1, n_views=4, H=32, W=64, boost=True,
+                                                      seed=0, rig="forward",
+                                                      render_scales=(1.0,)), k_best=(0, 3)),
+                       torch.device("cpu"))
+    for net_type, want in (("v1", {"tri_sample", "tri_sample/f32", "img_sample"}),
+                           ("v0", set(smoke.MVS_KERNELS))):
+        model = BoostMVSNeRF(MVSNeRFConfig(k_best=2, num_samples=8, net_type=net_type),
+                             device="cpu")
+        with torch.no_grad():
+            assert set(smoke.mvs_kernel_inputs(model, batch)) == want, net_type
+    assert set(smoke.MVS_HEADS) | {"v0", "attention"} == set(
+        __import__("boostmvsnerfs_torch.models.mvsnerf", fromlist=["NET_TYPES"]).NET_TYPES)
+
+
+def test_mvsnerf_train_entry_design_and_resume(smoke, tmp_path, counted):
+    """``drive_train_entry`` over the BoostMVSNeRF fine-tuning recipe at
+    32x64 on the CPU, one step an epoch (batch 4, 1024 random rays): the
+    launches of both runs, of each step (the colour lookup only), of the
+    pre-pass (none) and of the validation (#6, #3, #8 per frame) pass the
+    phase's checks against ``mvs_entry_design``; the step's colour-lookup
+    inputs are the recipe's."""
+    from boostmvsnerfs_torch import runner
+
+    ws = str(tmp_path)
+    smoke.free_scene(ws, 32, 64)
+    opts = ("train_dataset.input_h_w", "[32, 64]", "test_dataset.input_h_w", "[32, 64]",
+            "ep_iter", "1", "save_result", "false")
+    cfg = _in_repo(smoke.mvs_entry_cfg, ws, *opts)
+    weights = smoke.save_pretrain(cfg)
+    first = smoke.drive_train_entry(cfg, 0, "cpu")
+    resumed = smoke.drive_train_entry(_in_repo(smoke.mvs_entry_cfg, ws, *opts, "train.epoch",
+                                               "2"), 0, "cpu")
+    design = smoke.mvs_entry_design(steps=1)
+    assert design["first"] == dict(smoke.NO_LAUNCHES, img_sample=3, tri_sample=2,
+                                   renderer_mlp=2)
+    smoke.check_train_entry_run("first", first, design, 0, steps=1)
+    smoke.check_train_entry_run("resumed", resumed, design, 1, steps=1)
+    assert (first["final_step"], resumed["final_step"]) == (1, 2)
+    batch = smoke.first_train_batch(cfg, runner.load_view_selection(cfg), "cpu")
+    (label, (imgs, x, y, mode)), = smoke.mvs_step_inputs(cfg, weights, batch, "cpu")["img_sample"]
+    assert imgs.shape == (4 * 4 * 3, 32, 64, 3) and x.shape == (48, 1024 * 8) and mode == "border"
+
+
+@pytest.fixture
+def eight_threads():
+    """torch's intra-op threads at 8, the card machine's cores: one thread
+    sums each BatchNorm's statistics and each convolution's weight gradient
+    over the volume's voxels in one float32 sequence, whose rounding alone
+    moves the BoostMVSNeRF step's gradients past the bars (0.06 together at
+    64x96), and at 4 threads the second step's loss lay 5.5e-4 from
+    float64's; the partial sums of 8 threads, like the card's reduction
+    trees, stay near float64."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(8)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_mvsnerf_step_bars_pass_float32_and_fail_the_faults(smoke, record_property,
+                                                             eight_threads):
+    """The BoostMVSNeRF step's gradient bars on the CPU port at 64x96:
+    float32 against float64 (and 4 copies of the batch moved by ~1 ulp)
+    passes them; each fault of MVS_FAULTS fails them."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+
+    state = smoke.random_weights(BoostMVSNeRF(MVSNeRFConfig(k_best=2, num_samples=8),
+                                              device="cpu"), 0)
+    batch = smoke.mvs_step_batch(64, 96, seed=3)
+    steps = {}
+    for dtype in (torch.float32, torch.float64):
+        steps[dtype] = _in_repo(smoke.mvs_step_grads, state, batch, "cpu", dtype)
+    np.testing.assert_allclose(steps[torch.float32][0], steps[torch.float64][0], rtol=1e-5)
+    bars = _in_repo(smoke.cpu_bar_readings, state, batch, steps[torch.float64][1],
+                    [steps[torch.float32][1]], lambda b: _in_repo(
+                        smoke.mvs_step_grads, state, b, "cpu", torch.float32)[1],
+                    smoke.MVS_FAULTS)
+    record_property("bars", bars)
+    assert all(smoke.within_bars(r, smoke.MVS_GRAD_BARS) for r in bars["spread"]), bars
+    assert len(bars["faults"]) == 3
+    for fault, r in bars["faults"].items():
+        assert not smoke.within_bars(r, smoke.MVS_GRAD_BARS), (fault, r)
+
+
+def test_mvsnerf_train_bars_pass_float32_and_fail_a_skipped_step(smoke, tmp_path,
+                                                                  record_property, eight_threads):
+    """The training entry's card-vs-CPU bars (``train_check``) on the CPU
+    port's BoostMVSNeRF (K=2, the recipe's loss settings) at 64x96 over two
+    random-ray batches: float32 against float64 passes them, and with the
+    last Adam step skipped fails them."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+
+    cas = _in_repo(smoke.mvs_recipe_cas)
+    batches = [smoke.mvs_step_batch(64, 96, seed=s) for s in (0, 1)]
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        model = BoostMVSNeRF(MVSNeRFConfig(k_best=2, num_samples=8), device="cpu")
+        runs[dtype] = _train_run(batches, dtype, str(tmp_path / str(dtype)), model, cas)
+    (l32, start32, s32), (l64, start64, s64) = runs[torch.float32], runs[torch.float64]
     d32 = smoke.param_delta(s32[-1], start32)
     reading = smoke.train_readings(l32, l64, d32, smoke.param_delta(s64[-1], start64))
     control = smoke.train_readings(l32, l64, d32, smoke.param_delta(s64[-2], start64))

@@ -121,15 +121,17 @@ def test_unknown_cascade_setting_raises(at_repo):
         CascadeConfig.from_cfg(cfg.enerf)
 
 
-@pytest.mark.parametrize("key,value,match", [
-    ("net_type", "v1", "queue 1 item 5"),
-    ("net_type", "color_fusion", "queue 1 item 5"),
-    ("feat_dim", 16, "8 channels"),
+@pytest.mark.parametrize("key,value,error,match", [
+    ("net_type", "v3", ValueError, "net_type"),
+    ("net_type", "colour_fusion", ValueError, "net_type"),
+    ("feat_dim", 16, NotImplementedError, "8 channels"),
 ])
-def test_refused_mvsnerf_settings_raise(at_repo, key, value, match):
+def test_refused_mvsnerf_settings_raise(at_repo, key, value, error, match):
+    """Every JAX ``net_type`` is taken (tests/test_torch_mvsnerf_heads.py);
+    an unknown one raises, as does a volume other than 8 channels."""
     cfg = make_cfg("configs/exps/evaluate/mvsnerf_ours/scannet_plus_eval.yaml")
     cfg.mvsnerf[key] = value
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         MVSNeRFConfig.from_cfg(cfg)
 
 

@@ -485,3 +485,70 @@ def test_run_train_step_on_the_card(dev, tmp_path, monkeypatch):
             assert [counts[k] for k in ("warp_variance_bwd", "img_sample",
                                         "img_sample_bwd")] == [2, 2, 2]
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+def _mvs_batch(seed=0, rays=None):
+    """BoostMVSNeRF at 32x64 (4 views, K=2 of C(4,3)); ``rays`` random rays
+    with targets, or every pixel. The target camera sits between source
+    frames 1 and 2: on frame 2, where ``make_scene_batch`` puts it, border
+    rays project onto that view's frame edges and its in-frame masks flip
+    between two builds by rounding (ROADMAP fault 4)."""
+    from boostmvsnerfs_torch.utils.synthetic import look_at_ext, mvsnerf_batch
+
+    sub = {0: rays} if rays else None
+    b = make_scene_batch(B=1, n_views=4, H=32, W=64, boost=True, seed=seed, rig="forward",
+                         render_scales=(1.0,), ray_subsample=sub, with_targets=bool(rays))
+    pos = np.array([0.15 * np.sin(0.75), 0.04 * np.cos(1.35), 0.375])  # the rig's path at 1.5
+    b["tar_ext"] = look_at_ext(pos, target=pos + np.array([0.0, 0.0, 5.0]))[None]
+    out = mvsnerf_batch(b, k_best=(0, 3))
+    if rays:
+        out["ray_idx_0"], out["rgb_0"] = b["ray_idx_0"], b["rgb_0"]
+    return out
+
+
+@pytest.mark.parametrize("net_type", ["v1", "v2", "color_fusion"])
+def test_mvsnerf_head_frames_on_the_card(dev, net_type):
+    """A BoostMVSNeRF frame with each plain-MLP head on the card: the volume
+    and colour lookups launch once each, the MLP kernel never, and the rgb
+    agrees with the CPU port's at over 45 dB."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+
+    batch = _mvs_batch()
+    rgb = {}
+    for d in ("cpu", "cuda"):
+        model = BoostMVSNeRF(MVSNeRFConfig(k_best=2, num_samples=8, net_type=net_type), device=d)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in random_state_dict(model, 0).items()})
+        reset_launch_counts()
+        rgb[d] = model(batch)["rgb_level0"].cpu().numpy()
+    counts = launch_counts()
+    assert (counts["tri_sample"], counts["img_sample"], counts["renderer_mlp"]) == (1, 1, 0)
+    assert -10 * np.log10(np.mean((rgb["cuda"] - rgb["cpu"]) ** 2)) > 45.0
+
+
+def test_mvsnerf_train_step_on_the_card(dev):
+    """A BoostMVSNeRF train step on the card launches only the colour
+    lookup (#3): the volume lookup and the MLP take their plain versions
+    under autograd. Its loss is within 1e-4 of the CPU port's. The eval
+    render under autograd reaches the volume-lookup kernel, whose wrapper
+    refuses a tensor that requires grad."""
+    from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+    from boostmvsnerfs_torch.parallel.train import create_train_state, make_train_step
+    from boostmvsnerfs_torch.train.schedule import make_optimizer
+
+    cas = CascadeConfig(num=1, loss_weight=(1.0,), render_if=(True,), train_img=(False,))
+    batch = _mvs_batch(rays=256)
+    losses = {}
+    for d in ("cpu", "cuda"):
+        model = BoostMVSNeRF(MVSNeRFConfig(k_best=2, num_samples=8), device=d)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in random_state_dict(model, 0).items()})
+        state = create_train_state(model, make_optimizer({"lr": 5e-5}, 10))
+        reset_launch_counts()
+        losses[d] = float(make_train_step(model, cas=cas)(state, batch)["loss"])
+    assert {k: v for k, v in launch_counts().items() if v} == {"img_sample": 1}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    model.eval()
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        model.render(to_tensors(batch, dev))

@@ -261,8 +261,9 @@ def test_boost_views_num_raises_counts_below_a_combination():
 
 def test_train_cli_on_the_cpu_and_refusals(finetune, capsys, monkeypatch):
     """``python -m boostmvsnerfs_torch.train --device cpu`` over the recipe
-    (one step, ray-blocked); without CUDA the default device raises; MVSNeRF
-    training and ``--distributed`` raise, naming their ROADMAP items."""
+    (one step, ray-blocked); without CUDA the default device raises;
+    ``--distributed`` raises, naming its ROADMAP item, and so does ray
+    blocking an MVSNeRF model (the blocked step renders ENeRF levels)."""
     from pathlib import Path
 
     from boostmvsnerfs_torch import runner
@@ -278,8 +279,8 @@ def test_train_cli_on_the_cpu_and_refusals(finetune, capsys, monkeypatch):
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         tmain.main(["--distributed", *argv])
     cfg = _ft_cfg(finetune["ws"], "network_module", "boostmvsnerfs_tpu.models.boost_mvsnerf")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        runner.run_train(cfg, device="cpu")
+    with pytest.raises(ValueError, match="trains unblocked"):
+        runner.run_train(cfg, device="cpu", ray_blocks=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmain.main(argv)
