@@ -10,6 +10,12 @@
 // biases, ReLUs, softmaxes, softplus and the RGB blend (a selection matmul
 // on the TPU, exact here) stay in f32.
 //
+// The image-feature-only head (VOX = false; use_vox_feat=False of the
+// Pallas kernel, the head of every foreground layer of the layered
+// composite variant) reads no voxel features: lr0 takes the pooled image
+// feature [agg 16] and color0's per-sample part [x 64, agg 16], 80 wide,
+// five k16 steps. It stages no voxel rows and takes no voxel buffer.
+//
 // What bounds it on an H100: bytes. A sample (S=3, C=11) moves ~228 bytes
 // against 12,804 multiply-adds, which take a third of that time at the
 // bf16 tensor-core rate.
@@ -32,10 +38,11 @@
 // zero-padded k16 widths and rows 8 elements longer, for conflict-free
 // ldmatrix) are copied into shared memory once per block.
 //
-// Two instances per (C, view conditioning). S = 3, the view count of every
-// path (a combination of the boost recipe), is known at compile time: the
-// views' conditioned features, pooled features and colour logits stay in
-// registers, and the views' independent mma chains interleave. Any other S
+// Two instances per (C, view conditioning, voxel features). S = 3, the
+// view count of every path (a combination of the boost recipe), is known at
+// compile time: the views' conditioned features, pooled features and colour
+// logits stay in registers, and the views' independent mma chains
+// interleave. Any other S
 // runs in run-time loops that hold one view at a time: the conditioned
 // features (view_fc, one k-step) are recomputed in each of the three passes
 // that need them (the mean, the variance about it, global_fc), and the two
@@ -141,16 +148,20 @@ __device__ __forceinline__ float row_dot(const float (&v)[N8][4], const float* w
 
 // Padded widths: CP = C in k16 steps (the per-view channels, view_fc's
 // outputs and each third of global_fc's input), CV = C + 4 in k16 steps
-// (color0's per-view input [feat, dir]).
-template <int C, bool VIEWDIR>
+// (color0's per-view input [feat, dir]). VOX: lr0's input is [vox 8, agg
+// 16] (two k16 steps, the second half zero), else [agg 16] (one).
+template <int C, bool VIEWDIR, bool VOX>
 struct Layout {
   static constexpr int CP = (C + 15) / 16 * 16, CV = (C + 4 + 15) / 16 * 16;
+  static constexpr int KL = VOX ? 2 : 1;            // lr0's k16 steps
   // bf16 matrices (ops/cuda/enerf_head.py::pack_head_weights), rows of K + 8
   static constexpr int LV = 16 + 8;                 // view_fc (CP, 16): [dir 4, 0]
   static constexpr int LG = 3 * CP + 8;             // global_fc (32, 3 CP): [img, var, avg]
   static constexpr int LF = 32 + 8;                 // fc (16, 32)
-  static constexpr int LL = 32 + 8;                 // lr0 (64, 32): [vox 8, agg 16, 0]
-  static constexpr int LB = 96 + 8;                 // color0 (64, 96): [x 64, vox 8, agg 16, 0]
+  // lr0 (64, 32): [vox 8, agg 16, 0], or (64, 16): [agg 16]
+  static constexpr int LL = 16 * KL + 8;
+  // color0 (64, 96): [x 64, vox 8, agg 16, 0], or (64, 80): [x 64, agg 16]
+  static constexpr int LB = HID + 16 * KL + 8;
   static constexpr int LC = CV + 8;                 // color0 (64, CV): [feat C, dir 4, 0]
   static constexpr int MV = 0;
   static constexpr int MG = MV + (VIEWDIR ? CP * LV : 0);
@@ -170,10 +181,10 @@ struct Layout {
   static constexpr int WC = BC + HID, BC1 = WC + HID;  // color1 (64), bias (4)
   static constexpr int V_N = BC1 + 4;
   // per warp staging (floats) of S views: feat (S, 16, C) at 0, dirs
-  // (S, 16, 4) at SD, vox (16, 8) at SX
+  // (S, 16, 4) at SD, vox (16, 8) at SX when VOX
   static __host__ __device__ int SD(int S) { return S * 16 * C; }
   static __host__ __device__ int SX(int S) { return SD(S) + S * 16 * 4; }
-  static __host__ __device__ int STAGE(int S) { return SX(S) + 16 * 8; }
+  static __host__ __device__ int STAGE(int S) { return SX(S) + (VOX ? 16 * 8 : 0); }
   static size_t smem(int S) {
     return 2 * (size_t)M_N + 4 * (size_t)V_N + 4 * (size_t)WARPS * STAGE(S);
   }
@@ -182,17 +193,17 @@ struct Layout {
 // SN > 0: the view count is SN, known at compile time; every view's
 // conditioned features, pooled features and colour logits stay in registers.
 // SN = 0: S views at run time, in loops that hold one view at a time.
-template <int C, bool VIEWDIR, int SN>
+template <int C, bool VIEWDIR, bool VOX, int SN>
 __global__ void __launch_bounds__(WARPS * 32, 3) enerf_head_kernel(
     const __nv_bfloat16* __restrict__ mats,  // Layout M*
     const float* __restrict__ vecs,          // Layout V*
-    const float* __restrict__ vox,           // (B, P, 8)
+    const float* __restrict__ vox,           // (B, P, 8); unread unless VOX
     const float* __restrict__ feat,          // (B, S, P, C)
     const float* __restrict__ dirs,          // (B, S, P, 4)
     float* __restrict__ out,                 // (B, P, 4)
     int B, int S_run, long long P) {
-  using L = Layout<C, VIEWDIR>;
-  constexpr int NC = L::CP / 8, KC = L::CP / 16, KV = L::CV / 16;
+  using L = Layout<C, VIEWDIR, VOX>;
+  constexpr int NC = L::CP / 8, KC = L::CP / 16, KV = L::CV / 16, KL = L::KL;
   const int S = SN > 0 ? SN : S_run;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
@@ -218,8 +229,9 @@ __global__ void __launch_bounds__(WARPS * 32, 3) enerf_head_kernel(
       for (int i = lane; i < 16 * C; i += 32) stage[s * 16 * C + i] = i < n * C ? __ldg(fp + i) : 0.f;
       for (int i = lane; i < 16 * 4; i += 32) stage[SD + s * 64 + i] = i < n * 4 ? __ldg(dp + i) : 0.f;
     }
-    for (int i = lane; i < 16 * 8; i += 32)
-      stage[SX + i] = i < n * 8 ? __ldg(vox + (b * P + p0) * 8 + i) : 0.f;
+    if constexpr (VOX)
+      for (int i = lane; i < 16 * 8; i += 32)
+        stage[SX + i] = i < n * 8 ? __ldg(vox + (b * P + p0) * 8 + i) : 0.f;
     __syncwarp();
     // staged values: feature channel c and dir component k of view s, tile row r
     auto f0 = [&](int s, int r, int c) { return c < C ? stage[(s * 16 + r) * C + c] : 0.f; };
@@ -380,7 +392,8 @@ __global__ void __launch_bounds__(WARPS * 32, 3) enerf_head_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) im[j][e] = im[j][e] / z[e >> 1];
     }
-    uint32_t va[2][4];  // [vox 8, agg 16, 0 8]: lr0's input, and color0's from column 64
+    // lr0's input, and color0's from column 64: [vox 8, agg 16, 0 8] | [agg 16]
+    uint32_t va[KL][4];
     {
       uint32_t a[2][4];
       to_frags(im, a);
@@ -391,20 +404,24 @@ __global__ void __launch_bounds__(WARPS * 32, 3) enerf_head_kernel(
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) agg[j][e] = relu(agg[j][e] + vec[L::BF + 8 * j + 2 * t + (e & 1)]);
-      const float* vx = stage + SX;
-      va[0][0] = pack(vx[g * 8 + 2 * t], vx[g * 8 + 2 * t + 1]);
-      va[0][1] = pack(vx[(g + 8) * 8 + 2 * t], vx[(g + 8) * 8 + 2 * t + 1]);
-      va[0][2] = pack(agg[0][0], agg[0][1]);
-      va[0][3] = pack(agg[0][2], agg[0][3]);
-      va[1][0] = pack(agg[1][0], agg[1][1]);
-      va[1][1] = pack(agg[1][2], agg[1][3]);
-      va[1][2] = va[1][3] = 0u;
+      if constexpr (VOX) {
+        const float* vx = stage + SX;
+        va[0][0] = pack(vx[g * 8 + 2 * t], vx[g * 8 + 2 * t + 1]);
+        va[0][1] = pack(vx[(g + 8) * 8 + 2 * t], vx[(g + 8) * 8 + 2 * t + 1]);
+        va[0][2] = pack(agg[0][0], agg[0][1]);
+        va[0][3] = pack(agg[0][2], agg[0][3]);
+        va[KL - 1][0] = pack(agg[1][0], agg[1][1]);
+        va[KL - 1][1] = pack(agg[1][2], agg[1][3]);
+        va[KL - 1][2] = va[KL - 1][3] = 0u;
+      } else {
+        to_frags(agg, va);
+      }
     }
 
     // --- trunk and sigma ---
     float x[8][4];
     zero(x);
-    dense<2, 8, L::LL>(va, w + 2 * L::ML, 0, x);
+    dense<KL, 8, L::LL>(va, w + 2 * L::ML, 0, x);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -412,20 +429,20 @@ __global__ void __launch_bounds__(WARPS * 32, 3) enerf_head_kernel(
     const float sg0 = softplus(row_dot(x, vec + L::WS, 0) + vec[L::BS]);
     const float sg1 = softplus(row_dot(x, vec + L::WS, 1) + vec[L::BS]);
 
-    // --- color: color0 over [x, vox, agg] once, over [feat, dir] per view ---
+    // --- color: color0 over [x, (vox,) agg] once, over [feat, dir] per view ---
     float base[8][4];
     {
-      uint32_t xa[4][4], a[6][4];
+      uint32_t xa[4][4], a[4 + KL][4];
       to_frags(x, xa);
 #pragma unroll
-      for (int k = 0; k < 6; ++k)
+      for (int k = 0; k < 4 + KL; ++k)
 #pragma unroll
         for (int r = 0; r < 4; ++r) a[k][r] = k < 4 ? xa[k][r] : va[k - 4][r];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) base[j][e] = vec[L::BC + 8 * j + 2 * t + (e & 1)];
-      dense<6, 8, L::LB>(a, w + 2 * L::MB, 0, base);
+      dense<4 + KL, 8, L::LB>(a, w + 2 * L::MB, 0, base);
     }
     // view s's colour logits of rows g (cw0) and g + 8 (cw1)
     auto color_logits = [&](int s, float& cw0, float& cw1) {
@@ -501,13 +518,14 @@ __global__ void __launch_bounds__(WARPS * 32, 3) enerf_head_kernel(
   }
 }
 
-template <int C, bool VIEWDIR, int SN>
+template <int C, bool VIEWDIR, bool VOX, int SN>
 int launch(const void* mats, int n_mats, const void* vecs, int n_vecs, const void* vox,
            const void* feat, const void* dirs, void* out, int B, int S, long long P, int sms,
            cudaStream_t stream) {
-  using L = Layout<C, VIEWDIR>;
-  if (n_mats != L::M_N || n_vecs != L::V_N) return (int)cudaErrorInvalidValue;
-  auto kernel = enerf_head_kernel<C, VIEWDIR, SN>;
+  using L = Layout<C, VIEWDIR, VOX>;
+  if (n_mats != L::M_N || n_vecs != L::V_N || (VOX && vox == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = enerf_head_kernel<C, VIEWDIR, VOX, SN>;
   const size_t smem = L::smem(S);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -526,22 +544,36 @@ int launch(const void* mats, int n_mats, const void* vecs, int n_vecs, const voi
 
 // S = 3, every path's view count (a combination of the boost recipe), at
 // compile time; any other count in run-time loops
-template <int C, bool VIEWDIR>
+template <int C, bool VIEWDIR, bool VOX>
 int launch_views(const void* mats, int n_mats, const void* vecs, int n_vecs, const void* vox,
                  const void* feat, const void* dirs, void* out, int B, int S, long long P,
                  int sms, cudaStream_t stream) {
-  return S == 3 ? launch<C, VIEWDIR, 3>(mats, n_mats, vecs, n_vecs, vox, feat, dirs, out, B, S,
-                                        P, sms, stream)
-                : launch<C, VIEWDIR, 0>(mats, n_mats, vecs, n_vecs, vox, feat, dirs, out, B, S,
-                                        P, sms, stream);
+  return S == 3 ? launch<C, VIEWDIR, VOX, 3>(mats, n_mats, vecs, n_vecs, vox, feat, dirs, out, B,
+                                             S, P, sms, stream)
+                : launch<C, VIEWDIR, VOX, 0>(mats, n_mats, vecs, n_vecs, vox, feat, dirs, out, B,
+                                             S, P, sms, stream);
+}
+
+template <int C>
+int launch_head(const void* mats, int n_mats, const void* vecs, int n_vecs, const void* vox,
+                const void* feat, const void* dirs, void* out, int B, int S, long long P,
+                int viewdir, int sms, cudaStream_t stream) {
+#define HEAD_CALL mats, n_mats, vecs, n_vecs, vox, feat, dirs, out, B, S, P, sms, stream
+  if (vox != nullptr)
+    return viewdir ? launch_views<C, true, true>(HEAD_CALL)
+                   : launch_views<C, false, true>(HEAD_CALL);
+  return viewdir ? launch_views<C, true, false>(HEAD_CALL)
+                 : launch_views<C, false, false>(HEAD_CALL);
+#undef HEAD_CALL
 }
 
 }  // namespace
 
 // The channel counts instantiated: cost volumes over the level-1 (8 + RGB)
 // and level-0 (32 + RGB) feature maps (ops/cuda/enerf_head.py CHANNELS),
-// each with and without view-direction conditioning; any view count from 2
-// to MAX_VIEWS.
+// each with and without view-direction conditioning (viewdir_agg) and with
+// and without voxel features (vox null: use_vox_feat false), every one a
+// model can call; any view count from 2 to MAX_VIEWS.
 extern "C" int enerf_head_launch(const void* mats, int n_mats, const void* vecs, int n_vecs,
                                  const void* vox, const void* feat, const void* dirs, void* out,
                                  int B, int S, long long P, int C, int viewdir, int sms,
@@ -549,11 +581,9 @@ extern "C" int enerf_head_launch(const void* mats, int n_mats, const void* vecs,
   if (sms < 1 || S < 2 || S > MAX_VIEWS) return (int)cudaErrorInvalidValue;
   if ((long long)B * P == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-#define HEAD_CALL mats, n_mats, vecs, n_vecs, vox, feat, dirs, out, B, S, P, sms, st
-  if (C == 11)
-    return viewdir ? launch_views<11, true>(HEAD_CALL) : launch_views<11, false>(HEAD_CALL);
-  if (C == 35)
-    return viewdir ? launch_views<35, true>(HEAD_CALL) : launch_views<35, false>(HEAD_CALL);
-#undef HEAD_CALL
+  if (C == 11) return launch_head<11>(mats, n_mats, vecs, n_vecs, vox, feat, dirs, out, B, S, P,
+                                      viewdir, sms, st);
+  if (C == 35) return launch_head<35>(mats, n_mats, vecs, n_vecs, vox, feat, dirs, out, B, S, P,
+                                      viewdir, sms, st);
   return (int)cudaErrorInvalidValue;
 }

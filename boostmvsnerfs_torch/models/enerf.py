@@ -54,10 +54,6 @@ TPU_KNOBS = ("warp_mode", "warp_window_h", "warp_rows_per_tile", "pallas_window_
              "img_window_h", "pallas_img_window_h", "pallas_img_window_w",
              "pallas_img_chunk_bands", "img_cols_per_tile", "img_window_w",
              "warp_remat_planes")
-# settings of the JAX config the port does not have: key -> (the one value
-# taken, the ROADMAP item that brings the others)
-REFUSED = {"min_cost_reg_all": (False, "queue 1 item 7, the variants"),
-           "use_vox_feat": (True, "queue 1 item 7, the variants")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +97,11 @@ class CascadeConfig:
     # trainer's autocast): "bfloat16" computes them in bf16 with float32
     # parameters, statistics and outputs
     conv_dtype: str = "float32"
+    # MinCostRegNet at every level (not only the first), and the head
+    # without voxel features (lr0 over the pooled image feature alone): the
+    # layered composite variant's per-layer stack
+    min_cost_reg_all: bool = False
+    use_vox_feat: bool = True
 
     def __post_init__(self):
         if self.warp_dtype not in WARP_DTYPES:
@@ -112,19 +113,12 @@ class CascadeConfig:
     def from_cfg(node) -> "CascadeConfig":
         """Build from a cfg ``enerf`` subtree, as the JAX ``from_cfg`` does.
         The JAX config's TPU knobs (``TPU_KNOBS``) are dropped by name; a
-        setting the port does not have raises, naming the ROADMAP item that
-        brings it (``REFUSED``), and so does a key no config knows."""
+        key no config knows raises."""
         cas = node["cas_config"]
         fields = {f.name for f in dataclasses.fields(CascadeConfig)}
         kw = {}
         for k, v in cas.items():
-            if k in REFUSED:
-                ok, item = REFUSED[k]
-                if v != ok:
-                    raise NotImplementedError(
-                        f"cas_config.{k}: {v!r} is not in the port yet (ROADMAP {item}); "
-                        f"it takes {ok!r}")
-            elif k in fields:
+            if k in fields:
                 kw[k] = tuple(v) if isinstance(v, list) else v
             elif k not in TPU_KNOBS:
                 raise ValueError(f"cas_config.{k}: unknown setting")
@@ -148,18 +142,24 @@ def to_tensors(batch: dict, device: torch.device, dtype=torch.float32) -> dict:
 class ENeRF(nn.Module):
     """Cascade ENeRF network. Parameter names follow the reference
     (``feature_net.*``, ``cost_reg_{i}.*``, ``nerf_{i}.*``). Runs on CUDA
-    unless ``device`` says otherwise. Built in eval mode."""
+    unless ``device`` says otherwise. Built in eval mode. Without
+    ``feature_net`` the cascade has no FPN of its own and its stages take
+    another's features (the layered composite's foreground layers after
+    the first)."""
 
-    def __init__(self, cas: CascadeConfig = CascadeConfig(), device=None):
+    def __init__(self, cas: CascadeConfig = CascadeConfig(), device=None,
+                 feature_net: bool = True):
         super().__init__()
         self.cas = cas
         dtype = CONV_DTYPES[cas.conv_dtype]
-        self.feature_net = FeatureNet(dtype)
+        if feature_net:
+            self.feature_net = FeatureNet(dtype)
         for i in range(cas.num):
-            reg = MinCostRegNet if i == 0 else CostRegNet
+            reg = MinCostRegNet if i == 0 or cas.min_cost_reg_all else CostRegNet
             setattr(self, f"cost_reg_{i}", reg(FPN_CHANNELS[i], dtype))
             setattr(self, f"nerf_{i}", NeRFHead(cas.nerf_model_feat_ch[i] + 3,
-                                                viewdir_agg=cas.viewdir_agg))
+                                                viewdir_agg=cas.viewdir_agg,
+                                                use_vox_feat=cas.use_vox_feat))
         self.to(resolve_device(device))
         self.eval()
 
@@ -178,15 +178,20 @@ class ENeRF(nn.Module):
         return {k: v.reshape(B, S, *v.shape[1:]) for k, v in feats.items()}
 
     def volume_inputs(self, level, feats, src_exts, src_ixts, tar_ext, tar_ixt,
-                      near_far, prev):
+                      near_far, prev, tar_hw=None):
         """The plane sweep's inputs at ``level``: depth hypotheses
         (B, D, Hv, Wv), their bounds map (B, 2, Hv, Wv) and the projection
         matrices (B, S, 3, 4). ``prev`` is None or the previous level's
-        (depth, std, bounds map)."""
+        (depth, std, bounds map). ``tar_hw`` is the target raster's
+        full-resolution size when it differs from the source views' (a
+        crop camera of the layered composite); by default the views'."""
         cas = self.cas
-        Hf, Wf = feats[f"level_{level}"].shape[2:4]
-        H = int(round(Hf / cas.im_feat_scale[level]))
-        W = int(round(Wf / cas.im_feat_scale[level]))
+        if tar_hw is None:
+            Hf, Wf = feats[f"level_{level}"].shape[2:4]
+            H = int(round(Hf / cas.im_feat_scale[level]))
+            W = int(round(Wf / cas.im_feat_scale[level]))
+        else:
+            H, W = tar_hw
         Hv, Wv = int(H * cas.volume_scale[level]), int(W * cas.volume_scale[level])
         D = cas.volume_planes[level]
         inv = cas.depth_inv[level]
@@ -204,13 +209,14 @@ class ENeRF(nn.Module):
         return dv, cost_volume.depth_values_near_far(dv, inv), pm.contiguous()
 
     def build_level_volume(self, level, feats, src_exts, src_ixts, tar_ext, tar_ixt,
-                           near_far, prev):
+                           near_far, prev, tar_hw=None):
         """Cost volume -> regularised feature volume and regressed depth:
         (feat_vol (B, D, Hv, Wv, 8), depth (B, Hv, Wv), std, nf_map). In
         train mode the warp is differentiable (kernels #1 and #2, float32);
-        in eval mode it runs at ``cas.warp_dtype``."""
+        in eval mode it runs at ``cas.warp_dtype``. ``tar_hw`` as in
+        ``volume_inputs``."""
         dv, nf_map, pm = self.volume_inputs(
-            level, feats, src_exts, src_ixts, tar_ext, tar_ixt, near_far, prev
+            level, feats, src_exts, src_ixts, tar_ext, tar_ixt, near_far, prev, tar_hw
         )
         if self.training:
             vol = fused_warp_variance_diff(feats[f"level_{level}"], pm, dv)
@@ -221,12 +227,13 @@ class ENeRF(nn.Module):
         depth, std = render.depth_regression(logits, dv, self.cas.depth_inv[level])
         return feat_vol, depth, std, nf_map
 
-    def level_maps(self, level, feats, depth, std, nf_map, src_inps) -> tuple:
+    def level_maps(self, level, feats, depth, std, nf_map, src_inps, tar_hw=None) -> tuple:
         """The ray-independent inputs of a level's render: the per-pixel ray
-        bounds (B, H_r, W_r, 4) and each view's image features + RGB at
-        render scale (B, S, H_r, W_r, C+3)."""
+        bounds of the target raster (B, H_r, W_r, 4), ``tar_hw`` (default:
+        the source views' size) at render scale, and each view's image
+        features + RGB at render scale (B, S, Hs_r, Ws_r, C+3)."""
         cas = self.cas
-        H, W = src_inps.shape[2:4]
+        H, W = src_inps.shape[2:4] if tar_hw is None else tar_hw
         rs = cas.render_scale[level]
         bounds_map = render.ray_bounds_maps(depth, std, nf_map, int(H * rs), int(W * rs),
                                             cas.depth_inv[level])
@@ -320,13 +327,15 @@ class ENeRF(nn.Module):
         """Depth-guided rendering of the rays at ``ray_idx`` from a level's
         ``level_maps``. With ``return_raw`` the per-sample radiance, z values
         and visibility mask come back un-composited, for the boost blend;
-        the mask carries no gradient."""
+        the mask carries no gradient. The target raster is the bounds map's
+        (``level_maps``' ``tar_hw``). A head without voxel features takes no
+        voxel lookup."""
         cas = self.cas
         bounds_map, img_feat_rgb = maps
         B, H_r, W_r = bounds_map.shape[:3]
         world_xyz, uvd, z_vals = self.sample_rays(level, bounds_map, batch, ray_idx)
         N, Ns = world_xyz.shape[1:3]
-        vox = self.voxel_features(feat_vol, uvd, H_r, W_r)
+        vox = self.voxel_features(feat_vol, uvd, H_r, W_r) if cas.use_vox_feat else None
         feat, dirs = self._gather_view_features(world_xyz, img_feat_rgb, batch,
                                                 cas.render_scale[level])
         raw = getattr(self, f"nerf_{level}")(vox, feat, dirs).reshape(B, N, Ns, 4)
@@ -338,10 +347,11 @@ class ENeRF(nn.Module):
         return render.composite(raw, z_vals)
 
     def render_level(self, level, feats, feat_vol, depth, std, nf_map, batch, ray_idx,
-                     return_raw: bool = False) -> dict:
-        """``render_rays`` after ``level_maps``; composited outputs also
-        carry the level's regressed depth (``depth_mvs``) and ``std``."""
-        maps = self.level_maps(level, feats, depth, std, nf_map, batch["src_inps"])
+                     return_raw: bool = False, tar_hw=None) -> dict:
+        """``render_rays`` after ``level_maps`` (``tar_hw`` as there);
+        composited outputs also carry the level's regressed depth
+        (``depth_mvs``) and ``std``."""
+        maps = self.level_maps(level, feats, depth, std, nf_map, batch["src_inps"], tar_hw)
         out = self.render_rays(level, maps, feat_vol, batch, ray_idx, return_raw)
         if not return_raw:
             out["depth_mvs"] = 1.0 / depth if self.cas.depth_inv[level] else depth

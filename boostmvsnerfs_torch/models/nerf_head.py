@@ -6,7 +6,9 @@ The layers are plain ``nn.Linear``s under the reference checkpoint names
 ``lr0.0``, ``sigma.0``, ``color.0``, ``color.2``). ``forward`` runs the
 head through ``ops.cuda.enerf_head.fused_nerf_head``: the CUDA kernel for
 CUDA tensors, the plain PyTorch math for CPU tensors; in train mode, the
-plain math on either.
+plain math on either. ``use_vox_feat=False`` is the older
+image-feature-only head of the layered composite variant: lr0 reads the
+pooled image feature alone and the voxel features are not an input.
 """
 
 from __future__ import annotations
@@ -33,15 +35,20 @@ class Agg(nn.Module):
 class NeRFHead(nn.Module):
     """Sigma from a softplus head on [voxel feature, pooled image feature];
     color as a softmax blend of the source views' RGB (the last 3 of the
-    ``feat_ch`` per-view channels). Built in eval mode, as the models are."""
+    ``feat_ch`` per-view channels). Without ``use_vox_feat`` sigma comes
+    from the pooled image feature alone. Built in eval mode, as the models
+    are."""
 
-    def __init__(self, feat_ch: int, hid_n: int = 64, viewdir_agg: bool = True):
+    def __init__(self, feat_ch: int, hid_n: int = 64, viewdir_agg: bool = True,
+                 use_vox_feat: bool = True):
         super().__init__()
+        self.use_vox_feat = use_vox_feat
+        in_lr0 = 8 + 16 if use_vox_feat else 16
         self.agg = Agg(feat_ch, viewdir_agg)
-        self.lr0 = nn.Sequential(nn.Linear(8 + 16, hid_n), nn.ReLU())
+        self.lr0 = nn.Sequential(nn.Linear(in_lr0, hid_n), nn.ReLU())
         self.sigma = nn.Sequential(nn.Linear(hid_n, 1), nn.Softplus())
         self.color = nn.Sequential(
-            nn.Linear(hid_n + 24 + feat_ch + 4, hid_n), nn.ReLU(),
+            nn.Linear(hid_n + in_lr0 + feat_ch + 4, hid_n), nn.ReLU(),
             nn.Linear(hid_n, 1), nn.ReLU(),
         )
         self.eval()
@@ -61,11 +68,15 @@ class NeRFHead(nn.Module):
             layers["view_fc"] = self.agg.view_fc[0]
         return {k: (m.weight, m.bias) for k, m in layers.items()}
 
-    def forward(self, vox: torch.Tensor, feat: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-        """vox (B, P, 8), feat (B, S, P, feat_ch), dirs (B, S, P, 4) ->
-        raw (rgb, sigma) (B, P, 4). In train mode the head is the plain
-        PyTorch math under autograd, as the JAX package runs its XLA head
-        when training (the head kernel has no backward there either)."""
+    def forward(self, vox: torch.Tensor | None, feat: torch.Tensor,
+                dirs: torch.Tensor) -> torch.Tensor:
+        """vox (B, P, 8) (ignored without ``use_vox_feat``: pass None), feat
+        (B, S, P, feat_ch), dirs (B, S, P, 4) -> raw (rgb, sigma) (B, P, 4).
+        In train mode the head is the plain PyTorch math under autograd, as
+        the JAX package runs its XLA head when training (the head kernel has
+        no backward there either)."""
+        if not self.use_vox_feat:
+            vox = None
         if self.training:
             return nerf_head_plain(self.head_params(), vox, feat, dirs)
         return fused_nerf_head(self.head_params(), vox, feat, dirs)

@@ -265,6 +265,17 @@ def resize_bilinear(img: torch.Tensor, H_out: int, W_out: int) -> torch.Tensor:
     return _resize_axis(_resize_axis(img, img.dim() - 3, H_out), img.dim() - 2, W_out)
 
 
+def resize_trilinear(vol: torch.Tensor, D_out: int, H_out: int, W_out: int) -> torch.Tensor:
+    """Align-corners trilinear resize of (..., D, H, W, C) to (..., D_out,
+    H_out, W_out, C) (``F.interpolate(mode='trilinear', align_corners=True)``
+    semantics), as three separable 2-tap lerps in the JAX function's order:
+    rows, columns, then planes."""
+    out = resize_bilinear(vol, H_out, W_out)
+    if vol.shape[-4] == D_out:
+        return out
+    return _resize_axis(out, vol.dim() - 4, D_out)
+
+
 def resize_antialiased(img: torch.Tensor, H_out: int, W_out: int) -> torch.Tensor:
     """Half-pixel bilinear resize of (N, H, W, C) with an antialiasing
     filter when shrinking: ``jax.image.resize(..., "bilinear")``, whose

@@ -35,6 +35,7 @@ from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF, search_k_best, vi
 from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
 from boostmvsnerfs_torch.models.enerf import CascadeConfig, ENeRF, to_tensors
 from boostmvsnerfs_torch.models.mvsnerf import MVSNeRF, MVSNeRFConfig
+from boostmvsnerfs_torch.models.variants import CompositeENeRF, HumanENeRF
 from boostmvsnerfs_torch.parallel.train import (
     TrainState,
     create_train_state,
@@ -58,7 +59,9 @@ def _network_name(cfg) -> str:
 def make_network(cfg, device=None) -> nn.Module:
     """Model from cfg.network_module's last component, in eval mode, on
     CUDA unless ``device`` says otherwise. MVSNeRF models take their
-    renderer head from ``cfg.mvsnerf.net_type``."""
+    renderer head from ``cfg.mvsnerf.net_type``; the layered composite its
+    layers from ``cfg.composite`` (``num_fg_layers``, ``fg_hw``,
+    ``bg_planes``) and ``cfg.enerf.white_bkgd``, with JAX's defaults."""
     name = _network_name(cfg)
     cas = CascadeConfig.from_cfg(cfg["enerf"])
     if name == "boost_enerf":
@@ -68,9 +71,15 @@ def make_network(cfg, device=None) -> nn.Module:
     if name in ("boost_mvsnerf", "mvsnerf"):
         cls = BoostMVSNeRF if name == "boost_mvsnerf" else MVSNeRF
         return cls(MVSNeRFConfig.from_cfg(cfg), device=device)
-    if name in ("enerf_composite", "enerf_human"):
-        raise NotImplementedError(
-            f"network {name!r} is not in the port yet (ROADMAP queue 1 item 7, the variants)")
+    if name == "enerf_composite":
+        node = cfg.get("composite", {})
+        return CompositeENeRF(
+            cas, num_fg_layers=int(node.get("num_fg_layers", 1)),
+            fg_hw=tuple(node.get("fg_hw", (64, 64))),
+            bg_planes=tuple(node.get("bg_planes", (16, 4))),
+            white_bkgd=bool(cfg["enerf"].get("white_bkgd", False)), device=device)
+    if name == "enerf_human":
+        return HumanENeRF(cas, device=device)
     raise ValueError(f"unknown network module: {cfg['network_module']}")
 
 

@@ -6,14 +6,18 @@ modules carry the reference checkpoints' names, so a reference
 ``state_dict`` goes into JAX through ``port_enerf`` / ``port_mvsnerf`` and a
 JAX ``{'params', 'batch_stats'}`` tree comes back here for
 ``load_state_dict(strict=True)``. Both carriers also run the other way
-(``enerf_variables_from_state_dict``, ``mvsnerf_variables_from_state_dict``,
-every MVSNeRF renderer head), so trained weights and BatchNorm statistics
-move between the packages in both directions (optimizer moments start at
-zero in both). ``random_state_dict`` makes seeded
-weights in that form for smoke runs and tests. Layout conversions:
+(``enerf_variables_from_state_dict`` for every ENeRF model and variant,
+``mvsnerf_variables_from_state_dict`` for every MVSNeRF renderer head;
+``cost_reg_*`` and ``res_unet_*`` for the two modules no model builds), so
+trained weights and BatchNorm statistics move between the packages in both
+directions (optimizer moments start at zero in both). ``random_state_dict``
+makes seeded weights in that form for smoke runs and tests. Layout
+conversions:
 
 * flax Conv (kh,kw,I,O) / (kd,kh,kw,I,O) -> torch (O,I,kh,kw) / (O,I,kd,kh,kw)
-* flax ConvTranspose, transpose_kernel (kd,kh,kw,O,I) -> torch (I,O,kd,kh,kw)
+* flax ConvTranspose, transpose_kernel (kd,kh,kw,O,I) -> torch (I,O,kd,kh,kw);
+  without transpose_kernel (ResUNet's) (kh,kw,I,O) -> torch (I,O,kh,kw),
+  flipped in both spatial axes
 * flax Dense (I,O) -> torch Linear (O,I)
 * BatchNorm scale/bias (params), mean/var (batch_stats) -> weight/bias,
   running_mean/running_var (and a zero ``num_batches_tracked``)
@@ -64,6 +68,9 @@ _LAYOUT = {
     # flax ConvTranspose, transpose_kernel (kd,kh,kw,O,I) <-> torch (I,O,kd,kh,kw)
     "deconv": (lambda k: k.transpose(4, 3, 0, 1, 2), lambda w: w.transpose(2, 3, 4, 1, 0)),
     "dense": (lambda k: k.T, lambda w: w.T),
+    # flax ConvTranspose, no transpose_kernel (kh,kw,I,O) <-> torch (I,O,kh,kw), flipped
+    "deconv2d_flipped": (lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1),
+                         lambda w: w.transpose(2, 3, 0, 1)[::-1, ::-1]),
     "same": (lambda a: a, lambda a: a),
 }
 
@@ -75,69 +82,187 @@ def _bn_leaves(prefix, path):
             (f"{prefix}.running_var", "batch_stats", path + ("var",), "same")]
 
 
-def _enerf_leaves(num_levels: int, viewdir_agg: bool) -> list:
-    """Every leaf of an ENeRF/BoostENeRF: (torch key, JAX collection, JAX
-    path, layout kind)."""
+def _cbr_leaves(t: str, path: tuple) -> list:
+    """A ``ConvBnReLU``: its bias-free conv and its batch norm."""
+    return [(f"{t}.conv.weight", "params", path + ("Conv_0", "kernel"), "conv"),
+            *_bn_leaves(f"{t}.bn", path + ("BatchNorm_0",))]
+
+
+def _cost_reg_kind(has) -> str:
+    """'min' (MinCostRegNet), 'interp' (CostRegNet(interp_upsample=True))
+    or 'full' (CostRegNet), from ``has(torch_name, jax_name)``: whether the
+    tree holds that block."""
+    if not has("conv5", "ConvBnReLU_5"):
+        return "min"
+    return "interp" if has("conv9", "ConvBnReLU_7") else "full"
+
+
+def _cost_reg_leaves(t: str, path: tuple, kind: str) -> list:
+    """Every leaf of a cost-regularisation U-Net of ``kind`` under torch
+    prefix ``t`` and JAX path ``path``. The interp-upsample net's resize
+    stages are flax's ``ConvBnReLU_7`` / ``_8`` (created after the encoder's
+    seven), the port's ``conv9`` / ``conv11``."""
+    n_cbr = 5 if kind == "min" else 7
+    deconvs = {"min": ("conv9", "conv11"), "full": ("conv7", "conv9", "conv11"),
+               "interp": ("conv7",)}[kind]
     out = []
-    for i, t in enumerate(_FPN_CBRS):
-        path = ("feature_net", f"ConvBnReLU_{i}")
-        out.append((f"feature_net.{t}.conv.weight", "params", path + ("Conv_0", "kernel"), "conv"))
-        out += _bn_leaves(f"feature_net.{t}.bn", path + ("BatchNorm_0",))
-    for name in _FPN_CONVS:
-        out.append((f"feature_net.{name}.weight", "params", ("feature_net", name, "kernel"), "conv"))
-        out.append((f"feature_net.{name}.bias", "params", ("feature_net", name, "bias"), "same"))
-    for lvl in range(num_levels):
-        base, jax_name = f"cost_reg_{lvl}", f"cost_regs_{lvl}"
-        n_cbr, deconvs = (5, ("conv9", "conv11")) if lvl == 0 else (7, ("conv7", "conv9", "conv11"))
-        for j in range(n_cbr):
-            path = (jax_name, f"ConvBnReLU_{j}")
-            out.append((f"{base}.conv{j}.conv.weight", "params", path + ("Conv_0", "kernel"), "conv"))
-            out += _bn_leaves(f"{base}.conv{j}.bn", path + ("BatchNorm_0",))
-        for j, t in enumerate(deconvs):
-            path = (jax_name, f"DeconvBn_{j}")
-            out.append((f"{base}.{t}.0.weight", "params", path + ("ConvTranspose_0", "kernel"),
-                        "deconv"))
-            out += _bn_leaves(f"{base}.{t}.1", path + ("BatchNorm_0",))
-        for head in ("feat_conv", "depth_conv"):
-            out.append((f"{base}.{head}.0.weight", "params", (jax_name, head, "kernel"), "conv"))
-        for t, path in _HEAD_DENSES:
-            if t.startswith("agg.view_fc") and not viewdir_agg:
-                continue
-            path = (f"nerf_heads_{lvl}",) + path
-            out.append((f"nerf_{lvl}.{t}.weight", "params", path + ("kernel",), "dense"))
-            out.append((f"nerf_{lvl}.{t}.bias", "params", path + ("bias",), "same"))
+    for j in range(n_cbr):
+        out += _cbr_leaves(f"{t}conv{j}", path + (f"ConvBnReLU_{j}",))
+    for j, name in enumerate(deconvs):
+        jpath = path + (f"DeconvBn_{j}",)
+        out.append((f"{t}{name}.0.weight", "params", jpath + ("ConvTranspose_0", "kernel"),
+                    "deconv"))
+        out += _bn_leaves(f"{t}{name}.1", jpath + ("BatchNorm_0",))
+    if kind == "interp":
+        out += _cbr_leaves(f"{t}conv9", path + ("ConvBnReLU_7",))
+        out += _cbr_leaves(f"{t}conv11", path + ("ConvBnReLU_8",))
+    for head in ("feat_conv", "depth_conv"):
+        out.append((f"{t}{head}.0.weight", "params", path + (head, "kernel"), "conv"))
     return out
 
 
-def enerf_state_dict_from_jax(variables: dict) -> dict:
-    """A JAX ENeRF/BoostENeRF ``{'params', 'batch_stats'}`` tree (numpy or
-    jax arrays; a JAX ``TrainState``'s ``params`` and ``batch_stats`` after
-    training steps as well) -> the port's ``state_dict`` (CPU tensors). The
-    number of cascade levels and the view-direction conditioning are read
-    from the tree."""
-    params = variables["params"]
-    num_levels = sum(k.startswith("cost_regs_") for k in params)
-    viewdir_agg = "view_fc" in params["nerf_heads_0"]["agg"]
+def _enerf_leaves(num_levels: int, viewdir_agg: bool, kinds: list, feature_net: bool = True,
+                  t: str = "", path: tuple = ()) -> list:
+    """Every leaf of an ENeRF/BoostENeRF (or one cascade of a composite,
+    under torch prefix ``t`` and JAX path ``path``): (torch key, JAX
+    collection, JAX path, layout kind). ``kinds`` holds each level's
+    cost-regularisation net (``_cost_reg_kind``)."""
+    out = []
+    if feature_net:
+        fpn = path + ("feature_net",)
+        for i, name in enumerate(_FPN_CBRS):
+            out += _cbr_leaves(f"{t}feature_net.{name}", fpn + (f"ConvBnReLU_{i}",))
+        for name in _FPN_CONVS:
+            out.append((f"{t}feature_net.{name}.weight", "params", fpn + (name, "kernel"), "conv"))
+            out.append((f"{t}feature_net.{name}.bias", "params", fpn + (name, "bias"), "same"))
+    for lvl in range(num_levels):
+        out += _cost_reg_leaves(f"{t}cost_reg_{lvl}.", path + (f"cost_regs_{lvl}",), kinds[lvl])
+        for name, hpath in _HEAD_DENSES:
+            if name.startswith("agg.view_fc") and not viewdir_agg:
+                continue
+            hpath = path + (f"nerf_heads_{lvl}",) + hpath
+            out.append((f"{t}nerf_{lvl}.{name}.weight", "params", hpath + ("kernel",), "dense"))
+            out.append((f"{t}nerf_{lvl}.{name}.bias", "params", hpath + ("bias",), "same"))
+    return out
+
+
+def _cascades(top: set) -> list:
+    """(torch prefix, JAX path) of each ENeRF cascade of a model whose
+    top-level names are ``top``: the model itself, or a composite's
+    ``fg_{l}`` and ``bg``."""
+    if "bg" not in top:
+        return [("", ())]
+    n_fg = sum(k.startswith("fg_") for k in top)
+    return [(f"fg_{li}.", (f"fg_{li}",)) for li in range(n_fg)] + [("bg.", ("bg",))]
+
+
+def _jax_enerf_leaves(params: dict) -> list:
+    out = []
+    for t, path in _cascades(set(params)):
+        node = params[path[0]] if path else params
+        num_levels = sum(k.startswith("cost_regs_") for k in node)
+        kinds = [_cost_reg_kind(lambda _, j, n=node[f"cost_regs_{lvl}"]: j in n)
+                 for lvl in range(num_levels)]
+        out += _enerf_leaves(num_levels, "view_fc" in node["nerf_heads_0"]["agg"], kinds,
+                             "feature_net" in node, t, path)
+    return out
+
+
+def _torch_enerf_leaves(sd: dict) -> list:
+    out = []
+    for t, path in _cascades({k.split(".")[0] for k in sd}):
+        num_levels = sum(k.startswith(f"{t}cost_reg_") and k.endswith(".conv0.conv.weight")
+                         for k in sd)
+        kinds = [_cost_reg_kind(lambda c, _, p=f"{t}cost_reg_{lvl}.": f"{p}{c}.conv.weight" in sd)
+                 for lvl in range(num_levels)]
+        out += _enerf_leaves(num_levels, f"{t}nerf_0.agg.view_fc.0.weight" in sd, kinds,
+                             f"{t}feature_net.conv0.0.conv.weight" in sd, t, path)
+    return out
+
+
+def _state_dict(variables: dict, leaves: list) -> dict:
     sd = {}
-    for key, col, path, kind in _enerf_leaves(num_levels, viewdir_agg):
-        sd[key] = torch.tensor(_LAYOUT[kind][0](_get(variables[col], path)))
+    for key, col, path, kind in leaves:
+        sd[key] = torch.tensor(np.ascontiguousarray(_LAYOUT[kind][0](_get(variables[col], path))))
         if key.endswith(".running_var"):
-            sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+            sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.int64)
     return sd
+
+
+def _numpy_state_dict(state_dict: dict) -> dict:
+    return {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+            for k, v in state_dict.items()}
+
+
+def _variables(sd: dict, leaves: list) -> dict:
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for key, col, path, kind in leaves:
+        _put(tree[col], path, np.ascontiguousarray(_LAYOUT[kind][1](sd[key])))
+    return tree
+
+
+def enerf_state_dict_from_jax(variables: dict) -> dict:
+    """A JAX ENeRF/BoostENeRF/HumanENeRF/CompositeENeRF ``{'params',
+    'batch_stats'}`` tree (numpy or jax arrays; a JAX ``TrainState``'s
+    ``params`` and ``batch_stats`` after training steps as well) -> the
+    port's ``state_dict`` (CPU tensors). The cascades (a composite's
+    ``fg_{l}`` and ``bg``), their levels, each level's cost-regularisation
+    net and the view-direction conditioning are read from the tree; the
+    image-feature-only head differs only in its weights' shapes."""
+    return _state_dict(variables, _jax_enerf_leaves(variables["params"]))
 
 
 def enerf_variables_from_state_dict(state_dict: dict) -> dict:
     """The inverse of ``enerf_state_dict_from_jax``: the port's ENeRF /
-    BoostENeRF ``state_dict`` (after training steps too) -> a JAX
-    ``{'params', 'batch_stats'}`` tree of numpy arrays."""
-    sd = {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
-          for k, v in state_dict.items()}
-    num_levels = sum(k.startswith("cost_reg_") and k.endswith("conv0.conv.weight") for k in sd)
-    viewdir_agg = "nerf_0.agg.view_fc.0.weight" in sd
-    tree: dict = {"params": {}, "batch_stats": {}}
-    for key, col, path, kind in _enerf_leaves(num_levels, viewdir_agg):
-        _put(tree[col], path, np.ascontiguousarray(_LAYOUT[kind][1](sd[key])))
-    return tree
+    BoostENeRF / HumanENeRF / CompositeENeRF ``state_dict`` (after training
+    steps too) -> a JAX ``{'params', 'batch_stats'}`` tree of numpy arrays."""
+    sd = _numpy_state_dict(state_dict)
+    return _variables(sd, _torch_enerf_leaves(sd))
+
+
+def cost_reg_state_dict_from_jax(variables: dict) -> dict:
+    """A JAX ``CostRegNet`` (either upsampling) or ``MinCostRegNet`` tree ->
+    the port's module's ``state_dict``."""
+    kind = _cost_reg_kind(lambda _, j: j in variables["params"])
+    return _state_dict(variables, _cost_reg_leaves("", (), kind))
+
+
+def cost_reg_variables_from_state_dict(state_dict: dict) -> dict:
+    """The inverse of ``cost_reg_state_dict_from_jax``."""
+    sd = _numpy_state_dict(state_dict)
+    return _variables(sd, _cost_reg_leaves(
+        "", (), _cost_reg_kind(lambda c, _: f"{c}.conv.weight" in sd)))
+
+
+def _res_unet_leaves() -> list:
+    """Every leaf of ``ResUNet`` (flax names on both sides). flax's
+    ``ConvTranspose`` (no kernel transpose, SAME padding, k2 s2) is torch's
+    ``ConvTranspose2d(k2, s2)`` with the kernel flipped in both axes."""
+    out = []
+    for name in ("in_conv1", "in_conv2", "in_skip", "out_conv"):
+        out += [(f"{name}.weight", "params", (name, "kernel"), "conv"),
+                (f"{name}.bias", "params", (name, "bias"), "same")]
+    out += _bn_leaves("in_bn", ("in_bn",))
+    for block in ("res1", "res2", "bridge"):
+        for name in ("conv1", "conv2", "conv_skip"):
+            out += [(f"{block}.{name}.weight", "params", (block, name, "kernel"), "conv"),
+                    (f"{block}.{name}.bias", "params", (block, name, "bias"), "same")]
+        for name in ("bn_in", "bn_mid", "bn_skip"):
+            out += _bn_leaves(f"{block}.{name}", (block, name))
+    out += [("up1.weight", "params", ("up1", "kernel"), "deconv2d_flipped"),
+            ("up1.bias", "params", ("up1", "bias"), "same")]
+    return out
+
+
+def res_unet_state_dict_from_jax(variables: dict) -> dict:
+    """A JAX ``ResUNet`` tree -> the port's ``ResUNet`` ``state_dict``."""
+    return _state_dict(variables, _res_unet_leaves())
+
+
+def res_unet_variables_from_state_dict(state_dict: dict) -> dict:
+    """The inverse of ``res_unet_state_dict_from_jax``."""
+    return _variables(_numpy_state_dict(state_dict), _res_unet_leaves())
 
 
 _MVS_FEATURE_BLOCKS = ("conv0.0", "conv0.1", "conv1.0", "conv1.1", "conv1.2",
@@ -214,25 +339,16 @@ def mvsnerf_state_dict_from_jax(variables: dict) -> dict:
     tied values, and training then moves the layers apart, as in JAX."""
     mlp = variables["params"]["renderer"]
     depth = sum(k.startswith("pts_") and k != "pts_bias" for k in mlp)
-    sd = {}
-    for key, col, path, kind in _mvsnerf_leaves(depth, _mvs_head_kind(mlp)):
-        sd[key] = torch.tensor(_LAYOUT[kind][0](_get(variables[col], path)))
-        if key.endswith(".running_var"):
-            sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
-    return sd
+    return _state_dict(variables, _mvsnerf_leaves(depth, _mvs_head_kind(mlp)))
 
 
 def mvsnerf_variables_from_state_dict(state_dict: dict) -> dict:
     """The inverse of ``mvsnerf_state_dict_from_jax``: the port's MVSNeRF /
     BoostMVSNeRF ``state_dict``, any ``net_type`` (after training steps
     too) -> a JAX ``{'params', 'batch_stats'}`` tree of numpy arrays."""
-    sd = {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
-          for k, v in state_dict.items()}
+    sd = _numpy_state_dict(state_dict)
     depth = sum(k.startswith("nerf.nerf.pts_linears.") and k.endswith(".weight") for k in sd)
-    tree: dict = {"params": {}, "batch_stats": {}}
-    for key, col, path, kind in _mvsnerf_leaves(depth, _mvs_head_kind(sd)):
-        _put(tree[col], path, np.ascontiguousarray(_LAYOUT[kind][1](sd[key])))
-    return tree
+    return _variables(sd, _mvsnerf_leaves(depth, _mvs_head_kind(sd)))
 
 
 def random_state_dict(module: torch.nn.Module, seed: int, prefix: str = "") -> dict:

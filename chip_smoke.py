@@ -81,8 +81,9 @@ phase. Three main paths are driven, each with its kernels checked first:
    ``train.epoch 2``: it begins at epoch 1 and takes 4 more steps. The
    kernels on the first batch; one validation frame with the
    convolutions at bf16 (``conv_dtype``) against float32; ``run_train``
-   at 128x192 for 2 steps on the card against the CPU port (losses and
-   the parameters' change, with a skipped Adam step as the control).
+   at 128x192 for 2 steps on the card against the CPU port (the first
+   step's loss and the parameters' change, with a skipped Adam step as
+   the control).
 11. mvsnerf_heads - BoostMVSNeRF at the second main path's workload with
    each of its other renderer heads (net_type v1, v2, color_fusion, whose
    MLPs run plainly on every device): the volume and colour lookups
@@ -114,6 +115,25 @@ phase. Three main paths are driven, each with its kernels checked first:
    card against the CPU port, with faults planted in the CPU port to show
    the bars catch them; launches per step, step times over three batches;
    one profiled step.
+14. kernels (path composite), composite, profile_composite,
+   composite_train, human - the ENeRF variants. ``CompositeENeRF`` from
+   YAML (configs/exps/evaluate/enerf/base_eval.yaml, the eval cascade:
+   planes (64, 8), samples (8, 2), level 1 rendered; ``network_module``
+   enerf_composite, 2 foreground layers of 224x320 at origins (96, 64) and
+   (384, 192), background planes (16, 4)) at 480x736, 3 views: #1, #3 and
+   the head's image-feature-only instance (C = 11 and 35) on the first
+   layer's crop against their plain versions; the reduced frame (128x192,
+   64x64 crops) on the card against the CPU port (rgb over 45 dB); launches
+   per frame (#1 6, #3 3, #5 3, 2 of them without voxel features), frame
+   times, peak memory; one profiled frame. One train step of the 2-layer
+   composite at 128x192 on the card against the float64 CPU port (the
+   BoostENeRF gradient bars, float32's spread and two planted faults on
+   both sides). ``HumanENeRF`` through the eval entry
+   (configs/exps/evaluate/enerf/free_eval.yaml) and the training entry
+   (configs/exps/finetune/enerf/free/base.yaml, shortened as item 10, on
+   random rays drawn on the mask with two 32x32 patches at level 1) on
+   the Free scene: launches against the design, steps, peak memory;
+   ``run_train`` at 128x192 on the card against the CPU port.
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and a last status line. Any failed check raises,
 and the script exits non-zero; it also exits non-zero, printing no
@@ -365,12 +385,16 @@ def sample_work(imgs, x, y, padding_mode="border"):
 
 def head_work(params, vox, feat, dirs):
     """The dense layers' multiply-adds per sample, all on bf16 tensor cores
-    (the kernel's one contract)."""
+    (the kernel's one contract); lr0 and color0's per-sample part over
+    [vox 8, agg 16], or [agg 16] for the image-feature-only head (no
+    voxel features read)."""
     B, S, P, C = feat.shape
-    macs = (S * C * 4 + 2 * 32 * C + S * 32 * C + S * 32 + 16 * 32 + 64 * 24 + 64
-            + 64 * 88 + S * 64 * (C + 4) + S * 64)
+    L = params["lr0"][0].shape[1]
+    macs = (S * C * 4 + 2 * 32 * C + S * 32 * C + S * 32 + 16 * 32 + 64 * L + 64
+            + 64 * (64 + L) + S * 64 * (C + 4) + S * 64)
     n_weights = sum(w.numel() + b.numel() for w, b in params.values())
-    nbytes = 4 * (vox.numel() + feat.numel() + dirs.numel() + 4 * B * P + n_weights)
+    n_vox = 0 if vox is None else vox.numel()
+    nbytes = 4 * (n_vox + feat.numel() + dirs.numel() + 4 * B * P + n_weights)
     return nbytes, 0.0, 2 * macs * B * P
 
 
@@ -1252,15 +1276,22 @@ def smooth_scene_batch(H: int, W: int, seed: int) -> dict:
                              rig="forward", with_targets=True)
     pos = np.array([0.15 * np.sin(0.75), 0.04 * np.cos(1.35), 0.375])  # the rig's path at 1.5
     batch["tar_ext"] = look_at_ext(pos, target=pos + np.array([0.0, 0.0, 5.0]))[None]
+    batch["src_inps"] = batch["all_src_inps"] = smooth_images(batch["src_inps"].shape, seed)
+    return batch
+
+
+def smooth_images(shape: tuple, seed: int) -> np.ndarray:
+    """Source images (B, S, H, W, 3) in [-1, 1] made of a few seeded
+    sinusoids."""
+    H, W = shape[2:4]
     rng = np.random.default_rng(seed)
     yy, xx = np.meshgrid(np.arange(H) / H, np.arange(W) / W, indexing="ij")
-    img = np.zeros(batch["src_inps"].shape)
+    img = np.zeros(shape)
     for _ in range(6):
         fx, fy, phase = rng.uniform(0.5, 3.0), rng.uniform(0.5, 3.0), rng.uniform(0, 2 * np.pi)
         wave = np.sin(2 * np.pi * (fx * xx + fy * yy) + phase)[None, None, :, :, None]
         img += rng.uniform(-0.25, 0.25, (*img.shape[:2], 1, 1, 3)) * wave
-    batch["src_inps"] = batch["all_src_inps"] = img.astype(np.float32)
-    return batch
+    return img.astype(np.float32)
 
 
 def grad_rel_errors(got: dict, want: dict, floor: float = 1e-5) -> dict:
@@ -1586,15 +1617,17 @@ TRAIN_ENTRY_OPTS = ("train.epoch", "1", "ep_iter", "4", "eval_ep", "1", "log_int
 TRAIN_ENTRY_RAY_BLOCKS = 2
 TRAIN_CHECK_HW = (128, 192)
 TRAIN_CHECK_STEPS = 2
-# Card vs CPU port over ``run_train(cfg)``: each step's loss (relative),
-# and the parameters' change after TRAIN_CHECK_STEPS steps, relative L2 of
-# all parameters together. Adam moves each parameter by about the learning
-# rate whatever the size of its gradient, so where a gradient is small
-# against its rounding (the U-Nets' convolutions on noise images) float32
-# alone flips the step's sign: on the CPU port at 64x96 float32 against
-# float64 reads 0.27 after two steps, and the control, a skipped last Adam
-# step, 0.76 (tests/test_torch_chip_smoke_work.py). The losses carry the
-# tight bar; the change's bar lies between those readings.
+# Card vs CPU port over ``run_train(cfg)``: the first step's loss
+# (relative), and the parameters' change after TRAIN_CHECK_STEPS steps,
+# relative L2 of all parameters together. Adam moves each parameter by
+# about the learning rate whatever the size of its gradient, so where a
+# gradient is small against its rounding (the U-Nets' convolutions on noise
+# images) float32 alone flips the step's sign: on the CPU port at 64x96
+# float32 against float64 reads 0.27 after two steps, and the control, a
+# skipped last Adam step, 0.76 (tests/test_torch_chip_smoke_work.py). The
+# first step's loss carries the tight bar (the second's, after one such
+# update, read 3.9e-5 to 5.8e-5 on the H100, too near it: PERF.md, section
+# 6); the change's bar lies between those readings.
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_DELTA_RTOL = 0.5
 
@@ -1989,12 +2022,16 @@ def bf16_conv_check(ws: str, vs: dict) -> dict:
 
 
 def train_readings(losses, ref_losses, delta: dict, ref_delta: dict) -> dict:
-    """Each step's loss against the reference's (the largest relative
-    error) and the parameters' change (relative L2 of all together)."""
+    """The first step's loss against the reference's (relative error: both
+    runs start from the same weights, so it differs by float32's rounding
+    of one forward alone; a later step's follows an Adam update in which
+    that rounding flips the sign of the smallest gradients, and is
+    reported, not held), and the parameters' change (relative L2 of all
+    together)."""
     num = math.sqrt(sum(float(((delta[k] - v) ** 2).sum()) for k, v in ref_delta.items()))
     den = math.sqrt(sum(float((v ** 2).sum()) for v in ref_delta.values()))
-    return {"loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
-            "delta_rel_l2": num / den}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    return {"loss_rel_err": rel[0], "later_loss_rel_err": rel[1:], "delta_rel_l2": num / den}
 
 
 def within_train_bars(r: dict) -> bool:
@@ -2029,7 +2066,7 @@ def train_check(ws: str, cfg_fn=None) -> dict:
         runs = {}
         for d in ("cuda", "cpu"):
             cfg = recipe_cfg(small, *opts, "exp_name_tag", f"check_{d}")
-            if d == "cpu":
+            if d == "cpu" and runner.requires_view_selection(cfg):
                 os.makedirs(cfg.result_dir, exist_ok=True)
                 shutil.copy(runner.view_selection_path(runs["cuda"]["cfg"]),
                             runner.view_selection_path(cfg))
@@ -2419,6 +2456,352 @@ def phase_profile_train_mvsnerf(cfg, weights: dict, batch: dict) -> None:
     emit(phase="profile_train_mvsnerf_plain", **mvs_plain_times(model, batch))
 
 
+# ------------------------------------------------ the ENeRF variants
+
+COMPOSITE_CFG = "configs/exps/evaluate/enerf/base_eval.yaml"
+# the layered composite at the published ENeRF widths: 2 foreground layers
+# of 224x320 crops (multiples of 8 = 1 / min(volume_scale)) at origins
+# (x, y), background planes (16, 4) (JAX runner's defaults otherwise)
+COMPOSITE_OPTS = ("network_module", "lib.networks.enerf.enerf_composite",
+                  "composite.num_fg_layers", "2", "composite.fg_hw", "[224, 320]",
+                  "composite.bg_planes", "[16, 4]")
+COMPOSITE_ORIGINS = ((96, 64), (384, 192))
+COMPOSITE_HW = (480, 736)
+# the card-vs-CPU frame and train step: 128x192, 64x64 crops
+COMPOSITE_CHECK_HW, COMPOSITE_CHECK_FG = (128, 192), (64, 64)
+COMPOSITE_CHECK_ORIGINS = ((16, 16), (120, 56))
+# per frame, from the code (CompositeENeRF.render with render_if [false,
+# true]): each level builds a volume per foreground layer and one for the
+# background (#1 x 3 x 2); level 1 renders each layer and the background
+# (#3 x 3, #5 x 3, of them 2 without voxel features)
+COMPOSITE_FRAME = {"warp_variance": 6, "img_sample": 3, "enerf_head": 3}
+COMPOSITE_NO_VOX_HEADS = 2
+HUMAN_EVAL = "configs/exps/evaluate/enerf/free_eval.yaml"
+HUMAN_FINETUNE = "configs/exps/finetune/enerf/free/base.yaml"
+# the ENeRF fine-tuning recipe on random rays (dtu_pretrain.yaml's budget),
+# drawn on the target's mask, with two 32x32 patches at level 1
+HUMAN_TRAIN_OPTS = ("network_module", "lib.networks.enerf.enerf_human",
+                    "enerf.cas_config.train_img", "[false, false]",
+                    "enerf.cas_config.num_rays", "[4096, 32768]", "enerf.sample_on_mask", "true",
+                    "enerf.cas_config.num_patchs", "[0, 2]",
+                    "enerf.cas_config.patch_size", "[-1, 32]")
+
+
+def composite_batch(H: int, W: int, origins, seed: int, targets: bool = False) -> dict:
+    """A forward-rig batch (3 views) for the layered composite: the crops'
+    origins as ``bbox`` and per-layer depth ranges (each foreground band
+    inside the background's), as JAX tests/test_variants.py builds them;
+    smooth source images for a train step."""
+    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
+
+    b = make_scene_batch(B=1, n_views=3, H=H, W=W, seed=seed, rig="forward",
+                         with_targets=targets)
+    nf = b["near_far"]
+    b["near_far"] = np.stack([nf * np.array([1.2, 0.8])] * len(origins) + [nf],
+                             1).astype(np.float32)
+    b["bbox"] = np.asarray(origins, np.int32)[None]
+    if targets:
+        b["src_inps"] = smooth_images(b["src_inps"].shape, seed)
+    return b
+
+
+def composite_cfg(*opts):
+    from boostmvsnerfs_torch.config import make_cfg
+
+    return make_cfg(COMPOSITE_CFG, [*COMPOSITE_OPTS, *opts])
+
+
+def composite_kernel_inputs(model, batch) -> dict:
+    """The kernels' inputs on the composite frame, from the first
+    foreground layer's own stages (its crop camera and depth range): #1 at
+    both levels, #3 at level 1, and the image-feature-only head at level 1
+    (C = 11) and at level 0 (C = 35; the eval cascade builds level 0's
+    volume and maps but renders level 1 only)."""
+    from boostmvsnerfs_torch.models.variants import _shift_ppoint
+    from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample
+
+    fg, cas, (h, w) = model.fg(0), model.cas, model.fg_hw
+    feats = fg.extract_features(batch["src_inps"])
+    origin = batch["bbox"][:, 0].float()
+    sub = {**batch, "tar_ixt": _shift_ppoint(batch["tar_ixt"], origin[:, 0], origin[:, 1])}
+    stage = (sub["src_exts"], sub["src_ixts"], sub["tar_ext"], sub["tar_ixt"],
+             sub["near_far"][:, 0])
+    out = {"warp_variance": [], "img_sample": []}
+    prev = None
+    for level in range(cas.num):
+        dv, _, pm = fg.volume_inputs(level, feats, *stage, prev, tar_hw=(h, w))
+        out["warp_variance"].append((f"fg0 level{level}", (feats[f"level_{level}"], pm, dv)))
+        _, *prev = fg.build_level_volume(level, feats, *stage, prev, tar_hw=(h, w))
+        bounds_map, maps = fg.level_maps(level, feats, *prev, sub["src_inps"], (h, w))
+        rs = cas.render_scale[level]
+        ray_idx = torch.arange(int(h * rs) * int(w * rs), device=maps.device)[None]
+        world_xyz, _, _ = fg.sample_rays(level, bounds_map, sub, ray_idx)
+        B, S, Hm, Wm, C = maps.shape
+        pts = world_xyz.reshape(B, -1, 3)
+        x, y = fg.project_to_views(pts, sub, rs)
+        args = (maps.reshape(B * S, Hm, Wm, C), x.reshape(B * S, -1), y.reshape(B * S, -1))
+        if cas.render_if[level]:
+            out["img_sample"].append((f"fg0 level{level}", args))
+        feat = fused_row_sample(*args).reshape(B, S, -1, C)
+        head = (getattr(fg, f"nerf_{level}").head_params(), None, feat,
+                fg.ray_diff_dirs(pts, sub))
+        out[f"enerf_head/no_vox_C{C}"] = [(f"fg0 level{level}", head)]
+    return out
+
+
+COMPOSITE_KERNELS = {
+    "warp_variance": ENERF_KERNELS["warp_variance"],
+    "img_sample": ENERF_KERNELS["img_sample"],
+    **{f"enerf_head/no_vox_C{C}": (
+        "enerf_head", f"image-feature-only (use_vox_feat false), C {C}",
+        "boostmvsnerfs_tpu/ops/pallas/enerf_head.py:45", head_work, None, BF16)
+       for C in (11, 35)},
+}
+
+
+def composite_check(state: dict) -> dict:
+    """The reduced composite frame (COMPOSITE_CHECK_*) on the card against
+    the CPU port, same weights: rgb PSNR over 45 dB."""
+    from boostmvsnerfs_torch import runner
+
+    cfg = composite_cfg("composite.fg_hw", "[{}, {}]".format(*COMPOSITE_CHECK_FG))
+    batch = composite_batch(*COMPOSITE_CHECK_HW, COMPOSITE_CHECK_ORIGINS, seed=3)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = runner.make_network(cfg, device)
+        model.load_state_dict(state, strict=True)
+        outs[device] = {k: v.cpu().numpy() for k, v in model(batch).items()}
+    g, c = outs["cuda"], outs["cpu"]
+    require(g.keys() == c.keys(), "composite: output keys differ between card and CPU")
+    out = {"geometry": list(COMPOSITE_CHECK_HW), "fg_hw": list(COMPOSITE_CHECK_FG),
+           "origins": COMPOSITE_CHECK_ORIGINS, "rgb_psnr_db": psnr_db(g["rgb_level1"],
+                                                                       c["rgb_level1"]),
+           "depth_max_abs_err": float(np.abs(g["depth_level1"] - c["depth_level1"]).max())}
+    require(out["rgb_psnr_db"] > 45.0, f"composite: card vs CPU {out}")
+    return out
+
+
+def no_vox_heads_per_frame(model, batch) -> int:
+    """Head calls without voxel features in one frame of ``model``."""
+    from boostmvsnerfs_torch.models import nerf_head
+
+    calls = []
+    original = nerf_head.fused_nerf_head
+
+    def spy(params, vox, *args):
+        calls.append(vox is None)
+        return original(params, vox, *args)
+
+    nerf_head.fused_nerf_head = spy
+    try:
+        model(batch)
+    finally:
+        nerf_head.fused_nerf_head = original
+    return sum(calls)
+
+
+def run_composite() -> list:
+    """Phases ``kernels`` (path composite), ``composite`` and
+    ``profile_composite``: the layered composite from YAML
+    (``make_network`` over COMPOSITE_CFG with COMPOSITE_OPTS: the eval
+    cascade of base_eval.yaml, 3 views) at 480x736 with seeded weights.
+    Returns the kernels' summary records with the frame's launches."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.models.enerf import to_tensors
+
+    t_phase = time.perf_counter()
+    cfg = composite_cfg()
+    model = runner.make_network(cfg)
+    state = random_weights(model, 0)
+    model.load_state_dict(state, strict=True)
+
+    def make_batch(seed):
+        return to_tensors(composite_batch(*COMPOSITE_HW, COMPOSITE_ORIGINS, seed), model.device)
+
+    with torch.no_grad():
+        summary = phase_kernels(COMPOSITE_KERNELS, composite_kernel_inputs(model, make_batch(0)),
+                                "composite")
+        no_vox = no_vox_heads_per_frame(model, make_batch(0))
+    torch.cuda.empty_cache()
+    require(no_vox == COMPOSITE_NO_VOX_HEADS, f"composite: {no_vox} image-feature-only heads")
+    check = composite_check(random_weights(runner.make_network(
+        composite_cfg("composite.fg_hw", "[{}, {}]".format(*COMPOSITE_CHECK_FG)), "cpu"), 0))
+    launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "composite",
+                          COMPOSITE_FRAME, "rgb_level1", COMPOSITE_HW[0] * COMPOSITE_HW[1],
+                          config=COMPOSITE_CFG, overrides=list(COMPOSITE_OPTS),
+                          geometry=list(COMPOSITE_HW), views=3, fg_hw=list(model.fg_hw),
+                          origins=COMPOSITE_ORIGINS, planes=list(model.cas.volume_planes),
+                          bg_planes=list(model.bg.cas.volume_planes),
+                          no_vox_heads_per_frame=no_vox, check=check)
+    batch = make_batch(0)
+    phase_profile(lambda: model(batch), "profile_composite",
+                  ("warp_variance", "img_sample", "enerf_head"))
+    emit(phase="composite_seconds", seconds=time.perf_counter() - t_phase)
+    for rec in summary.values():
+        rec["launches"] = launches[rec["name"]]
+    return list(summary.values())
+
+
+def composite_step_grads(state: dict, batch: dict, device: str, dtype):
+    """One Adam step of the 2-layer composite at COMPOSITE_CHECK_FG crops
+    (the default cascade: both levels rendered on full images) from
+    ``state``: (loss, gradients as float64 CPU tensors; the foreground
+    volumes' feat_conv, which no head reads, at 0)."""
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+    from boostmvsnerfs_torch.models.variants import CompositeENeRF
+    from boostmvsnerfs_torch.parallel.train import create_train_state, make_train_step
+    from boostmvsnerfs_torch.train.schedule import make_optimizer
+
+    model = CompositeENeRF(CascadeConfig(), num_fg_layers=2, fg_hw=COMPOSITE_CHECK_FG,
+                           device=device).to(dtype)
+    model.load_state_dict(state, strict=True)
+    train_state = create_train_state(model, make_optimizer(TRAIN_CFG, TRAIN_EP_ITER))
+    loss = float(make_train_step(model)(train_state, batch)["loss"])
+    return loss, {k: (p.grad if p.grad is not None else torch.zeros_like(p)).double().cpu()
+                  for k, p in model.named_parameters()}
+
+
+# Faults planted into the CPU port's composite step (as PLANTED_FAULTS):
+# the crops scattered at the frame's origin, and the crop camera not moved
+# in y.
+COMPOSITE_FAULTS = {
+    "_scatter_full: every crop at (0, 0)": (
+        "boostmvsnerfs_torch.models.variants", "_scatter_full",
+        lambda fn: lambda u, y0, x0, H, W: fn(u, y0 * 0, x0 * 0, H, W)),
+    "_shift_ppoint: y0 ignored": (
+        "boostmvsnerfs_torch.models.variants", "_shift_ppoint",
+        lambda fn: lambda ixt, x0, y0: fn(ixt, x0, y0 * 0)),
+}
+
+
+def phase_composite_train() -> None:
+    """One ``make_train_step`` step of the 2-layer composite at
+    COMPOSITE_CHECK_HW on the card (float32: #1 f32, #2, #3 and #4 at the
+    crops' shapes) and on the CPU port (float32, and float64 as the
+    reference): the losses within 1e-4, the card's gradients within the
+    GRAD_RTOL_* bars of float64, the bars tested in the same run (float32's
+    spread passes them, every fault of COMPOSITE_FAULTS fails them)."""
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+    from boostmvsnerfs_torch.models.variants import CompositeENeRF
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    state = random_weights(CompositeENeRF(CascadeConfig(), num_fg_layers=2,
+                                          fg_hw=COMPOSITE_CHECK_FG, device="cpu"), 0)
+    batch = composite_batch(*COMPOSITE_CHECK_HW, COMPOSITE_CHECK_ORIGINS, seed=3, targets=True)
+    reset_launch_counts()
+    lg, gg = composite_step_grads(state, batch, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    card_launches = launch_counts()
+    lc, gc = composite_step_grads(state, batch, "cpu", torch.float32)
+    ref_loss, ref = composite_step_grads(state, batch, "cpu", torch.float64)
+    bars = cpu_bar_readings(state, batch, ref, [gc], faults=COMPOSITE_FAULTS,
+                            grads=lambda b: composite_step_grads(state, b, "cpu",
+                                                                 torch.float32)[1])
+    vs_ref = grad_rel_errors(gg, ref)
+    worst = sorted(vs_ref, key=vs_ref.get, reverse=True)[:3]
+    # per level: 3 volumes (#1 f32 and #2 each), 3 renders (#3 and #4 each)
+    design = added({"warp_variance": 6, "warp_variance_bwd": 6, "img_sample": 6,
+                    "img_sample_bwd": 6})
+    record = {"geometry": list(COMPOSITE_CHECK_HW), "fg_hw": list(COMPOSITE_CHECK_FG),
+              "origins": COMPOSITE_CHECK_ORIGINS, "views": 3, "launches_card_step": card_launches,
+              "loss_card": lg, "loss_cpu": lc, "loss_cpu_float64": ref_loss,
+              "loss_rel_err": abs(lg - lc) / abs(lc),
+              "card_vs_float64_worst": {k: vs_ref[k] for k in worst},
+              "card_vs_float64_global": global_rel_error(gg, ref),
+              "card_vs_cpu_worst": max(grad_rel_errors(gg, gc).values()),
+              "bars": {"tensor": GRAD_RTOL_TENSOR, "global": GRAD_RTOL_GLOBAL},
+              "cpu_float32_vs_float64": bars["spread"], "cpu_planted_faults": bars["faults"],
+              "phase_seconds": time.perf_counter() - t_phase}
+    emit(phase="composite_train", **record)
+    require(card_launches == design, "composite_train: launches of the card's step")
+    require(all(within_bars(r) for r in bars["spread"]), "float32's own spread fails the bars")
+    for fault, r in bars["faults"].items():
+        require(not within_bars(r), f"planted fault {fault!r} passes the bars: {r}")
+    require(record["loss_rel_err"] <= 1e-4, "composite_train: card vs CPU loss")
+    require(within_bars({"worst": max(vs_ref.values()),
+                         "global": record["card_vs_float64_global"]}),
+            "composite_train: card gradients")
+
+
+def human_train_cfg(ws: str, *opts):
+    from boostmvsnerfs_torch.config import make_cfg
+
+    return make_cfg(HUMAN_FINETUNE, ["workspace", ws, "scene", "grass", *TRAIN_ENTRY_OPTS,
+                                     *HUMAN_TRAIN_OPTS, *opts])
+
+
+def phase_human(ws: str) -> None:
+    """``HumanENeRF`` from YAML on the Free scene at 480x736 (its batches
+    carry no ``mask_at_box``, so the eval frame is ENeRF's): the eval entry
+    over HUMAN_EVAL (launches per frame against the design), then the
+    training entry over HUMAN_FINETUNE, shortened as ``train_entry`` and on
+    random rays with mask sampling and patches (HUMAN_TRAIN_OPTS): steps,
+    launches per step and per validation frame against the design, peak
+    memory; then ``run_train`` at TRAIN_CHECK_HW card against CPU."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.data import make_dataset
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    cfg = eval_cfg(HUMAN_EVAL, ws, "grass", "network_module", "lib.networks.enerf.enerf_human")
+    save_seeded_weights(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ret = runner.run_evaluate(cfg)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    views = len(ret["frame_ms"])
+    cas = runner.make_network(cfg, "cpu").cas
+    rendered = sum(cas.render_if)
+    frame = {"warp_variance": cas.num, "img_sample": rendered, "enerf_head": rendered}
+    require(launches == added(scaled(frame, views)), f"human eval: launches {launches}")
+    require(views == 2 and math.isfinite(ret["psnr"]), f"human eval: {ret}")
+    record = {"evaluate": {"config": HUMAN_EVAL, "launches": launches,
+                           "frame_ms": ret["frame_ms"],
+                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "summary": {k: v for k, v in ret.items() if k != "frame_ms"}}}
+
+    cfg = human_train_cfg(ws)
+    save_pretrain(cfg)
+    run = drive_train_entry(cfg, 0)
+    model = runner.make_network(cfg, "cpu")
+    loader = runner.train_loader(cfg, make_dataset(cfg, "train"))
+    loader.set_epoch(0)
+    batch = runner._device_batch(next(iter(loader)), "cpu")
+    n_rays = [int(batch[f"ray_idx_{i}"].shape[1]) for i in range(cas.num)]
+    require(n_rays == [4096, 32768 + 2 * 32 * 32], f"human train: rays per level {n_rays}")
+    step = expected_train_launches(model, batch, 0)
+    rendered = sum(model.cas.render_if)
+    validation = added(scaled({"warp_variance": model.cas.num, "img_sample": rendered,
+                               "enerf_head": rendered}, 2))
+    design = {"step": step, "validation": validation,
+              "first": added(scaled(step, 4), validation)}
+    check_train_entry_run("first", run, design, 0, steps=4, prepass=False)
+    record["train"] = {"config": HUMAN_FINETUNE,
+                       "overrides": [*TRAIN_ENTRY_OPTS, *HUMAN_TRAIN_OPTS],
+                       "batch": int(batch["src_inps"].shape[0]), "rays_per_level": n_rays,
+                       "design": design, **{k: run[k] for k in (
+                           "seconds", "launches", "peak_mem_gib", "final_step", "val",
+                           "validations")}, **step_summary(run)}
+    record["check"] = train_check(ws, human_train_cfg)
+    record["phase_seconds"] = time.perf_counter() - t_phase
+    emit(phase="human", **record)
+
+
+def run_variants() -> list:
+    """The ENeRF variants (module docstring, item 14)."""
+    records = run_composite()
+    torch.cuda.empty_cache()
+    phase_composite_train()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        free_scene(ws)
+        phase_human(ws)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2459,6 +2842,8 @@ def main() -> int:
     records += run_train_entry_mvsnerf()
     torch.cuda.empty_cache()
     records += run_train_path()
+    torch.cuda.empty_cache()
+    records += run_variants()
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

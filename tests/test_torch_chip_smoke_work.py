@@ -499,3 +499,42 @@ def test_mvsnerf_train_bars_pass_float32_and_fail_a_skipped_step(smoke, tmp_path
     record_property("control_last_step_skipped", control)
     assert smoke.within_train_bars(reading), reading
     assert not smoke.within_train_bars(control), control
+
+
+def test_composite_frame_and_step_launch_designs(smoke, counted):
+    """The phases ``composite`` and ``composite_train`` at their check size
+    (128x192, 64x64 crops) on the CPU: a frame of the composite from YAML
+    launches COMPOSITE_FRAME, 2 of its heads without voxel features; the
+    kernel inputs come from the first layer's crop (the image-feature-only
+    head at C = 11 and 35); a train step launches #1 and #2 per volume, #3
+    and #4 per rendered layer and level, no head."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.models.enerf import to_tensors
+    from boostmvsnerfs_torch.models.variants import CompositeENeRF
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = _in_repo(smoke.composite_cfg, "composite.fg_hw", "[64, 64]")
+    model = runner.make_network(cfg, "cpu")
+    assert (model.num_fg_layers, model.bg.cas.volume_planes) == (2, (16, 4))
+    batch = to_tensors(smoke.composite_batch(*smoke.COMPOSITE_CHECK_HW,
+                                             smoke.COMPOSITE_CHECK_ORIGINS, 0), model.device)
+    with torch.no_grad():
+        model(batch)
+        assert launch_counts() == smoke.added(smoke.COMPOSITE_FRAME)
+        assert smoke.no_vox_heads_per_frame(model, batch) == smoke.COMPOSITE_NO_VOX_HEADS
+        inputs = smoke.composite_kernel_inputs(model, batch)
+    assert inputs.keys() == smoke.COMPOSITE_KERNELS.keys()
+    assert [a[0].shape[-1] for _, a in inputs["warp_variance"]] == [32, 16]
+    assert tuple(inputs["img_sample"][0][1][1].shape) == (3, 64 * 64 * 2)
+    for C in (11, 35):
+        (_, (params, vox, feat, _)), = inputs[f"enerf_head/no_vox_C{C}"]
+        assert vox is None and feat.shape[-1] == C and params["lr0"][0].shape[1] == 16
+    reset_launch_counts()
+    state = smoke.random_weights(CompositeENeRF(model.cas, num_fg_layers=2,
+                                                fg_hw=smoke.COMPOSITE_CHECK_FG, device="cpu"), 0)
+    step_batch = smoke.composite_batch(64, 96, ((16, 0), (32, 0)), seed=3, targets=True)
+    loss, grads = smoke.composite_step_grads(state, step_batch, "cpu", torch.float32)
+    assert np.isfinite(loss) and grads.keys() == state.keys() - {
+        k for k in state if "running" in k or "num_batches" in k}
+    assert launch_counts() == smoke.added({"warp_variance": 6, "warp_variance_bwd": 6,
+                                           "img_sample": 6, "img_sample_bwd": 6})

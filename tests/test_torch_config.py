@@ -3,8 +3,9 @@
 Every YAML under configs/ resolves its ``parent_cfg`` chain in both
 packages to equal trees; ``CascadeConfig.from_cfg`` and
 ``MVSNeRFConfig.from_cfg`` agree with JAX's on every field the port has;
-the TPU knobs are dropped by name, and every setting the port does not have
-raises instead of being dropped.
+the TPU knobs are dropped by name, and a setting no config knows raises
+instead of being dropped; the variants' settings and networks build as
+JAX's do.
 """
 
 import dataclasses
@@ -17,9 +18,10 @@ import torch
 
 from boostmvsnerfs_torch import runner
 from boostmvsnerfs_torch.config import CfgNode, default_cfg, finalize_cfg, make_cfg
-from boostmvsnerfs_torch.models.enerf import REFUSED, TPU_KNOBS, CascadeConfig
+from boostmvsnerfs_torch.models.enerf import TPU_KNOBS, CascadeConfig
 from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
 from boostmvsnerfs_tpu import config as jconfig
+from boostmvsnerfs_tpu import runner as jrunner
 from boostmvsnerfs_tpu.models.enerf import CascadeConfig as JaxCascadeConfig
 from boostmvsnerfs_tpu.models.mvsnerf import MVSNeRFConfig as JaxMVSNeRFConfig
 
@@ -69,12 +71,12 @@ def test_mvsnerf_from_cfg_matches_jax(at_repo, path):
 
 
 def test_cascade_fields_are_jaxs_without_its_tpu_knobs():
-    """Every field of JAX's CascadeConfig is the port's, a TPU knob the
-    port drops by name, or a setting it refuses."""
+    """Every field of JAX's CascadeConfig is the port's or a TPU knob the
+    port drops by name."""
     jax_fields = {f.name for f in dataclasses.fields(JaxCascadeConfig)}
     own = {f.name for f in dataclasses.fields(CascadeConfig)}
-    assert own | set(TPU_KNOBS) | set(REFUSED) == jax_fields
-    assert not own & (set(TPU_KNOBS) | set(REFUSED))
+    assert own | set(TPU_KNOBS) == jax_fields
+    assert not own & set(TPU_KNOBS)
 
 
 @pytest.mark.parametrize("knob", TPU_KNOBS)
@@ -99,19 +101,26 @@ def test_amp_config_takes_bf16_convolutions(at_repo):
         CascadeConfig.from_cfg(cfg.enerf)
 
 
-@pytest.mark.parametrize("key,value,match", [
-    ("min_cost_reg_all", True, "queue 1 item 7"),
-    ("use_vox_feat", False, "queue 1 item 7"),
-])
-def test_refused_cascade_settings_raise(at_repo, key, value, match):
-    cfg = make_cfg("configs/exps/evaluate/enerf_ours/free_eval.yaml")
-    cfg.enerf.cas_config[key] = REFUSED[key][0]
-    CascadeConfig.from_cfg(cfg.enerf)  # the one value the port takes
-    cfg.enerf.cas_config[key] = value
-    with pytest.raises(NotImplementedError, match=match):
-        CascadeConfig.from_cfg(cfg.enerf)
-    with pytest.raises(NotImplementedError, match=match):
-        runner.make_network(cfg, "cpu")
+@pytest.mark.parametrize("overrides", [
+    {"min_cost_reg_all": True}, {"use_vox_feat": False},
+    {"min_cost_reg_all": True, "use_vox_feat": False}])
+def test_variant_cascade_settings_match_jax(at_repo, overrides):
+    """The composite's per-layer settings, set in a YAML's ``cas_config``:
+    ``from_cfg`` equals JAX's on every field, and the network takes them
+    (MinCostRegNet at every level; lr0 over the pooled image feature)."""
+    path = "configs/exps/evaluate/enerf_ours/free_eval.yaml"
+    cfg, jcfg = make_cfg(path), jconfig.make_cfg(path)
+    for k, v in overrides.items():
+        cfg.enerf.cas_config[k] = jcfg.enerf.cas_config[k] = v
+    got = _fields(CascadeConfig.from_cfg(cfg.enerf))
+    want = _fields(JaxCascadeConfig.from_cfg(jcfg.enerf))
+    assert got == {k: want[k] for k in got}
+    assert all(got[k] == v for k, v in overrides.items())
+    model = runner.make_network(cfg, "cpu")
+    min_all = overrides.get("min_cost_reg_all", False)
+    assert (type(model.cost_reg_1).__name__ == "MinCostRegNet") == min_all
+    lr0 = 16 if overrides.get("use_vox_feat") is False else 24
+    assert all(getattr(model, f"nerf_{i}").lr0[0].in_features == lr0 for i in range(2))
 
 
 def test_unknown_cascade_setting_raises(at_repo):
@@ -136,11 +145,24 @@ def test_refused_mvsnerf_settings_raise(at_repo, key, value, error, match):
 
 
 @pytest.mark.parametrize("name", ["enerf_composite", "enerf_human"])
-def test_variant_networks_raise(at_repo, name):
-    cfg = make_cfg("configs/exps/evaluate/enerf/free_eval.yaml",
-                   ["network_module", f"boostmvsnerfs_tpu.models.{name}"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        runner.make_network(cfg, "cpu")
+def test_variant_networks_build_as_jaxs(at_repo, name):
+    """``make_network`` builds the variant of JAX's: the same class, cascade
+    and, for the composite, the ``composite`` node's layers and
+    ``enerf.white_bkgd``, given on the command line."""
+    path = "configs/exps/evaluate/enerf/free_eval.yaml"
+    opts = ["network_module", f"boostmvsnerfs_tpu.models.{name}", "composite.num_fg_layers",
+            "2", "composite.fg_hw", "[224, 320]", "composite.bg_planes", "[16, 4]",
+            "enerf.white_bkgd", "true"]
+    model = runner.make_network(make_cfg(path, opts), "cpu")
+    jmodel = jrunner.make_network(jconfig.make_cfg(path, opts))
+    assert type(model).__name__ == type(jmodel).__name__
+    got = _fields(model.cas)
+    assert got == {k: _fields(jmodel.cas)[k] for k in got}
+    if name == "enerf_composite":
+        keys = ("num_fg_layers", "fg_hw", "bg_planes", "white_bkgd")
+        assert [getattr(jmodel, k) for k in keys] == [2, (224, 320), (16, 4), True]
+        assert [model.num_fg_layers, model.fg_hw, model.bg.cas.volume_planes,
+                model.white_bkgd] == [2, (224, 320), (16, 4), True]
 
 
 @pytest.mark.parametrize("path,cls", [

@@ -166,6 +166,30 @@ def test_enerf_head_kernel(dev, C, viewdir_agg, S):
     assert launch_counts()["enerf_head"] == 1
 
 
+@pytest.mark.parametrize("S", [2, 3, 8])
+@pytest.mark.parametrize("C,viewdir_agg", [(11, True), (35, True), (11, False), (35, False)])
+def test_enerf_head_kernel_image_feature_only(dev, C, viewdir_agg, S):
+    """The head without voxel features (``use_vox_feat=False``, every
+    foreground layer of the layered composite): ``vox=None`` throughout."""
+    head = NeRFHead(C, viewdir_agg=viewdir_agg, use_vox_feat=False)
+    head.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(head, C).items()})
+    head = head.to(dev)
+    rng = np.random.default_rng(3)
+    B, P = 2, 3001
+    feat = rng.standard_normal((B, S, P, C)).astype(np.float32)
+    feat[..., -3:] = rng.uniform(0, 1, (B, S, P, 3))
+    feat = torch.from_numpy(feat).to(dev)
+    dirs = torch.from_numpy(rng.standard_normal((B, S, P, 4)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        params = head.head_params()
+        _close_bf16(fused_nerf_head(params, None, feat, dirs),
+                    nerf_head_plain(params, None, feat, dirs, compute_dtype=torch.bfloat16),
+                    nerf_head_plain(params, None, feat, dirs))
+        with pytest.raises(ValueError, match="vox=None"):
+            fused_nerf_head(params, torch.zeros(B, P, 8, device=dev), feat, dirs)
+    assert launch_counts()["enerf_head"] == 1
+
+
 def test_img_sample_kernel_rgb(dev):
     """C = 3, border: the MVSNeRF colour lookup (no 16-byte rows)."""
     rng = np.random.default_rng(3)
@@ -402,6 +426,36 @@ def test_enerf_eval_renders_any_view_count(dev, n_views):
         with torch.no_grad():
             outs[device] = model(to_tensors(batch, model.device))["rgb_level1"].cpu()
     assert launch_counts()["enerf_head"] == 1
+    assert bool(torch.isfinite(outs["cuda"]).all())
+    mse = float(((outs["cuda"] - outs["cpu"]) ** 2).mean())
+    assert -10 * np.log10(mse) > 45.0
+
+
+def test_composite_frame_on_card(dev):
+    """A 2-layer ``CompositeENeRF`` frame (the eval cascade: level 1
+    rendered) on the card: per frame 6 warps (2 levels of 3 cascades), 3
+    samplers and 3 heads (2 of them image-feature-only), and within 45 dB of
+    the port on the CPU."""
+    from boostmvsnerfs_torch.models.variants import CompositeENeRF
+
+    cas = CascadeConfig(render_if=(False, True), volume_planes=(16, 8))
+    batch = make_scene_batch(B=1, n_views=3, H=128, W=192, seed=4, rig="forward")
+    nf = batch["near_far"]
+    batch["near_far"] = np.stack([nf * np.array([1.2, 0.8])] * 2 + [nf], 1).astype(np.float32)
+    batch["bbox"] = np.array([[[16, 16], [136, 72]]], np.int32)
+    kw = dict(num_fg_layers=2, fg_hw=(64, 64))
+    state = {k: torch.from_numpy(v)
+             for k, v in random_state_dict(CompositeENeRF(cas, device="cpu", **kw), 2).items()}
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = CompositeENeRF(cas, device=device, **kw)
+        model.load_state_dict(state, strict=True)
+        reset_launch_counts()
+        outs[device] = model(batch)["rgb_level1"].cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+    assert [counts[k] for k in ("warp_variance", "img_sample", "enerf_head")] == [6, 3, 3]
     assert bool(torch.isfinite(outs["cuda"]).all())
     mse = float(((outs["cuda"] - outs["cpu"]) ** 2).mean())
     assert -10 * np.log10(mse) > 45.0
