@@ -10,7 +10,9 @@ Usage, from the repository root:
 e.g. ``--type evaluate --cfg_file configs/exps/evaluate/enerf_ours/free_eval.yaml
 workspace <dir> scene <name>``; ``--type path`` renders ``render_num``
 (default 30) frames of a ``path_type`` (``interpolate`` or ``spiral``)
-camera path. Runs on CUDA unless ``--device cpu`` is given, under the
+camera path; ``--type gui`` serves the browser viewer at
+``http://127.0.0.1:8008/`` (``gui_host``, ``gui_port``). Runs on CUDA unless
+``--device cpu`` is given, under the
 package's numerics (``set_numerics``). Each run returns its result to
 ``main``'s caller.
 """
@@ -121,8 +123,11 @@ def run_path(cfg, device):
 
 
 def run_gui(cfg, device):
-    raise NotImplementedError(
-        "the interactive viewer is not in the port yet (ROADMAP queue 1 item 7, interactive/)")
+    """The browser viewer (``interactive/server.py``) on ``gui_host``:``gui_port``
+    (default 127.0.0.1:8008), serving until interrupted."""
+    from boostmvsnerfs_torch.interactive.server import run_gui as serve
+
+    serve(cfg, device, port=int(cfg.get("gui_port", 8008)), host=cfg.get("gui_host", "127.0.0.1"))
 
 
 RUNS = {"dataset": run_dataset, "network": run_network, "preprocess": run_preprocess,

@@ -13,7 +13,7 @@ carry ``combos`` and ``k_best`` from a view selection).
 
 Not carried from the JAX runner: ``autotune_model`` and the
 ``host_sync`` / ``frame_sync`` calls (TPU machinery), ``make_forward``'s
-staged executors, the device mesh and ``device_trace``.
+staged executors and the device mesh.
 """
 
 from __future__ import annotations
@@ -203,7 +203,11 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None) -> dict:
     ``make_network`` with ``_init_or_load``'s weights; a given model keeps
     its own weights. Runs on CUDA unless ``device`` says otherwise. A frame
     is timed as the JAX entry times it: the batch lands on the device
-    first, then the forward runs to a device synchronisation."""
+    first, then the forward runs to a device synchronisation. With
+    ``cfg.profile_dir`` set, the frames run under ``utils/profiling.
+    device_trace``, which writes their trace there."""
+    from boostmvsnerfs_torch.utils.profiling import device_trace
+
     device = resolve_device(device)
     cas = CascadeConfig.from_cfg(cfg["enerf"])
     if model is None:
@@ -235,16 +239,17 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None) -> dict:
             torch.cuda.synchronize(device)
 
     net_times = []
-    for np_batch in loader:
-        if boost:
-            np_batch = attach_boost_inputs(np_batch, vs, cfg)
-        batch = _device_batch(np_batch, device)
-        sync()
-        t0 = time.perf_counter()
-        out = model(batch)
-        sync()
-        net_times.append(time.perf_counter() - t0)
-        evaluator.evaluate(out, np_batch)
+    with device_trace(cfg.get("profile_dir")):
+        for np_batch in loader:
+            if boost:
+                np_batch = attach_boost_inputs(np_batch, vs, cfg)
+            batch = _device_batch(np_batch, device)
+            sync()
+            t0 = time.perf_counter()
+            out = model(batch)
+            sync()
+            net_times.append(time.perf_counter() - t0)
+            evaluator.evaluate(out, np_batch)
     ret = evaluator.summarize()
     ret["frame_ms"] = [t * 1e3 for t in net_times]
     if len(net_times) > 1:
@@ -259,29 +264,44 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def novel_path_batches(cfg, dataset, n_frames: int, path_type: str = "interpolate"):
-    """The batches of a camera path (``render_novel_path``), numpy, one
-    frame each, from ``dataset`` (the test split): cameras interpolated
-    through, or spiralled around, the first scene's test views; each
-    frame's source views the ``test_input_views`` nearest its camera, its
-    target image the nearest view's, its ``tar_ext`` the path's."""
-    from boostmvsnerfs_torch.data.base import collate, nearest_src_views
-    from boostmvsnerfs_torch.utils import camera_paths
-
+def path_anchors(dataset) -> tuple[str, np.ndarray]:
+    """The first scene of ``dataset`` (the test split) and the cameras of
+    its test views (c2w, (N, 4, 4)), which camera paths pass through."""
     scene = next(iter(dataset.scene_infos))
     c2ws = np.asarray(dataset.scene_infos[scene]["c2ws"])
-    anchors = c2ws[sorted({m[1] for m in dataset.metas if m[0] == scene})]
+    return scene, c2ws[sorted({m[1] for m in dataset.metas if m[0] == scene})]
+
+
+def pose_batch(cfg, dataset, scene: str, c2w: np.ndarray) -> dict:
+    """The numpy batch of one camera ``c2w`` of ``scene``: its source views
+    the ``test_input_views`` nearest the camera, its target image the
+    nearest view's, its ``tar_ext`` the camera's. Rewrites
+    ``dataset.metas`` (a crafted meta per pose)."""
+    from boostmvsnerfs_torch.data.base import collate, nearest_src_views
+
+    c2ws = np.asarray(dataset.scene_infos[scene]["c2ws"])
+    n_views = int(cfg["enerf"]["test_input_views"])
+    order = [int(i) for i in nearest_src_views(c2ws, c2w, n_views, exclude_self=False)]
+    dataset.metas = [(scene, order[0], order)]
+    sample = dataset.get_sample(0)
+    sample["tar_ext"] = np.linalg.inv(c2w).astype(np.float32)
+    return collate([sample])
+
+
+def novel_path_batches(cfg, dataset, n_frames: int, path_type: str = "interpolate"):
+    """The batches of a camera path (``render_novel_path``), numpy, one
+    frame each (``pose_batch``), from ``dataset`` (the test split): cameras
+    interpolated through, or spiralled around, the first scene's test
+    views."""
+    from boostmvsnerfs_torch.utils import camera_paths
+
+    scene, anchors = path_anchors(dataset)
     if path_type == "spiral":
         path = camera_paths.spiral_path(anchors, n_frames)
     else:
         path = camera_paths.interpolate_path(anchors, n_frames)
-    n_views = int(cfg["enerf"]["test_input_views"])
     for c2w in path:
-        order = [int(i) for i in nearest_src_views(c2ws, c2w, n_views, exclude_self=False)]
-        dataset.metas = [(scene, order[0], order)]  # a crafted meta per frame
-        sample = dataset.get_sample(0)
-        sample["tar_ext"] = np.linalg.inv(c2w).astype(np.float32)
-        yield collate([sample])
+        yield pose_batch(cfg, dataset, scene, c2w)
 
 
 def render_novel_path(cfg, n_frames: int = 60, path_type: str = "interpolate",

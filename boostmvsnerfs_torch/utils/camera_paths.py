@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from boostmvsnerfs_torch.utils.colmap import qvec2rotmat, rotmat2qvec
+
 
 def normalize(v):
     return v / (np.linalg.norm(v) + 1e-10)
@@ -65,37 +67,6 @@ def spiral_path(
         target = avg[:3, 3] + avg[:3, 2] * focus_depth
         out.append(look_at(eye, target, up=-avg[:3, 1]))
     return np.stack(out)
-
-
-def qvec2rotmat(q) -> np.ndarray:
-    """Rotation matrix of a unit quaternion (w, x, y, z) (COLMAP's)."""
-    w, x, y, z = q
-    return np.array(
-        [
-            [1 - 2 * y**2 - 2 * z**2, 2 * x * y - 2 * z * w, 2 * x * z + 2 * y * w],
-            [2 * x * y + 2 * z * w, 1 - 2 * x**2 - 2 * z**2, 2 * y * z - 2 * x * w],
-            [2 * x * z - 2 * y * w, 2 * y * z + 2 * x * w, 1 - 2 * x**2 - 2 * y**2],
-        ]
-    )
-
-
-def rotmat2qvec(R) -> np.ndarray:
-    """Unit quaternion (w, x, y, z), w >= 0, of a rotation matrix (COLMAP's
-    eigenvector method)."""
-    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = R.flat
-    K = np.array(
-        [
-            [Rxx - Ryy - Rzz, 0, 0, 0],
-            [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
-            [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
-            [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz],
-        ]
-    ) / 3.0
-    vals, vecs = np.linalg.eigh(K)
-    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
-    if q[0] < 0:
-        q *= -1
-    return q
 
 
 def _slerp(q0, q1, t):

@@ -67,7 +67,20 @@ phase. Three main paths are driven, each with its kernels checked first:
    the frame), the peak memory and the files; the kernels on the first
    frame's inputs; the middle frame at 128x192 on the card against the CPU port
    (masks within the limits, a planted fault outside them, picks, rgb over
-   45 dB).
+   45 dB). Then, on the same scene and weights, convert and gui: the
+   weights written in the paper's ``.pth`` layout (and a v1 MVSNeRF one with
+   tied ``pts_linears``), converted by ``python -m
+   boostmvsnerfs_torch.convert_ckpt``, the converted ``latest.pt`` through
+   ``run_evaluate`` (the psnr equal to the direct file's to the last bit);
+   the browser viewer (``interactive.server``) built from the converted
+   weights, served on 127.0.0.1 in a thread and driven over HTTP (the page,
+   ``/meta``, seven events: a JPEG of the frame's size each; level 0 of the
+   level-1 config answers 500): per served frame the batch, selection,
+   forward and encode times, the peak memory and the launches against a
+   path frame's design; the kernels on the first served frame's inputs;
+   reruns of that frame under cuDNN's default and deterministic algorithms;
+   ``render_fn`` against ``render_novel_path``'s frames; the middle pose at
+   128x192 on the card against the CPU port.
 10. train_entry - the training entry from YAML (``runner.run_train``, what
    ``python -m boostmvsnerfs_torch.train`` calls) over
    configs/exps/finetune/enerf_ours/free/base.yaml with seeded weights as
@@ -231,42 +244,37 @@ def median_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-# On the H100 machines torch.profiler dropped the device records of a
-# profile's first kernels as lying outside its window (kineto's
-# "Out-of-range" count): the first one early in a run, more later, every
-# kernel of a 5-kernel profile by its end, and up to 8 of a burst of spin
-# kernels at a profile's start (PERF.md, section 6). So a profile starts
-# with PRIMER_KERNELS spin kernels and PROFILE_LEAD_S of idle time before
-# the block it measures, and every kernel that the block launches must
-# have its device record.
-PRIMER_KERNELS = 32
-PROFILE_LEAD_S = 0.25
-PROFILE_TAIL_S = 0.05
-
-
 @contextlib.contextmanager
 def complete_profile():
-    """torch.profiler over the block, after the primer; raises when a
-    kernel launched in the block has no device record."""
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over the block, after the primer of
+    ``boostmvsnerfs_torch.utils.profiling.primed_profile`` (spin kernels and
+    idle time before the block: torch.profiler on the H100 machines drops a
+    profile's first device records, ROADMAP fault 12); raises when a kernel
+    launched in the block has no device record."""
+    from boostmvsnerfs_torch.utils.profiling import primed_profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PRIMER_KERNELS):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_LEAD_S)
+    with primed_profile(cuda=True) as prof:
         yield prof
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_TAIL_S)
     lost = lost_launches(prof)
     require(lost == 0, f"torch.profiler lost the device records of {lost} kernel launches")
+
+
+def __getattr__(name: str):
+    """``PRIMER_KERNELS``, the primer's launch count, from the package
+    (scripts/torch_profile_probe.py reads it here)."""
+    if name == "PRIMER_KERNELS":
+        from boostmvsnerfs_torch.utils.profiling import PRIMER_KERNELS
+
+        return PRIMER_KERNELS
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def lost_launches(prof) -> int:
     """Kernel launches of a ``complete_profile`` block (those after the
     primer's) whose kernel has no device record: launches and kernels pair
     by their correlation ids."""
+    from boostmvsnerfs_torch.utils.profiling import PRIMER_KERNELS
+
     events = prof.profiler.kineto_results.events()
     recorded = {e.correlation_id() for e in events
                 if e.device_type() == torch.autograd.DeviceType.CUDA}
@@ -1798,13 +1806,301 @@ def path_check(ws: str) -> dict:
 
 
 def run_visualize_and_path() -> list:
-    """Phases ``visualize`` and ``path`` on a Free scene of 16 images at
-    480x736 with seeded weights as ``latest.pt``."""
+    """Phases ``visualize``, ``path``, ``convert`` and ``gui`` on a Free
+    scene of 16 images at 480x736 with seeded weights as ``latest.pt``."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
         free_scene(ws)
         save_seeded_weights(eval_cfg(FREE_EVAL, ws, "grass"))
         phase_visualize(ws)
-        return phase_path(ws)
+        records = phase_path(ws)
+        torch.cuda.empty_cache()
+        cfg = phase_convert(ws)
+        torch.cuda.empty_cache()
+        return records + phase_gui(cfg)
+
+
+# ------------------------------------------------ the converter and the viewer
+
+# the reference MVSNeRF's InPlaceABN nets, whose blocks hold no num_batches_tracked
+ABN_PREFIXES = ("feature.", "cost_reg_2.")
+# the viewer's events, as its page posts them
+GUI_EVENTS = ({"kind": "none"}, {"kind": "rotate", "dx": 30, "dy": -10, "orbit": False},
+              {"kind": "pan", "dx": 20, "dy": 5}, {"kind": "zoom", "amount": 0.2},
+              {"kind": "move", "forward": 0.1, "rightward": 0.05, "upward": 0.0},
+              {"kind": "options", "out_type": "depth"}, {"kind": "play"})
+# level 0 of a config that renders level 1 only: the server answers 500
+GUI_LEVEL0 = {"kind": "options", "out_type": "pred", "level": 0}
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+FORWARD_TIMES = 5  # forwards of the first served frame's batch timed per cuDNN mode
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to deterministic algorithms within the block. By default
+    two runs of one model on one batch differ on the H100 (ROADMAP fault 21:
+    up to 25 uint8 levels on a path's first frame, 2 on its middle one, bit
+    for bit equal with ``torch.backends.cudnn.deterministic``; PERF.md §6,
+    PR 12), so checks that two runs render the same frame run under it."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def convert_cli(pth: str, out_dir: str, *flags) -> dict:
+    """``python -m boostmvsnerfs_torch.convert_ckpt`` in a process of its
+    own: its seconds and the entries it says it left out."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "boostmvsnerfs_torch.convert_ckpt", pth, out_dir,
+                        *flags], cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    require(r.returncode == 0, f"convert_ckpt {flags}: {r.stderr[-2000:]}")
+    line = next(ln for ln in r.stdout.splitlines() if ln.startswith("left out "))
+    left_out = line.split(": ", 1)[1].split(", ") if ": " in line else []
+    return {"seconds": seconds, "left_out": left_out, "stdout": r.stdout.strip().splitlines()}
+
+
+def phase_convert(ws: str):
+    """The paper's ``.pth`` layout through the converter: the BoostENeRF
+    weights of ``latest.pt`` as a reference ``{"net": state_dict}`` (no
+    ``num_batches_tracked``, as the reference's InPlaceABN blocks hold none)
+    and a v1 MVSNeRF one (InPlaceABN nets, tied ``pts_linears.1..5``), each
+    converted by ``python -m boostmvsnerfs_torch.convert_ckpt``; the
+    converted files equal to the weights; ``run_evaluate`` on the card from
+    the converted BoostENeRF ``latest.pt`` (``exp_name_tag converted``)
+    against the same weights saved directly, both rendering the direct
+    run's view selection under ``deterministic_cudnn``: the psnr equal to
+    the last bit. Returns the converted run's config."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.models.mvsnerf import MVSNeRF, MVSNeRFConfig
+    from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    direct = eval_cfg(FREE_EVAL, ws, "grass", "save_tag", "convert")
+    conv = eval_cfg(FREE_EVAL, ws, "grass", "exp_name_tag", "converted")
+    state = CheckpointManager(direct.trained_model_dir).restore()["model"]
+    enerf_pth = os.path.join(ws, "boost_enerf.pth")
+    torch.save({"net": {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")},
+                "optim": {"lr": 5e-4}}, enerf_pth)
+    runs = {"enerf": convert_cli(enerf_pth, conv.trained_model_dir)}
+
+    v1 = random_weights(MVSNeRF(MVSNeRFConfig(net_type="v1"), device="cpu"), 0)
+    ref = {k: v for k, v in v1.items()
+           if not (k.startswith(ABN_PREFIXES) and k.endswith("num_batches_tracked"))}
+    for i in range(2, 6):
+        for leaf in ("weight", "bias"):
+            ref[f"nerf.nerf.pts_linears.{i}.{leaf}"] = ref[f"nerf.nerf.pts_linears.1.{leaf}"]
+    mvs_pth, mvs_dir = os.path.join(ws, "mvsnerf_v1.pth"), os.path.join(ws, "mvsnerf_v1")
+    torch.save({"net": ref}, mvs_pth)
+    runs["mvsnerf_v1"] = convert_cli(mvs_pth, mvs_dir, "--family", "mvsnerf")
+
+    for name, (want, out_dir) in {"enerf": (state, conv.trained_model_dir),
+                                  "mvsnerf_v1": ({**v1, **ref}, mvs_dir)}.items():
+        got = CheckpointManager(out_dir).restore()["model"]
+        require(got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in got),
+                f"convert {name}: the converted weights differ from the checkpoint's")
+        require(runs[name]["left_out"] == [], f"convert {name}: left out {runs[name]}")
+
+    with deterministic_cudnn():
+        t0 = time.perf_counter()
+        ret_direct = runner.run_evaluate(direct)
+        t1 = time.perf_counter()
+        os.makedirs(conv.result_dir, exist_ok=True)
+        shutil.copy(runner.view_selection_path(direct), runner.view_selection_path(conv))
+        ret_conv = runner.run_evaluate(conv)
+        t2 = time.perf_counter()
+    emit(phase="convert", config=FREE_EVAL, conversions=runs,
+         psnr_direct=ret_direct["psnr"], psnr_converted=ret_conv["psnr"],
+         ssim_direct=ret_direct["ssim"], ssim_converted=ret_conv["ssim"],
+         eval_seconds_direct=t1 - t0, eval_seconds_converted=t2 - t1,
+         frame_ms_converted=ret_conv["frame_ms"], phase_seconds=time.perf_counter() - t_phase)
+    require(math.isfinite(ret_conv["psnr"]) and ret_conv["psnr"] == ret_direct["psnr"],
+            f"convert: psnr {ret_conv['psnr']} from the converted weights, "
+            f"{ret_direct['psnr']} from the same weights saved directly")
+    return conv
+
+
+def gui_request(url: str, ev: dict | None = None) -> tuple:
+    """(status, content type, body, ms) of ``GET url`` or, with ``ev``,
+    ``POST url/event``."""
+    import urllib.error
+    import urllib.request
+
+    req = (urllib.request.Request(url) if ev is None else
+           urllib.request.Request(url + "/event", data=json.dumps(ev).encode(), method="POST"))
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, ctype, body = r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        status, ctype, body = e.code, e.headers.get("Content-Type"), e.read()
+    return status, ctype, body, (time.perf_counter() - t0) * 1e3
+
+
+def serve_events(state, url: str, per_frame: dict) -> tuple[list, dict]:
+    """Each of GUI_EVENTS and GUI_LEVEL0 posted to the viewer: per served
+    frame its JPEG (decoded: the frame's size), launches (counts reset just
+    before the request, read just after), the render function's times, the
+    encode's and the peak memory. Returns (the frames, their launches in
+    all)."""
+    import cv2
+
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    H, W = state.options.window_hw
+    frames, total = [], dict(NO_LAUNCHES)
+    for ev in (*GUI_EVENTS, GUI_LEVEL0):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        status, ctype, body, ms = gui_request(url, ev)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        total = {k: total[k] + launches[k] for k in total}
+        rec = {"event": ev, "status": status, "request_ms": ms, "launches": launches,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if ev is GUI_LEVEL0:
+            rec["body"] = body.decode(errors="replace")
+            frames.append(rec)
+            require(status == 500 and "rgb_level0" in rec["body"],
+                    f"gui: level 0 of a level-1 config answered {status} {rec['body']!r}")
+            continue
+        img = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+        rec.update(jpeg_bytes=len(body), **state.frame_times[-1])
+        frames.append(rec)
+        require(status == 200 and ctype == "image/jpeg" and img is not None
+                and img.shape == (H, W, 3), f"gui: {ev} answered {status} {ctype}")
+        require(launches == {**NO_LAUNCHES, **per_frame},
+                f"gui: {ev}: launches {launches}, expected {per_frame} per served frame")
+    return frames, total
+
+
+def phase_gui(cfg) -> list:
+    """The viewer (``interactive/server.py``) on the card from the converted
+    checkpoint: ``build_render_fn(cfg)``, served by ``make_server`` on
+    127.0.0.1 port 0 in a thread and driven over HTTP (the page, ``/meta``,
+    GUI_EVENTS: a JPEG of the frame's size each, launches per served frame
+    against the path frame's design; GUI_LEVEL0 answers 500); the kernels
+    on the first served frame's inputs; the forward of that frame's batch
+    timed and rerun under cuDNN's default algorithms and under
+    ``deterministic_cudnn`` (fault 21); ``render_fn`` at the first two
+    poses of a PATH_FRAMES-frame path against ``render_novel_path``'s
+    frames, both under ``deterministic_cudnn`` (1 uint8 level, the same
+    picks); the middle pose at
+    TRAIN_CHECK_HW on the card against the CPU port (``check_selection``;
+    not the first pose, on a test view's camera, for the reason
+    ``path_check`` gives). Returns the kernels' summary records, with the
+    served requests' launches."""
+    import threading
+
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.data import make_dataset
+    from boostmvsnerfs_torch.eval.visualizer import Visualizer
+    from boostmvsnerfs_torch.interactive.camera import RenderOptions
+    from boostmvsnerfs_torch.interactive.server import ViewerState, build_render_fn, make_server
+    from boostmvsnerfs_torch.utils.camera_paths import interpolate_path
+
+    t_phase = time.perf_counter()
+    per_frame = added(prepass_design(1, 20, 4), ENERF_FRAME)
+    t0 = time.perf_counter()
+    render_fn, camera, options = build_render_fn(cfg)
+    build_s = time.perf_counter() - t0
+    batches = []
+    hook = render_fn.model.register_forward_pre_hook(
+        lambda m, args: batches.append(args[0]) if not batches else None)
+    state = ViewerState(render_fn, camera, options)
+    server = make_server(state, port=0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        page = gui_request(url + "/")
+        meta = gui_request(url + "/meta")
+        require(page[0] == 200 and page[1] == "text/html" and b"/event" in page[2],
+                f"gui: the page answered {page[:2]}")
+        meta_json = json.loads(meta[2])
+        require(meta[0] == 200 and meta_json["window_hw"] == list(cfg.test_dataset.input_h_w)
+                and meta_json["has_path"],
+                f"gui: /meta {meta_json}")
+        frames, total = serve_events(state, url, per_frame)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        hook.remove()
+
+    with torch.no_grad():
+        summary = phase_kernels({k: ENERF_KERNELS[k] for k in ENERF_FRAME},
+                                main_path_kernel_inputs(render_fn.model, batches[0]), "gui")
+        reruns = {}
+        for mode in ("default", "deterministic", "default", "deterministic"):
+            with deterministic_cudnn() if mode == "deterministic" else contextlib.nullcontext():
+                rgb = [render_fn.model(batches[0])["rgb_level1"] for _ in range(2)]
+                reruns.setdefault(mode, {"rerun_max_abs_diff": [], "forward_ms": []})
+                reruns[mode]["rerun_max_abs_diff"].append(float((rgb[0] - rgb[1]).abs().max()))
+                reruns[mode]["forward_ms"].append(
+                    median_ms(lambda: render_fn.model(batches[0]), FORWARD_TIMES, warmup=1))
+    del batches, rgb
+    require(max(reruns["deterministic"]["rerun_max_abs_diff"]) == 0.0,
+            f"gui: deterministic cuDNN reruns differ {reruns}")
+
+    seen = []
+    original = Visualizer.visualize
+
+    def visualize(self, output, batch):
+        original(self, output, batch)
+        seen.append((self.color_frames[-1], np.asarray(batch["k_best"])[0].tolist()))
+
+    Visualizer.visualize = visualize
+    anchors = runner.path_anchors(make_dataset(cfg, "test"))[1]
+    poses = interpolate_path(anchors, PATH_FRAMES)
+    vs_path = []
+    try:
+        with deterministic_cudnn():
+            runner.render_novel_path(cfg, n_frames=PATH_FRAMES)
+            for i in range(2):
+                frame = render_fn(poses[i], RenderOptions(window_hw=options.window_hw))
+                diff = np.abs(frame.astype(np.int64) - seen[i][0])
+                vs_path.append({"frame": i, "max_uint8_diff": int(diff.max()),
+                                "pixels_over_0": int((diff.max(-1) > 0).sum()),
+                                "k_best": render_fn.stats["k_best"], "path_k_best": seen[i][1]})
+                require(int(diff.max()) <= 1 and render_fn.stats["k_best"] == seen[i][1],
+                        f"gui: frame {i} against render_novel_path's {vs_path[-1]}")
+    finally:
+        Visualizer.visualize = original
+    del render_fn, state
+    torch.cuda.empty_cache()
+
+    hw = "[{}, {}]".format(*TRAIN_CHECK_HW)
+    small = eval_cfg(FREE_EVAL, cfg.workspace, "grass", "exp_name_tag", "converted",
+                     "test_dataset.input_h_w", hw)
+    models = {}
+    for d in ("cuda", "cpu"):
+        models[d] = runner.make_network(small, d)
+        runner._init_or_load(small, models[d])
+    dataset = make_dataset(small, "test")
+    scene = runner.path_anchors(dataset)[0]
+    np_batch = runner.pose_batch(small, dataset, scene, poses[PATH_FRAMES // 2])
+    rep, psnr = check_selection(models, np_batch, small,
+                                "warp_variance: the first view's features lost", render=True)
+    served = [f for f in frames if f["status"] == 200]
+    emit(phase="gui", config=FREE_EVAL, weights=cfg.trained_model_dir,
+         geometry=list(cfg.test_dataset.input_h_w),
+         views=6, combinations=20, k_best=4, build_seconds=build_s, page_ms=page[3],
+         meta_ms=meta[3], meta=meta_json, launches_per_frame=per_frame, frames=frames,
+         batch_ms=[f["batch_ms"] for f in served], select_ms=[f["select_ms"] for f in served],
+         forward_ms=[f["forward_ms"] for f in served],
+         encode_ms=[f["encode_ms"] for f in served],
+         peak_mem_gib_max=max(f["peak_mem_gib"] for f in served), cudnn_modes=reruns,
+         vs_novel_path=vs_path,
+         check={"geometry": list(TRAIN_CHECK_HW), "frame": PATH_FRAMES // 2, **rep,
+                "rgb_psnr_db": psnr},
+         phase_seconds=time.perf_counter() - t_phase)
+    require(psnr > 45.0, f"gui: card vs CPU rgb PSNR {psnr} dB <= 45")
+    for rec in summary.values():
+        rec["launches"] = total[rec["name"]]
+    return list(summary.values())
 
 
 def train_entry_cfg(ws: str, *opts):

@@ -131,16 +131,43 @@ def test_cli_visualize_and_path_on_the_cpu(free, kind, tmp_path):
         assert out["path_type"] == "spiral" and len(out["per_frame"]) == 2
 
 
-def test_cli_gui_raises(free):
+def test_cli_gui_serves_the_viewer_on_the_cpu(free, monkeypatch):
+    """``--type gui --device cpu`` builds the viewer and serves it on
+    ``gui_host``:``gui_port``: a patched ``serve_forever`` serves it in a
+    thread, fetches ``/meta`` and one frame, and stops it."""
+    import json
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
     cfg = free[0]
+    serve_forever = ThreadingHTTPServer.serve_forever
+    seen = {}
+
+    def serve_briefly(server, *args, **kw):
+        th = threading.Thread(target=serve_forever, args=(server,), daemon=True)
+        th.start()
+        host, port = server.server_address[:2]
+        with urllib.request.urlopen(f"http://{host}:{port}/meta", timeout=60) as r:
+            seen["meta"] = json.loads(r.read())
+        req = urllib.request.Request(f"http://{host}:{port}/event", method="POST",
+                                     data=json.dumps({"kind": "none"}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            seen["frame"] = (r.status, r.headers.get("Content-Type"), r.read()[:2])
+        server.shutdown()
+        th.join(timeout=10)
+
+    monkeypatch.setattr(ThreadingHTTPServer, "serve_forever", serve_briefly)
     old = os.getcwd()
     os.chdir(REPO)
     try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            trun.main(["--type", "gui", "--device", "cpu", "--cfg_file", FREE_EVAL,
-                       "workspace", cfg.workspace, "scene", "grass"])
+        trun.main(["--type", "gui", "--device", "cpu", "--cfg_file", FREE_EVAL,
+                   "workspace", cfg.workspace, "scene", "grass",
+                   "test_dataset.input_h_w", "[64, 96]", "gui_port", "0"])
     finally:
         os.chdir(old)
+    assert seen["meta"]["window_hw"] == [64, 96] and seen["meta"]["has_path"] is True
+    assert seen["frame"] == (200, "image/jpeg", b"\xff\xd8")
     assert sorted(trun.RUNS) == sorted(["dataset", "network", "preprocess", "evaluate",
                                         "visualize", "path", "gui"])
 
@@ -150,6 +177,7 @@ def test_new_entries_raise_without_cuda_unless_cpu_asked(free, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: runner.render_novel_path(cfg, n_frames=1),
                  lambda: trun.run_visualize(cfg, None),
+                 lambda: trun.run_gui(cfg, None),
                  lambda: trun.main(["--type", "path", "--cfg_file", FREE_EVAL,
                                     "workspace", cfg.workspace, "scene", "grass"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
