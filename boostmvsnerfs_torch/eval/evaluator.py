@@ -7,6 +7,9 @@ per cascade level, per-scene aggregation with a summary table, optional
 center crop (LLFF protocol, reference :50-54), and DTU depth abs/acc@2/acc@10
 for both NeRF and MVS depth (reference :89-103). The metrics run on the
 rendered outputs' device; the ground truth comes from the numpy batch.
+Each view's metrics are kept as a record too, so that ranks that each
+evaluated a share of the views can pool them before the summary
+(``merge``); JAX's evaluator summarises only its own process's views.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from boostmvsnerfs_torch.data.base import resize_nearest
 from boostmvsnerfs_torch.data.formats import write_image_file
@@ -50,6 +54,46 @@ class Evaluator:
         self.scene_psnrs, self.scene_ssims, self.scene_lpips = {}, {}, {}
         self.depth_stats = {k: [] for k in
                             ["abs", "acc_2", "acc_10", "mvs_abs", "mvs_acc_2", "mvs_acc_10"]}
+        self.records = []
+
+    def _add(self, rec: dict) -> None:
+        """Count one view's metrics at one level (a record of ``evaluate``)."""
+        key, last = rec["scene_level"], rec["last"]
+        for d in (self.scene_psnrs, self.scene_ssims, self.scene_lpips):
+            d.setdefault(key, [])
+        self.scene_psnrs[key].append(rec["psnr"])
+        self.scene_ssims[key].append(rec["ssim"])
+        if last:
+            self.psnrs.append(rec["psnr"])
+            self.ssims.append(rec["ssim"])
+        if rec["lpips"] is not None:
+            self.scene_lpips[key].append(rec["lpips"])
+            if last:
+                self.lpips.append(rec["lpips"])
+        for k, v in rec["depth"].items():
+            self.depth_stats[k].append(v)
+        self.records.append(rec)
+
+    def merge(self, group=None) -> None:
+        """Pool every rank's records (``all_gather_object``), in rank order:
+        each rank then holds all of them. A view that an earlier rank also
+        evaluated (a distributed loader pads its shares with repeats) counts
+        once."""
+        n = dist.get_world_size(group)
+        if n == 1:
+            return
+        gathered = [None] * n
+        dist.all_gather_object(gathered, self.records, group=group)
+        self.reset()
+        seen = set()
+        for recs in gathered:
+            mine = set()
+            for rec in recs:
+                key = (rec["view"], rec["scene_level"])
+                if key not in seen:
+                    mine.add(key)
+                    self._add(rec)
+            seen |= mine
 
     def evaluate(self, output: dict, batch: dict):
         """``output``: the render's tensors (or arrays); ``batch``: the
@@ -75,32 +119,23 @@ class Evaluator:
 
             for b in range(B):
                 scene = metas[b]["scene"]
-                key = f"{scene}_level{i}"
-                for d in (self.scene_psnrs, self.scene_ssims, self.scene_lpips):
-                    d.setdefault(key, [])
-
                 if self.save_result and i == last and self.result_dir:
                     self._save_image(gt[b], pred[b], metas[b])
 
                 p = torch.where(msk[b][..., None], pred[b], 0.0)
                 g = torch.where(msk[b][..., None], gt[b], 0.0)
-                psnr_v = float(metrics.masked_psnr(p, g, msk[b]))
-                ssim_v = float(metrics.ssim(p, g))
-                self.scene_psnrs[key].append(psnr_v)
-                self.scene_ssims[key].append(ssim_v)
-                if i == last:
-                    self.psnrs.append(psnr_v)
-                    self.ssims.append(ssim_v)
+                lp = None
                 if self.lpips_fn is not None:
                     lp = float(self.lpips_fn((g * 2 - 1)[None], (p * 2 - 1)[None])[0])
-                    self.scene_lpips[key].append(lp)
-                    if i == last:
-                        self.lpips.append(lp)
-
+                depth = {}
                 if self.eval_depth and i == last and "tar_dpt" in batch:
-                    self._depth_eval(output, batch, b, h, w)
+                    depth = self._depth_eval(output, batch, b, h, w)
+                self._add({"view": (scene, metas[b].get("tar_view"), metas[b].get("frame_id")),
+                           "scene_level": f"{scene}_level{i}", "last": i == last,
+                           "psnr": float(metrics.masked_psnr(p, g, msk[b])),
+                           "ssim": float(metrics.ssim(p, g)), "lpips": lp, "depth": depth})
 
-    def _depth_eval(self, output, batch, b, h, w):
+    def _depth_eval(self, output, batch, b, h, w) -> dict:
         last = self.cas.num - 1
         nerf_depth = torch.as_tensor(output[f"depth_level{last}"])[b].reshape(h, w)
         mvs_depth = torch.as_tensor(output[f"depth_mvs_level{last}"])[b]
@@ -111,10 +146,7 @@ class Evaluator:
         dev = nerf_depth.device
         d = metrics.depth_metrics(nerf_depth, torch.as_tensor(gt, device=dev))
         m = metrics.depth_metrics(mvs_depth, torch.as_tensor(mvs_gt, device=dev))
-        for k, v in d.items():
-            self.depth_stats[k].append(v)
-        for k, v in m.items():
-            self.depth_stats[f"mvs_{k}"].append(v)
+        return {**d, **{f"mvs_{k}": v for k, v in m.items()}}
 
     def _save_image(self, gt, pred, meta):
         img = torch.cat([gt, pred], dim=1).cpu().numpy()
@@ -124,11 +156,24 @@ class Evaluator:
         )
         write_image_file(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
 
-    def summarize(self) -> dict:
+    def summarize(self, verbose: bool = True) -> dict:
+        """The means over the views (``verbose``: with the per-scene table
+        printed), then a reset."""
         ret = {"psnr": float(np.mean(self.psnrs)) if self.psnrs else float("nan"),
                "ssim": float(np.mean(self.ssims)) if self.ssims else float("nan")}
         if self.lpips:
             ret[self.lpips_key] = float(np.mean(self.lpips))
+        if self.eval_depth and self.depth_stats["abs"]:
+            depth_ret = {k: float(np.mean(v)) for k, v in self.depth_stats.items() if v}
+        else:
+            depth_ret = {}
+        if verbose:
+            self._print(ret, depth_ret)
+        ret.update(depth_ret)
+        self.reset()
+        return ret
+
+    def _print(self, ret: dict, depth_ret: dict) -> None:
         print("=" * 30)
         for scene in self.scene_psnrs:
             line = "{} psnr: {:.2f} ssim: {:.3f}".format(
@@ -141,9 +186,5 @@ class Evaluator:
             print(line)
         print("=" * 30)
         print(ret)
-        if self.eval_depth and self.depth_stats["abs"]:
-            depth_ret = {k: float(np.mean(v)) for k, v in self.depth_stats.items() if v}
+        if depth_ret:
             print(depth_ret)
-            ret.update(depth_ret)
-        self.reset()
-        return ret

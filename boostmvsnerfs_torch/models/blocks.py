@@ -13,6 +13,7 @@ in the parameters' type.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -39,7 +40,17 @@ class _FlaxStats:
     mode are torch's. Momentum 0.1 = flax's 0.9 on the old value. A bf16
     input is normalised in float32 and the output rounded to bf16, as flax's
     ``BatchNorm(dtype=bfloat16)`` does (float32 statistics and arithmetic,
-    the result cast to ``dtype``)."""
+    the result cast to ``dtype``).
+
+    ``sync_group`` (set by ``parallel.mesh.sync_batchnorm``): in train mode
+    the statistics are those of the whole batch that the group's ranks
+    hold together, the SyncBatchNorm of the reference and what GSPMD gives
+    JAX. Each rank's count, mean and sum of squared deviations are
+    gathered (differentiably: the backward sums the ranks' gradients) and
+    combined; the running statistics take the global mean and biased
+    variance."""
+
+    sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.bfloat16:
@@ -49,12 +60,35 @@ class _FlaxStats:
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.sync_group is not None and dist.get_world_size(self.sync_group) > 1:
+            return self._synced(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=[0, *range(2, x.dim())], correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        from boostmvsnerfs_torch.parallel.mesh import all_gather
+
+        dims = [0, *range(2, x.dim())]
+        n = x.numel() // x.shape[1]
+        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        count = torch.full_like(mean[:1], float(n))
+        per_rank = all_gather(torch.cat([count, mean, var * n])[None], self.sync_group)
+        counts, means, m2s = per_rank[:, :1], per_rank[:, 1:1 + mean.numel()], \
+            per_rank[:, 1 + mean.numel():]
+        total = counts.sum()
+        g_mean = (counts * means).sum(0) / total
+        g_var = (m2s + counts * (means - g_mean) ** 2).sum(0) / total
+        with torch.no_grad():
+            self.running_mean.lerp_(g_mean, self.momentum)
+            self.running_var.lerp_(g_var, self.momentum)
+            self.num_batches_tracked += 1
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = torch.rsqrt(g_var + self.eps) * self.weight
+        return (x - g_mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
 
 
 class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):

@@ -1,6 +1,6 @@
-"""Train and eval steps on one device (counterpart of
-``boostmvsnerfs_tpu/parallel/train.py`` without its mesh), for the ENeRF
-and MVSNeRF families.
+"""Train and eval steps (counterpart of ``boostmvsnerfs_tpu/parallel/train.py``),
+for the ENeRF and MVSNeRF families, on one device or on the ranks of a
+(data, rays) mesh (``parallel/mesh.make_mesh``).
 
 One step puts the model in train mode and computes the forward with
 batch-statistics BatchNorm, the cascade loss, the gradients, the clip at 40
@@ -8,6 +8,23 @@ and the optimizer update (reference
 lib/train/trainers/trainer.py:44-93). ``make_blocked_train_step`` bounds the
 memory of full-image fine-tuning by rendering in blocks of rays whose
 activations are recomputed in the backward.
+
+With a mesh each rank takes its shard of the batch (``place``,
+``parallel/mesh.shard_batch``): N ranks then compute what one process
+computes on the whole batch, as JAX's GSPMD step does (the reference: DDP
+and SyncBatchNorm). The BatchNorms reduce their statistics over ``data``
+(``mesh.sync_batchnorm``; ranks of one ``rays`` group hold the same
+images); after the backward the gradients are averaged over the world in
+flat all-reduces, before the clip, as JAX clips the reduced gradient. The
+models' methods are called directly (``render``, and the blocked loss's
+stages under ``checkpoint``), so no ``DistributedDataParallel`` wrapper
+could see them. Each rank's loss is the mean over its tile, and the tiles
+are equal, so the world's mean of the losses is the whole batch's; a level
+with the perceptual term, which needs whole images, gathers its rgb and
+targets over ``rays`` first, and every rank of the group then takes the
+group's loss for that level (the gather's backward sums the ranks'
+gradients, which the world mean divides again). The stats come back as the
+world's means (each ``psnr_*`` from the mean ``color_mse_*``).
 """
 
 from __future__ import annotations
@@ -21,7 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
 from boostmvsnerfs_torch.models.enerf import to_tensors
-from boostmvsnerfs_torch.train.loss import enerf_loss
+from boostmvsnerfs_torch.parallel import mesh as mesh_lib
+from boostmvsnerfs_torch.train.loss import enerf_loss, mse2psnr
 from boostmvsnerfs_torch.train.schedule import apply_update
 
 
@@ -54,44 +72,94 @@ def create_train_state(model: nn.Module, tx: Callable) -> TrainState:
     return TrainState(step=0, model=model, optimizer=optimizer, scheduler=scheduler)
 
 
-def _update(state: TrainState, loss_fn: Callable, batch: dict) -> dict:
+def _update(state: TrainState, loss_fn: Callable, batch: dict, mesh=None) -> dict:
     state.model.train()
     param = next(state.model.parameters())
     batch = to_tensors(batch, param.device, param.dtype)
     state.optimizer.zero_grad(set_to_none=True)
     loss, stats = loss_fn(batch)
     loss.backward()
+    stats = {k: v.detach() for k, v in stats.items()}
+    if mesh is not None:
+        mesh_lib.average_gradients(state.model.parameters())
+        stats = _world_mean(stats)
     apply_update(state.optimizer, state.scheduler)
     state.step += 1
-    return {k: v.detach() for k, v in stats.items()}
+    return stats
+
+
+def _world_mean(stats: dict) -> dict:
+    """The stats averaged over the world in one all-reduce; each
+    ``psnr_{i}`` recomputed from the mean ``color_mse_{i}``."""
+    keys = sorted(stats)
+    flat = torch.stack([stats[k].reshape(()) for k in keys])
+    torch.distributed.all_reduce(flat)
+    flat /= torch.distributed.get_world_size()
+    out = dict(zip(keys, flat))
+    for k in keys:
+        if k.startswith("psnr_"):
+            out[k] = mse2psnr(out[f"color_mse_{k[5:]}"])
+    return out
+
+
+def _prepare(model, mesh) -> None:
+    """A model under a mesh: its BatchNorms reduce over ``data``."""
+    if mesh is not None:
+        mesh_lib.sync_batchnorm(model, mesh_lib.axis(mesh, "data")[2])
+
+
+def _mesh_loss(out: dict, batch: dict, cas, perceptual_fn, image_hw, mesh):
+    """``enerf_loss`` on a rank's tile. Under a mesh with ``rays`` > 1 the
+    levels with the perceptual term (whole images) first gather their rgb
+    and targets over ``rays``."""
+    n_rays, _, rays = mesh_lib.axis(mesh, "rays")
+    if n_rays > 1 and perceptual_fn is not None and image_hw is not None:
+        out, batch = dict(out), dict(batch)
+        for i in range(cas.num):
+            if cas.render_if[i] and (cas.train_img is None or cas.train_img[i]):
+                out[f"rgb_level{i}"] = mesh_lib.all_gather(out[f"rgb_level{i}"], rays, dim=1)
+                with torch.no_grad():
+                    batch[f"rgb_{i}"] = mesh_lib.all_gather(batch[f"rgb_{i}"], rays, dim=1)
+    return enerf_loss(out, batch, cas.loss_weight, cas.num, cas.render_if,
+                      perceptual_fn, image_hw, cas.train_img)
 
 
 def make_train_step(model, perceptual_fn: Callable | None = None,
-                    image_hw: tuple | None = None, cas=None) -> Callable:
+                    image_hw: tuple | None = None, cas=None, mesh=None) -> Callable:
     """``step(state, batch) -> stats``: one update of ``state`` in place from
     the whole forward's loss (every activation kept for the backward). The
     loss settings (``loss_weight``, ``num``, ``render_if``, ``train_img``)
     come from ``cas``, a ``CascadeConfig``, or else from the model's own:
     an MVSNeRF has none, so its step takes the config's (JAX's step reads
-    ``model.cas`` and fails on every MVSNeRF, ROADMAP fault 15)."""
+    ``model.cas`` and fails on every MVSNeRF, ROADMAP fault 15). With a
+    (data, rays) ``mesh`` the step takes this rank's shard of the batch
+    (module docstring)."""
     cas = model.cas if cas is None else cas
+    _prepare(model, mesh)
 
     def loss_fn(batch):
-        out = model.render(batch)
-        return enerf_loss(out, batch, cas.loss_weight, cas.num, cas.render_if,
-                          perceptual_fn, image_hw, cas.train_img)
+        return _mesh_loss(model.render(batch), batch, cas, perceptual_fn, image_hw, mesh)
 
-    return lambda state, batch: _update(state, loss_fn, batch)
+    return lambda state, batch: _update(state, loss_fn, batch, mesh)
 
 
 def make_blocked_train_step(model, ray_blocks: int, perceptual_fn: Callable | None = None,
-                            image_hw: tuple | None = None) -> Callable:
+                            image_hw: tuple | None = None, mesh=None) -> Callable:
     """The memory-bounded step: ``make_train_step`` with the loss of
     ``make_blocked_loss``. Full-image fine-tuning otherwise keeps every
     per-sample render activation from the forward to the backward (65 GB at
-    480x736 K=4 in the JAX package)."""
-    loss_fn = make_blocked_loss(model, ray_blocks, perceptual_fn, image_hw)
-    return lambda state, batch: _update(state, loss_fn, batch)
+    480x736 K=4 in the JAX package). ``mesh`` as in ``make_train_step``."""
+    _prepare(model, mesh)
+    loss_fn = make_blocked_loss(model, ray_blocks, perceptual_fn, image_hw, mesh)
+    return lambda state, batch: _update(state, loss_fn, batch, mesh)
+
+
+def place(mesh, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+    """A distributed step's inputs: ``state`` as it is, after checking that
+    every rank holds the same model (``mesh.assert_replicated``), and this
+    rank's shard of the whole ``batch`` (``mesh.shard_batch``)."""
+    mesh_lib.assert_replicated(state.model)
+    return state, mesh_lib.shard_batch(mesh, batch)
 
 
 def level_ray_blocks(ray_blocks: int, n_rays: int, n_max: int, rows: int,
@@ -105,7 +173,7 @@ def level_ray_blocks(ray_blocks: int, n_rays: int, n_max: int, rows: int,
 
 
 def make_blocked_loss(model, ray_blocks: int, perceptual_fn: Callable | None = None,
-                      image_hw: tuple | None = None) -> Callable:
+                      image_hw: tuple | None = None, mesh=None) -> Callable:
     """``loss(batch) -> (loss, stats)`` of the ray-blocked step, on a batch
     of tensors on the model's device.
 
@@ -116,7 +184,8 @@ def make_blocked_loss(model, ray_blocks: int, perceptual_fn: Callable | None = N
     rendered in blocks through ``torch.utils.checkpoint`` (non-reentrant):
     the backward recomputes a block's render instead of keeping it, so
     render activations shrink by the number of blocks, for one more render
-    forward. ``ray_blocks`` is sized for the finest level; coarser levels
+    forward. ``ray_blocks`` is sized for the finest level (of a rank's tile
+    under a ``mesh``, whose tiles are not whole rasters); coarser levels
     take fewer blocks (``level_ray_blocks``), and a level of one block
     renders without recomputation. The BatchNorms sit outside the blocks,
     so recomputation never updates their statistics twice. The assembled
@@ -164,8 +233,7 @@ def make_blocked_loss(model, ray_blocks: int, perceptual_fn: Callable | None = N
                     for ridx in ray_idx.chunk(nb, dim=1)
                 ], dim=1)
             out[f"rgb_level{i}"] = rgb
-        return enerf_loss(out, batch, cas.loss_weight, cas.num, cas.render_if,
-                          perceptual_fn, image_hw, cas.train_img)
+        return _mesh_loss(out, batch, cas, perceptual_fn, image_hw, mesh)
 
     return blocked_loss
 

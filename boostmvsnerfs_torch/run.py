@@ -14,7 +14,11 @@ camera path; ``--type gui`` serves the browser viewer at
 ``http://127.0.0.1:8008/`` (``gui_host``, ``gui_port``). Runs on CUDA unless
 ``--device cpu`` is given, under the
 package's numerics (``set_numerics``). Each run returns its result to
-``main``'s caller.
+``main``'s caller. ``--type evaluate --distributed [--dist_backend
+nccl|gloo]`` evaluates on every rank of a process group launched by
+torchrun (``python -m torch.distributed.run --standalone --nproc_per_node N
+-m boostmvsnerfs_torch.run ...``): the ranks split the test views, and rank
+0 prints the summary of all of them (``runner.run_evaluate``).
 """
 
 from __future__ import annotations
@@ -139,14 +143,20 @@ def main(argv=None):
     parser.add_argument("--cfg_file", required=True)
     parser.add_argument("--type", required=True, choices=sorted(RUNS))
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--distributed", action="store_true")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"))
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     args = parser.parse_args(argv)
+    if args.distributed and args.type != "evaluate":
+        parser.error("--distributed runs --type evaluate only")
 
     from boostmvsnerfs_torch import set_numerics
     from boostmvsnerfs_torch.config import make_cfg
+    from boostmvsnerfs_torch.parallel.mesh import process_group
 
     set_numerics()
-    return RUNS[args.type](make_cfg(args.cfg_file, args.opts), args.device)
+    with process_group(args.distributed, args.device, args.dist_backend) as device:
+        return RUNS[args.type](make_cfg(args.cfg_file, args.opts), device)
 
 
 if __name__ == "__main__":

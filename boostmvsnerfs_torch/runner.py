@@ -11,9 +11,16 @@ entry over a YAML config; its loop, ``train_epochs``, takes the model and
 an epoch of numpy batches (the JAX batch convention; BoostENeRF batches
 carry ``combos`` and ``k_best`` from a view selection).
 
+Under a process group (``parallel/mesh.init_distributed``, the entries'
+``--distributed``) the ranks form a (data, rays) mesh of ``cfg.mesh.rays``
+ray tiles: each ``data`` rank's loader takes its share of the batches or
+views, rank 0 runs the view-selection pre-pass while the others wait,
+trains with the distributed step and alone records, saves and validates;
+the evaluation pools the ranks' views before its summary.
+
 Not carried from the JAX runner: ``autotune_model`` and the
-``host_sync`` / ``frame_sync`` calls (TPU machinery), ``make_forward``'s
-staged executors and the device mesh.
+``host_sync`` / ``frame_sync`` calls (TPU machinery) and ``make_forward``'s
+staged executors.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
 from boostmvsnerfs_torch.models.enerf import CascadeConfig, ENeRF, to_tensors
 from boostmvsnerfs_torch.models.mvsnerf import MVSNeRF, MVSNeRFConfig
 from boostmvsnerfs_torch.models.variants import CompositeENeRF, HumanENeRF
+from boostmvsnerfs_torch.parallel import mesh as mesh_lib
 from boostmvsnerfs_torch.parallel.train import (
     TrainState,
     create_train_state,
@@ -195,7 +203,26 @@ def _load_lpips(cfg, device):
     return fixture_lpips(device=device), "lpips_uncalibrated"
 
 
-def run_evaluate(cfg, model: nn.Module | None = None, device=None) -> dict:
+def entry_mesh(cfg):
+    """The world as the (data, rays) mesh of ``cfg.mesh.rays`` ray tiles
+    (1 by default), or None without a process group."""
+    if not mesh_lib.distributed():
+        return None
+    n_rays = int((cfg.get("mesh") or {}).get("rays", 1))
+    return mesh_lib.make_mesh(n_data=mesh_lib.world_size() // n_rays, n_rays=n_rays)
+
+
+def rank0_first(path: str, make, distributed: bool = True) -> None:
+    """``make()`` writes ``path`` when it is missing: under a process group
+    (``distributed``) on rank 0 while the other ranks wait, else here."""
+    if (mesh_lib.rank() == 0 or not distributed) and not os.path.exists(path):
+        make()
+    if distributed:
+        mesh_lib.barrier()
+
+
+def run_evaluate(cfg, model: nn.Module | None = None, device=None,
+                 distributed: bool | None = None) -> dict:
     """Evaluate on the config's test split: returns the evaluator's summary
     (``psnr``, ``ssim``, the LPIPS key, depth metrics when asked for), the
     frame rate over the frames after the first (``fps``) and every frame's
@@ -205,7 +232,15 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None) -> dict:
     is timed as the JAX entry times it: the batch lands on the device
     first, then the forward runs to a device synchronisation. With
     ``cfg.profile_dir`` set, the frames run under ``utils/profiling.
-    device_trace``, which writes their trace there."""
+    device_trace``, which writes their trace there.
+
+    Under a process group (``distributed``, by default whether one is
+    set up) the target views are split over the (data, rays) mesh's
+    ``data`` ranks (JAX runner.py:250-255), each frame renders in
+    ``cfg.mesh.rays`` ray tiles gathered over ``rays`` (JAX
+    runner.py:291-316), and the ranks' per-view records are pooled before
+    the summary, which every rank returns and rank 0 prints; frame times
+    are each rank's own."""
     from boostmvsnerfs_torch.utils.profiling import device_trace
 
     device = resolve_device(device)
@@ -214,14 +249,28 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None) -> dict:
         model = make_network(cfg, device)
         _init_or_load(cfg, model)
     model.to(device).eval()
-    loader = Loader(make_dataset(cfg, "test"), batch_size=int(cfg["test"]["batch_size"]))
+    distributed = mesh_lib.distributed() if distributed is None else distributed
+    mesh = entry_mesh(cfg) if distributed else None
+    main = mesh_lib.rank() == 0 or not distributed
+    n_data, i_data, _ = mesh_lib.axis(mesh, "data")
+    n_rays, i_rays, _ = mesh_lib.axis(mesh, "rays")
+    dataset = make_dataset(cfg, "test")
+    batch_size = int(cfg["test"]["batch_size"])
+    loader = Loader(dataset, batch_size=batch_size, num_processes=n_data, process_index=i_data)
 
     boost = requires_view_selection(cfg)
     vs = None
     if boost:
-        if not os.path.exists(view_selection_path(cfg)):
-            run_view_selection(cfg, model, [loader])
+        rank0_first(view_selection_path(cfg),
+                    lambda: run_view_selection(cfg, model, [Loader(dataset, batch_size)]),
+                    distributed)
         vs = load_view_selection(cfg)
+
+    def forward(batch):
+        if n_rays == 1:
+            return model(batch)
+        tile = mesh_lib.shard_batch(mesh, batch, ("rays",))
+        return mesh_lib.gather_rays(mesh, model(tile), ("rays",))
 
     lpips_fn, lpips_key = _load_lpips(cfg, device)
     evaluator = Evaluator(
@@ -246,15 +295,19 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None) -> dict:
             batch = _device_batch(np_batch, device)
             sync()
             t0 = time.perf_counter()
-            out = model(batch)
+            out = forward(batch)
             sync()
             net_times.append(time.perf_counter() - t0)
-            evaluator.evaluate(out, np_batch)
-    ret = evaluator.summarize()
+            if i_rays == 0:
+                evaluator.evaluate(out, np_batch)
+    if distributed:
+        evaluator.merge()
+    ret = evaluator.summarize(verbose=main)
     ret["frame_ms"] = [t * 1e3 for t in net_times]
     if len(net_times) > 1:
         fps = 1.0 / float(np.mean(net_times[1:]))
-        print(f"FPS: {fps:.3f}")
+        if main:
+            print(f"FPS: {fps:.3f}")
         ret["fps"] = fps
     return ret
 
@@ -379,6 +432,7 @@ def train_epochs(
     on_record=None,
     device=None,
     cas: CascadeConfig | None = None,
+    mesh=None,
 ) -> TrainState:
     """Train ``model`` for ``train_cfg['epoch']`` epochs over ``batches``,
     one epoch: a list of batches, or a ``Loader`` (``set_epoch`` before
@@ -398,23 +452,36 @@ def train_epochs(
     ``image_hw`` add the perceptual term (``train.loss.enerf_loss``).
     ``cas`` gives the loss settings where the model has none (MVSNeRF;
     ``make_train_step``). Runs on CUDA unless ``device`` says otherwise;
-    returns the final state."""
+    returns the final state.
+
+    With a (data, rays) ``mesh`` (``parallel/mesh.make_mesh``) every rank
+    runs this loop over its own share of the batches: the step is the
+    distributed one on each batch's ``rays`` tile; the model starts as
+    rank 0's (a resumed run checks that every rank read the same state),
+    and every epoch ends with the check that the ranks still hold the same
+    model; rank 0 alone records, prints, saves (``CheckpointManager``) and
+    validates, and the other ranks wait for it. ``on_record`` sees every
+    rank's records."""
     model.to(resolve_device(device))
+    main = mesh_lib.rank() == 0
     ep_iter = len(batches)
     state = create_train_state(model, make_optimizer(train_cfg, ep_iter))
     mgr = CheckpointManager(model_dir)
     recorder = Recorder(record_dir)
     begin_epoch = 0
     restored = mgr.restore() if resume else None
+    log = print if main else (lambda *a, **k: None)
     if restored is not None:
         state.load_state_dict(restored)
         begin_epoch = state.step // max(ep_iter, 1)
-        print(f"resumed at epoch {begin_epoch}", flush=True)
+        log(f"resumed at epoch {begin_epoch}", flush=True)
     elif pretrain_dir and load_pretrain(pretrain_dir, model):
-        print(f"warm start from {os.path.abspath(pretrain_dir)}", flush=True)
+        log(f"warm start from {os.path.abspath(pretrain_dir)}", flush=True)
+    if mesh is not None:
+        (mesh_lib.assert_replicated if restored is not None else mesh_lib.broadcast_state)(model)
 
-    step_fn = (make_blocked_train_step(model, ray_blocks, perceptual_fn, image_hw)
-               if ray_blocks > 1 else make_train_step(model, perceptual_fn, image_hw, cas))
+    step_fn = (make_blocked_train_step(model, ray_blocks, perceptual_fn, image_hw, mesh)
+               if ray_blocks > 1 else make_train_step(model, perceptual_fn, image_hw, cas, mesh))
 
     def record(kind, scalars, **where):
         recorder.update(scalars)
@@ -429,14 +496,19 @@ def train_epochs(
         for it, batch in enumerate(batches):
             if prepare is not None:
                 batch = prepare(batch)
-            stats = step_fn(state, {k: v for k, v in batch.items() if k != "meta"})
+            batch = {k: v for k, v in batch.items() if k != "meta"}
+            if mesh is not None:
+                batch = mesh_lib.shard_batch(mesh, batch, ("rays",))
+            stats = step_fn(state, batch)
             recorder.step += 1
             if it % log_interval == 0:
                 record("train", {k: float(v) for k, v in stats.items()}, epoch=epoch, iter=it)
-                print(f"epoch {epoch} iter {it}/{ep_iter} {recorder}", flush=True)
+                log(f"epoch {epoch} iter {it}/{ep_iter} {recorder}", flush=True)
+        if mesh is not None:  # what rank 0 saves, every rank holds
+            mesh_lib.assert_replicated(model)
         if (epoch + 1) % save_ep == 0 or (epoch + 1) % save_latest_ep == 0:
             mgr.save(state.state_dict(), epoch, latest=True)
-        if validate is not None and eval_ep > 0 and (epoch + 1) % eval_ep == 0:
+        if validate is not None and eval_ep > 0 and (epoch + 1) % eval_ep == 0 and main:
             try:
                 ret = validate()
             except Exception as e:  # validation must not kill training
@@ -445,7 +517,8 @@ def train_epochs(
                 record("val", {f"val_{k}": v for k, v in ret.items() if np.isscalar(v)},
                        epoch=epoch)
                 print(f"epoch {epoch} validation {ret}", flush=True)
-        print(f"epoch {epoch} done in {time.time() - t_ep:.1f}s", flush=True)
+        mesh_lib.barrier()
+        log(f"epoch {epoch} done in {time.time() - t_ep:.1f}s", flush=True)
     recorder.close()
     return state
 
@@ -460,11 +533,13 @@ def boost_views_num(views_num, n_input: int):
     return None if views_num is None else [max(int(n), n_input) for n in views_num]
 
 
-def train_loader(cfg, train_ds) -> Loader:
+def train_loader(cfg, train_ds, num_processes: int = 1, process_index: int = 0) -> Loader:
     """The training ``Loader`` of JAX's ``run_train``: shuffled, ``ep_iter``
     batches an epoch, the view counts of ``train.sampler_meta`` (raised for
     boost models, ``boost_views_num``), per-batch image sizes under the
-    ``image_size`` batch sampler."""
+    ``image_size`` batch sampler; the share of process ``process_index``
+    of ``num_processes`` (each takes ``train.batch_size`` a batch, the
+    reference's per-GPU batch)."""
     train = cfg["train"]
     meta = train.get("sampler_meta", {})
     views_num = meta.get("input_views_num")
@@ -481,6 +556,8 @@ def train_loader(cfg, train_ds) -> Loader:
         input_views_prob=meta.get("input_views_prob"),
         num_workers=int(train.get("num_workers", 4)),
         image_size_meta=dict(meta) if train.get("batch_sampler") == "image_size" else None,
+        num_processes=num_processes,
+        process_index=process_index,
     )
 
 
@@ -504,7 +581,13 @@ def run_train(cfg, device=None, ray_blocks: int = 0, on_record=None) -> TrainSta
     ``train_epochs``. MVSNeRF models train unblocked on the recipes'
     random rays, with the loss settings of ``cfg.enerf.cas_config`` (JAX's
     step reads them from the model, which has none: ROADMAP fault 15).
-    Runs on CUDA unless ``device`` says otherwise."""
+    Runs on CUDA unless ``device`` says otherwise. Under a process group
+    the ranks train together on the (data, rays) mesh of ``cfg.mesh.rays``
+    (``train_epochs``): each ``data`` rank's loader takes its share of the
+    batches, rank 0 runs the pre-pass while the others wait, and every rank
+    resumes or warm-starts from the same files. Unlike JAX's multi-process
+    ``run_train``, which steps each process on its own batch without
+    reducing the gradients (ROADMAP fault 22), the ranks average them."""
     from boostmvsnerfs_torch.eval.vgg import load_vgg, perceptual_loss_fn
 
     name = _network_name(cfg)
@@ -515,14 +598,18 @@ def run_train(cfg, device=None, ray_blocks: int = 0, on_record=None) -> TrainSta
     cas = CascadeConfig.from_cfg(cfg["enerf"])
     model = make_network(cfg, device)
     train_ds = make_dataset(cfg, "train")
-    loader = train_loader(cfg, train_ds)
+    mesh = entry_mesh(cfg)
+    n_data, i_data, _ = mesh_lib.axis(mesh, "data")
+    loader = train_loader(cfg, train_ds, n_data, i_data)
 
     prepare = None
     if requires_view_selection(cfg):
-        if not os.path.exists(view_selection_path(cfg)):
+        def prepass():
             _init_or_load(cfg, model)
             run_view_selection(cfg, model, [Loader(train_ds, 1),
                                             Loader(make_dataset(cfg, "test"), 1)])
+
+        rank0_first(view_selection_path(cfg), prepass)
         vs = load_view_selection(cfg)
         prepare = lambda b: attach_boost_inputs(b, vs, cfg)  # noqa: E731
 
@@ -533,7 +620,8 @@ def run_train(cfg, device=None, ray_blocks: int = 0, on_record=None) -> TrainSta
         H, W = train_ds.get_sample(0)["src_inps"].shape[1:3]
         image_hw = tuple((int(H * cas.render_scale[i]), int(W * cas.render_scale[i]))
                          for i in range(cas.num))
-        print(f"perceptual loss enabled (VGG16 weights: {vgg_npz})", flush=True)
+        if mesh_lib.rank() == 0:
+            print(f"perceptual loss enabled (VGG16 weights: {vgg_npz})", flush=True)
 
     pretrain_dir = (os.path.join(cfg["workspace"], "trained_model", "pretrain", cfg["pretrain"])
                     if cfg.get("pretrain") else None)
@@ -551,8 +639,9 @@ def run_train(cfg, device=None, ray_blocks: int = 0, on_record=None) -> TrainSta
             image_hw=image_hw,
             prepare=prepare,
             eval_ep=0 if cfg.get("skip_eval", False) else int(cfg.get("eval_ep", 0)),
-            validate=lambda: run_evaluate(cfg, model=model, device=device),
+            validate=lambda: run_evaluate(cfg, model=model, device=device, distributed=False),
             on_record=on_record,
             device=device,
             cas=cas,
+            mesh=mesh,
         )

@@ -6,7 +6,9 @@ checkpoints plus a rolling ``latest``, pruned to the 5 most recent;
 :350-387 (``load_model``) resume; :495-515 (``load_pretrain``) cross-task
 warm start. Each checkpoint is one ``torch.save`` file of a train state's
 ``state_dict()`` (model, optimizer, scheduler, step), ``<epoch>.pt`` or
-``latest.pt`` in the model directory.
+``latest.pt`` in the model directory. Under a process group rank 0 alone
+writes, and every rank waits for the write at a barrier, so a resume never
+reads half a checkpoint.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import os
 
 import torch
 from torch import nn
+
+from boostmvsnerfs_torch.parallel.mesh import barrier, rank
 
 
 class CheckpointManager:
@@ -31,14 +35,16 @@ class CheckpointManager:
         """Write ``state`` (a ``state_dict()``) as checkpoint ``epoch`` and,
         with ``latest``, as the rolling latest; keep the newest ``keep``
         numbered ones. Each file is written under a temporary name and
-        renamed, so a crash never leaves half a checkpoint."""
-        names = [epoch, "latest"] if latest else [epoch]
-        for name in names:
-            tmp = self._path(f"{name}.tmp")
-            torch.save(state, tmp)
-            os.replace(tmp, self._path(name))
-        for e in self.numbered_epochs()[: -self.keep]:
-            os.remove(self._path(e))
+        renamed, so a crash never leaves half a checkpoint. Under a process
+        group rank 0 writes and every rank returns after the write."""
+        if rank() == 0:
+            for name in [epoch, "latest"] if latest else [epoch]:
+                tmp = self._path(f"{name}.tmp")
+                torch.save(state, tmp)
+                os.replace(tmp, self._path(name))
+            for e in self.numbered_epochs()[: -self.keep]:
+                os.remove(self._path(e))
+        barrier()
 
     def numbered_epochs(self) -> list[int]:
         if not os.path.isdir(self.model_dir):

@@ -2,7 +2,7 @@
 statistics (counterpart of ``boostmvsnerfs_tpu/train/recorder.py``).
 
 Reference lib/train/recorder.py: SmoothedValue medians over a deque window.
-One device, so no rank gating.
+Under a process group rank 0 alone writes (JAX's ``enabled``).
 """
 
 from __future__ import annotations
@@ -10,6 +10,8 @@ from __future__ import annotations
 from collections import defaultdict, deque
 
 import numpy as np
+
+from boostmvsnerfs_torch.parallel.mesh import rank
 
 
 class SmoothedValue:
@@ -26,13 +28,13 @@ class SmoothedValue:
 
 class Recorder:
     """Scalars go to tensorboard under ``record_dir`` when ``tensorboardX``
-    is installed, and to the console through ``str``."""
+    is installed (on rank 0), and to the console through ``str``."""
 
     def __init__(self, record_dir: str | None = None):
         self.step = 0
         self.stats = defaultdict(SmoothedValue)
         self.writer = None
-        if record_dir:
+        if record_dir and rank() == 0:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:

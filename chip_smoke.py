@@ -147,6 +147,29 @@ phase. Three main paths are driven, each with its kernels checked first:
    random rays drawn on the mask with two 32x32 patches at level 1) on
    the Free scene: launches against the design, steps, peak memory;
    ``run_train`` at 128x192 on the card against the CPU port.
+15. distributed_train, distributed_eval - multi-GPU through
+   torch.distributed: ranks launched by ``python -m torch.distributed.run``
+   (each launch killed, with its ranks, past DIST_TIMEOUT_S), on a Free scene
+   of 16 images at 480x736. distributed_train: the fine-tuning recipe of item
+   10 (two steps a launch) through the training entry's ``main`` with
+   ``--distributed`` and the step recorded (``rank_worker``), under
+   deterministic cuDNN: (a) a world of 1 over NCCL, its first step against
+   the one-process step on the same batch of 4 (loss, gradients, running
+   statistics, parameters: the fault-6 bars); (b) a world of 2 over gloo on
+   the one card, 2 + 2 images, its first step against the one-process step
+   on both ranks' batches together (the gradients within 3 times float32's
+   spread, measured on the same batch moved by one ulp; the gradients summed
+   instead of averaged must fail), both ranks' states equal after every
+   step, rank 0 alone saving and validating, then ``python -m
+   boostmvsnerfs_torch.train --distributed`` resuming the run; the step
+   times, the collectives' time and a profiled step, peak memory per rank.
+   distributed_eval: the BoostENeRF frame of item 5 through
+   ``parallel/staged.StagedENeRF`` on (cv=2, rays=1), 2 gloo ranks, under
+   deterministic cuDNN, within DIST_FRAME_TOL of the unsharded frame (its
+   target moved off the source cameras); then ``python -m
+   boostmvsnerfs_torch.run --type evaluate --distributed`` with 2 gloo
+   ranks on the eval scene of item 8: rank 0's summary covers both test
+   views and equals one process's. The kernels at a rank's shapes.
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and a last status line. Any failed check raises,
 and the script exits non-zero; it also exits non-zero, printing no
@@ -244,19 +267,48 @@ def median_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+class LostRecords(AssertionError):
+    """torch.profiler kept no device record of a kernel launched in a
+    ``complete_profile`` block (ROADMAP fault 12)."""
+
+
 @contextlib.contextmanager
 def complete_profile():
     """torch.profiler over the block, after the primer of
     ``boostmvsnerfs_torch.utils.profiling.primed_profile`` (spin kernels and
     idle time before the block: torch.profiler on the H100 machines drops a
-    profile's first device records, ROADMAP fault 12); raises when a kernel
-    launched in the block has no device record."""
+    profile's first device records, ROADMAP fault 12); raises
+    ``LostRecords`` when a kernel launched in the block has no device
+    record."""
     from boostmvsnerfs_torch.utils.profiling import primed_profile
 
     with primed_profile(cuda=True) as prof:
         yield prof
     lost = lost_launches(prof)
-    require(lost == 0, f"torch.profiler lost the device records of {lost} kernel launches")
+    if lost:
+        raise LostRecords(f"torch.profiler lost the device records of {lost} kernel launches")
+
+
+# A profile that lost a record (fault 12: late in a long run the primer
+# does not always keep them) is taken again, up to this many profiles in
+# all: every time reported still comes from a profile that kept them all.
+PROFILE_TRIES = 3
+
+
+def profiled(block) -> tuple:
+    """``block()`` under ``complete_profile``, taken again when torch.profiler
+    loses a record of it (each loss noted in a ``profile_retaken`` line; up
+    to PROFILE_TRIES profiles): (the complete profile, the last run's
+    value)."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        try:
+            with complete_profile() as prof:
+                value = block()
+            return prof, value
+        except LostRecords as e:
+            emit(phase="profile_retaken", attempt=attempt, reason=str(e))
+            if attempt == PROFILE_TRIES:
+                raise
 
 
 def __getattr__(name: str):
@@ -296,9 +348,7 @@ def device_ms(fn, iters: int = 5) -> float:
     launches (``complete_profile``), without the host's share of the call,
     which ``median_ms`` counts and which rivals a small grid's kernel time."""
     fn()
-    with complete_profile() as prof:
-        for _ in range(iters):
-            fn()
+    prof, _ = profiled(lambda: [fn() for _ in range(iters)])
     return sum(e.device_time_total for e in block_kernels(prof)) / iters / 1e3
 
 
@@ -767,11 +817,14 @@ def phase_profile(run, phase: str, kernels, frames: int = 2, unit: str = "frame"
     top kernels by time and, in a train step, autograd's top backward
     functions by the device time of their kernels."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with complete_profile() as prof:
+
+    def block():
         start.record()
         for _ in range(frames):
             run()
         end.record()
+
+    prof, _ = profiled(block)
     events = prof.key_averages()
     kernel_events = block_kernels(prof)
     per_run = lambda us: us / 1e3 / frames  # noqa: E731
@@ -3098,10 +3151,645 @@ def run_variants() -> list:
     return records
 
 
+# ------------------------------------ multi-GPU: torch.distributed ranks
+
+# Each distributed phase launches its ranks with ``python -m
+# torch.distributed.run`` (a process group of its own); a launch that
+# outlives DIST_TIMEOUT_S is killed with every rank it started and fails
+# the phase. The ranks run ``chip_smoke.py --rank-worker JOB OUT ...``
+# (``rank_worker``), which drives the entries' own functions and writes
+# each rank's readings into OUT.
+DIST_TIMEOUT_S = 420
+# the training entry's recipe (TRAIN_ENTRY_OPTS), cut to one epoch of 2
+# steps a launch
+DIST_TRAIN_OPTS = (*TRAIN_ENTRY_OPTS, "ep_iter", "2")
+DIST_FRAME_ITERS = 5
+# the unsharded frame against the sharded one, under deterministic cuDNN
+DIST_FRAME_TOL = 1e-5
+DIST_PSNR_TOL_DB = 1e-4
+SPREAD_FACTOR = 3.0
+COLLECTIVE_PREFIXES = ("c10d::", "gloo:", "nccl:")
+
+
+def descendants(pid: int) -> list:
+    """Every process below ``pid`` (from /proc): torchrun starts each rank in
+    a session of its own, out of reach of its own process group's signals."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            with contextlib.suppress(OSError):
+                with open(f"/proc/{entry}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+                children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def torchrun(nproc: int, args: list, tag: str) -> dict:
+    """``nproc`` ranks of ``args`` (a script and its arguments, or ``-m``
+    and a module) under ``torch.distributed.run --standalone``, from the
+    repository root: on failure the phase fails; past DIST_TIMEOUT_S
+    torchrun and every rank are killed and the phase fails. Returns the
+    launch's seconds and each rank's output lines ({rank: [lines]}, from
+    ``--tee``)."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), "--tee", "3", *args]
+    env = {**os.environ, "PYTHONPATH": REPO_ROOT, "OMP_NUM_THREADS": "4"}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        for pid in [*descendants(proc.pid), proc.pid]:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"{tag}: the ranks outlived {DIST_TIMEOUT_S} s\n{err[-3000:]}")
+    require(proc.returncode == 0,
+            f"{tag}: the launch exited {proc.returncode}\n{out[-3000:]}\n{err[-6000:]}")
+    lines = {r: [ln.split(":", 1)[1] for ln in out.splitlines()
+                 if ln.startswith(f"[default{r}]:")] for r in range(nproc)}
+    return {"seconds": time.perf_counter() - t0, "lines": lines}
+
+
+def rank_results(out: str, world: int) -> list:
+    """Each rank's ``rank_worker`` readings: [(json record, npz arrays)]."""
+    res = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            rec = json.load(f)
+        path = os.path.join(out, f"rank{r}.npz")
+        res.append((rec, dict(np.load(path)) if os.path.exists(path) else {}))
+    return res
+
+
+@contextlib.contextmanager
+def timed_collectives(log: dict):
+    """Within the block every ``torch.distributed`` all-reduce and broadcast
+    adds its wall time (ms, the card synchronised before and after: gloo
+    stages CUDA tensors through the host) and one call to ``log``."""
+    import torch.distributed as dist
+
+    originals = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+
+    def timed(fn):
+        def run(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            log["ms"] += (time.perf_counter() - t0) * 1e3
+            log["calls"] += 1
+            return out
+
+        return run
+
+    for name, fn in originals.items():
+        setattr(dist, name, timed(fn))
+    try:
+        yield log
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
+def profile_readings(prof, wall_ms: float) -> dict:
+    """The device-busy time of a profiled step and its idle share."""
+    busy = sum(e.device_time_total for e in block_kernels(prof)) / 1e3
+    return {"step_ms": wall_ms, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms}
+
+
+def worker_train(out: str, argv: list) -> tuple:
+    """The training entry's ``main`` (``python -m boostmvsnerfs_torch.train``)
+    under deterministic cuDNN with its blocked step recorded: the first
+    batch, the first step's gradients and state, each step's stats, time,
+    collectives' time (``timed_collectives``) and state digest; rank 0 of a
+    world of 2 profiles its second step. Every ``torch.save`` is counted
+    (rank 0 alone writes). Then rank 0 of a world of 2 holds the training
+    kernels against their plain versions on its first batch
+    (``rank_kernels``)."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.ops.cuda import launch_counts
+    from boostmvsnerfs_torch.parallel.mesh import state_digest
+    from boostmvsnerfs_torch.train.__main__ import main as train_main
+
+    rec = {"steps": [], "saves": 0}
+    arrays = {}
+    make_step = runner.make_blocked_train_step
+    save = torch.save
+
+    def counting_save(*args, **kw):
+        rec["saves"] += 1
+        return save(*args, **kw)
+
+    def recording(model, *args, **kw):
+        step = make_step(model, *args, **kw)
+
+        def run(state, batch):
+            import torch.distributed as dist
+
+            n = len(rec["steps"])
+            if n == 0:
+                arrays.update({f"batch/{k}": np.asarray(v) for k, v in batch.items()})
+            profile = n == 1 and dist.get_rank() == 0 and dist.get_world_size() > 1
+            ctx = complete_profile() if profile else contextlib.nullcontext()
+            sync()
+            t0 = time.perf_counter()
+            with ctx as prof, timed_collectives({"ms": 0.0, "calls": 0}) as coll:
+                stats = step(state, batch)
+                sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            if profile:
+                rec["profile"] = profile_readings(prof, ms)
+            if n == 0:
+                arrays.update({f"grad/{k}": p.grad.float().cpu().numpy()
+                               for k, p in state.model.named_parameters()})
+                arrays.update({f"state/{k}": v.float().cpu().numpy()
+                               for k, v in state.model.state_dict().items()})
+            rec["steps"].append({"ms": ms, "collectives_ms": coll["ms"],
+                                 "collectives_share": coll["ms"] / ms,
+                                 "collective_calls": coll["calls"],
+                                 "stats": {k: float(v) for k, v in stats.items()},
+                                 "digest": state_digest(state.model)})
+            return stats
+
+        return run
+
+    runner.make_blocked_train_step = recording
+    torch.save = counting_save
+    try:
+        with deterministic_cudnn():
+            state = train_main(argv)
+    finally:
+        runner.make_blocked_train_step = make_step
+        torch.save = save
+    rec.update(launches=launch_counts(), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if int(os.environ["RANK"]) == 0 and int(os.environ["WORLD_SIZE"]) > 1:
+        from boostmvsnerfs_torch.parallel.mesh import sync_batchnorm
+
+        model = sync_batchnorm(state.model, None)  # the process group is gone
+        batch = runner._device_batch({k[6:]: v for k, v in arrays.items()
+                                      if k.startswith("batch/")}, model.device)
+        del state
+        rec["kernels"] = rank_kernels(lambda: phase_kernels_train(
+            train_kernel_inputs(model, batch, ray_blocks=TRAIN_ENTRY_RAY_BLOCKS),
+            "kernels_distributed_train", "distributed_train"))
+    return rec, arrays
+
+
+def rank_kernels(measure) -> list:
+    """The summary records of ``measure()`` (``phase_kernels`` or
+    ``phase_kernels_train``), in a rank's own process after its run: the
+    kernels at the rank's shapes, their profiles early in a process
+    (torch.profiler loses device records more often late in a long one,
+    ROADMAP fault 12)."""
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        return list(measure().values())
+
+
+def worker_eval(out: str, argv: list) -> tuple:
+    """The eval entry's ``main`` (``python -m boostmvsnerfs_torch.run``) under
+    deterministic cuDNN: its summary and the views its pooled records cover."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.run import main as run_main
+
+    rec = {}
+    base = runner.Evaluator
+
+    class Recording(base):
+        def summarize(self, verbose: bool = True) -> dict:
+            rec["views"] = sorted({"{}_{}".format(*r["view"][:2]) for r in self.records})
+            return super().summarize(verbose)
+
+    runner.Evaluator = Recording
+    try:
+        with deterministic_cudnn():
+            ret = run_main(argv)
+    finally:
+        runner.Evaluator = base
+    rec["summary"] = {k: v for k, v in ret.items() if np.isscalar(v)}
+    rec["frame_ms"] = ret["frame_ms"]
+    return rec, {}
+
+
+def dist_frame_model_and_batch(k_best: int = 4):
+    """The main phase's BoostENeRF (seeded weights) and batch (480x736, 6
+    views, K=4), the target moved between source frames 2 and 3: on a
+    source camera (the rig's default for 6 views) border rays project onto
+    the frame edges, where a viewport mask flips with an ulp of the depth
+    (ROADMAP faults 4 and 9), and a fold of 2 volumes and one of 4 may take
+    different cuDNN algorithms."""
+    from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
+    from boostmvsnerfs_torch.utils.synthetic import look_at_ext, make_scene_batch
+
+    model = BoostENeRF(CascadeConfig(k_best=k_best, render_if=(False, True)))
+    model.load_state_dict(random_weights(model, 0), strict=True)
+    batch = make_scene_batch(B=1, n_views=6, H=480, W=736, boost=True, k_best=4, seed=0,
+                             rig="forward")
+    pos = np.array([0.15 * np.sin(1.25), 0.04 * np.cos(2.25), 0.625])  # the rig's path at 2.5
+    batch["tar_ext"] = look_at_ext(pos, target=pos + np.array([0.0, 0.0, 5.0]))[None]
+    batch["k_best"] = batch["k_best"][:, :k_best]
+    return model, to_tensors(batch, model.device)
+
+
+def worker_frame(out: str, argv: list) -> tuple:
+    """The BoostENeRF frame through ``StagedENeRF`` on the (cv, rays) mesh
+    of the world (gloo), under deterministic cuDNN: the outputs, the
+    launches of one frame, the times of DIST_FRAME_ITERS more; then the
+    first ``cv`` rank holds the frame's kernels against their plain
+    versions at its shapes (``rank_kernels``)."""
+    import torch.distributed as dist
+
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+    from boostmvsnerfs_torch.parallel import mesh as mesh_lib
+    from boostmvsnerfs_torch.parallel.staged import StagedENeRF
+
+    with mesh_lib.process_group(True, "cuda", "gloo"), deterministic_cudnn():
+        model, batch = dist_frame_model_and_batch()
+        mesh = mesh_lib.make_cv_mesh(k_best=4)
+        staged = StagedENeRF(model, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        got = staged(batch)
+        sync()
+        launches = launch_counts()
+        times = []
+        for _ in range(DIST_FRAME_ITERS):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            staged(batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)), "launches": launches,
+               "frame_ms": times, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        arrays = {k: v.float().cpu().numpy() for k, v in got.items()}
+        first = mesh_lib.axis(mesh, "cv")[1] == 0
+    del model, batch, staged, got
+    if first:  # the kernels at the first cv rank's shapes: combinations 0 and 1
+        model, batch = dist_frame_model_and_batch(k_best=2)
+        table = {k: ENERF_KERNELS[k] for k in ("warp_variance", "img_sample", "enerf_head")}
+        rec["kernels"] = rank_kernels(
+            lambda: phase_kernels(table, main_path_kernel_inputs(model, batch), "distributed_eval"))
+    return rec, arrays
+
+
+RANK_WORKERS = {"train": worker_train, "eval": worker_eval, "frame": worker_frame}
+
+
+def rank_worker(argv: list) -> int:
+    """``chip_smoke.py --rank-worker JOB OUT [ARGS...]``, one rank of a
+    ``torchrun`` launch: JOB of RANK_WORKERS with ARGS; writes
+    ``OUT/rank<r>.json`` (with the rank's launches, from 0 at its start,
+    and peak memory) and ``OUT/rank<r>.npz``."""
+    from boostmvsnerfs_torch import set_numerics
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    job, out, args = argv[0], argv[1], argv[2:]
+    r = int(os.environ["RANK"])
+    set_numerics()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rec, arrays = RANK_WORKERS[job](out, args)
+    rec.setdefault("launches", launch_counts())
+    rec.setdefault("peak_mem_gib", torch.cuda.max_memory_allocated() / 2**30)
+    os.makedirs(out, exist_ok=True)
+    if arrays:
+        np.savez(os.path.join(out, f"rank{r}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{r}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def dist_train_args(out: str, ws: str, *opts, worker: bool = True, backend="nccl"):
+    """The arguments of a training launch: the worker over the entry, or
+    the entry itself (``-m boostmvsnerfs_torch.train``)."""
+    entry = ["--distributed", "--dist_backend", backend, "--ray_blocks",
+             str(TRAIN_ENTRY_RAY_BLOCKS), "--cfg_file", FINETUNE, "workspace", ws, "scene",
+             "grass", *DIST_TRAIN_OPTS, *opts]
+    if worker:
+        return [os.path.join(REPO_ROOT, "chip_smoke.py"), "--rank-worker", "train", out, *entry]
+    return ["-m", "boostmvsnerfs_torch.train", *entry]
+
+
+def reference_step(cfg, pretrain: dict, batch: dict) -> tuple:
+    """One non-distributed blocked step (TRAIN_ENTRY_RAY_BLOCKS) of the
+    recipe from the pretrain weights on ``batch`` (numpy): the stats, the
+    gradients and the state after it, as float32 CPU tensors."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.parallel.train import create_train_state, make_blocked_train_step
+    from boostmvsnerfs_torch.train.schedule import make_optimizer
+
+    model = runner.make_network(cfg)
+    model.load_state_dict(pretrain, strict=True)
+    state = create_train_state(model, make_optimizer(cfg.train, int(cfg.ep_iter)))
+    with deterministic_cudnn():
+        stats = make_blocked_train_step(model, TRAIN_ENTRY_RAY_BLOCKS)(state, batch)
+    out = ({k: float(v) for k, v in stats.items()},
+           {k: p.grad.float().cpu() for k, p in model.named_parameters()},
+           {k: v.float().cpu() for k, v in model.state_dict().items()})
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_readings(rank: tuple, ref: tuple) -> dict:
+    """A rank's first step against the reference step: the loss (relative),
+    the applied gradients, the running statistics and the parameters after
+    the step (relative L2, per tensor and all together)."""
+    rec, arrays = rank
+    stats, grads, state = ref
+    got_g = {k: torch.from_numpy(arrays[f"grad/{k}"]) for k in grads}
+    stat_keys = [k for k in state if "running_" in k]
+    param_keys = [k for k in grads]
+    got_s = {k: torch.from_numpy(arrays[f"state/{k}"]) for k in stat_keys + param_keys}
+
+    def readings(got, want):
+        per = grad_rel_errors({k: got[k].double() for k in want},
+                              {k: v.double() for k, v in want.items()})
+        return {"max_per_tensor": max(per.values()), "worst": max(per, key=per.get),
+                "global": global_rel_error({k: got[k].double() for k in want},
+                                           {k: v.double() for k, v in want.items()})}
+
+    loss = rec["steps"][0]["stats"]["loss"]
+    return {"loss": loss, "ref_loss": stats["loss"],
+            "loss_rel_err": abs(loss - stats["loss"]) / abs(stats["loss"]),
+            "grads": readings(got_g, grads),
+            "running_stats": readings(got_s, {k: state[k] for k in stat_keys}),
+            "params": readings(got_s, {k: state[k] for k in param_keys})}
+
+
+def within_step_bars(r: dict, grad_bars=(GRAD_RTOL_TENSOR, GRAD_RTOL_GLOBAL)) -> bool:
+    """The loss within TRAIN_LOSS_RTOL; the running statistics and the
+    parameters within the gradient bars (ROADMAP fault 6); the gradients
+    within ``grad_bars``."""
+    bars = {"grads": grad_bars, "running_stats": (GRAD_RTOL_TENSOR, GRAD_RTOL_GLOBAL),
+            "params": (GRAD_RTOL_TENSOR, GRAD_RTOL_GLOBAL)}
+    return r["loss_rel_err"] <= TRAIN_LOSS_RTOL and all(
+        r[k]["max_per_tensor"] <= t and r[k]["global"] <= g for k, (t, g) in bars.items())
+
+
+def ulp_moved(batch: dict) -> dict:
+    """``batch`` with its source images moved by one float32 ulp."""
+    x = batch["all_src_inps"].astype(np.float32)
+    return {**batch, "all_src_inps": np.nextafter(x, np.float32(np.inf))}
+
+
+def spread_bars(ref: tuple, moved: tuple) -> tuple:
+    """Gradient bars for a step whose forward rounds otherwise than the
+    reference's (the world-2 step's BatchNorms sum their statistics per
+    rank): SPREAD_FACTOR times float32's own spread, the reference's
+    gradients against those of its batch moved by one ulp, and no tighter
+    than the fault-6 bars. On the noise scene at 480x736 an ulp moves
+    samples across pixel lines and ReLUs across 0, and the U-Nets'
+    batch-statistics BatchNorms spread each flip over a channel: the
+    level-0 U-Net's last BatchNorm bias moved 8% between two runs of one
+    step under cuDNN's default algorithms (PERF.md, section 6)."""
+    r = step_readings(({"steps": [{"stats": moved[0]}]},
+                       {**{f"grad/{k}": v.numpy() for k, v in moved[1].items()},
+                        **{f"state/{k}": v.numpy() for k, v in moved[2].items()}}), ref)["grads"]
+    return (max(GRAD_RTOL_TENSOR, SPREAD_FACTOR * r["max_per_tensor"]),
+            max(GRAD_RTOL_GLOBAL, SPREAD_FACTOR * r["global"])), r
+
+
+def batch_of(rank: tuple) -> dict:
+    return {k[6:]: v for k, v in rank[1].items() if k.startswith("batch/")}
+
+
+def concat_batches(batches: list) -> dict:
+    """The ranks' first batches as one batch (``combos`` is every rank's)."""
+    return {k: v if k == "combos" else np.concatenate([b[k] for b in batches])
+            for k, v in batches[0].items()}
+
+
+def relay_kernel_lines(launch: dict) -> None:
+    """Print rank 0's ``kernels`` phase lines (``rank_kernels``) here."""
+    for ln in launch["lines"][0]:
+        if ln.startswith('{"phase": "kernels'):
+            print(ln, flush=True)
+
+
+def with_launches(records: list, launches: dict) -> list:
+    """A rank's kernel summary records with the launches of the run's
+    ranks together."""
+    return [{**rec, "launches": launches[rec["name"]]} for rec in records]
+
+
+def dist_launches(results: list) -> dict:
+    """The launches of every rank together."""
+    return added(*(rec["launches"] for rec, _ in results))
+
+
+def dist_train_design(cfg, batch: dict, steps: int, prepass: bool, validation: bool) -> dict:
+    """A training rank's launches by design (``expected_train_launches`` per
+    step of its ``batch``): the pre-pass over the scene's train and test
+    views (rank 0 of a launch that finds no view selection), ``steps``
+    steps, one validation frame per test view (rank 0)."""
+    from boostmvsnerfs_torch import runner
+
+    model = runner.make_network(cfg, "cpu")
+    cas = model.cas
+    rendered = sum(cas.render_if[: cas.num])
+    parts = [scaled(expected_train_launches(model, batch, TRAIN_ENTRY_RAY_BLOCKS), steps)]
+    if prepass:
+        combos = math.comb(int(batch["all_src_inps"].shape[1]), 3)
+        parts += [prepass_design(EVAL_IMAGES - 2, combos, cas.k_best),
+                  prepass_design(2, 20, cas.k_best)]
+    if validation:
+        parts.append(scaled({"warp_variance": cas.num, "img_sample": rendered,
+                             "enerf_head": rendered}, 2))
+    return added(*parts)
+
+
+def phase_distributed_train(ws: str, smi: str) -> list:
+    """Phase ``distributed_train`` (module docstring, item 15). Returns the
+    kernels' summary records at a rank's shapes, with the launches of the
+    world-2 run (both ranks)."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    cfg_a = train_entry_cfg(ws, "exp_name_tag", "dist_nccl")
+    pretrain = save_pretrain(cfg_a)
+    record = {"config": FINETUNE, "overrides": list(DIST_TRAIN_OPTS), "geometry": [480, 736],
+              "card": smi}
+
+    # (a) world 1 over NCCL: the recipe's batch of 4 in one process
+    out_a = os.path.join(ws, "dist_nccl")
+    launch = torchrun(1, dist_train_args(out_a, ws, "exp_name_tag", "dist_nccl", "eval_ep", "0"),
+                      "world 1")
+    (rank_a,) = rank_results(out_a, 1)
+    want = dist_train_design(cfg_a, batch_of(rank_a), 2, prepass=True, validation=False)
+    require(rank_a[0]["launches"] == want,
+            f"distributed_train world 1: launches {rank_a[0]['launches']}, expected {want}")
+    ref_a = reference_step(cfg_a, pretrain, batch_of(rank_a))
+    reading_a = step_readings(rank_a, ref_a)
+    require(within_step_bars(reading_a), f"distributed_train world 1: {reading_a}")
+    record["world1_nccl"] = {"launch_seconds": launch["seconds"], "first_step": reading_a,
+                             "step_ms": [s["ms"] for s in rank_a[0]["steps"]],
+                             "collectives_ms": [s["collectives_ms"] for s in rank_a[0]["steps"]],
+                             "peak_mem_gib": rank_a[0]["peak_mem_gib"],
+                             "launches": rank_a[0]["launches"]}
+
+    # (b) world 2 over gloo on the one card: 2 + 2 images
+    cfg_b = train_entry_cfg(ws, "exp_name_tag", "dist_gloo", "train.batch_size", "2")
+    os.makedirs(cfg_b.result_dir, exist_ok=True)
+    shutil.copy(runner.view_selection_path(cfg_a), runner.view_selection_path(cfg_b))
+    out_b = os.path.join(ws, "dist_gloo")
+    opts_b = ("exp_name_tag", "dist_gloo", "train.batch_size", "2")
+    launch = torchrun(2, dist_train_args(out_b, ws, *opts_b, backend="gloo"), "world 2")
+    ranks_b = rank_results(out_b, 2)
+    want = [dist_train_design(cfg_b, batch_of(r), 2, prepass=False, validation=i == 0)
+            for i, r in enumerate(ranks_b)]
+    require([rec["launches"] for rec, _ in ranks_b] == want,
+            f"distributed_train world 2: launches {[rec['launches'] for rec, _ in ranks_b]}, "
+            f"expected {want}")
+    whole = concat_batches([batch_of(r) for r in ranks_b])
+    ref_b = reference_step(cfg_b, pretrain, whole)
+    bars, spread = spread_bars(ref_b, reference_step(cfg_b, pretrain, ulp_moved(whole)))
+    readings_b = [step_readings(r, ref_b) for r in ranks_b]
+    for i, rd in enumerate(readings_b):
+        require(within_step_bars(rd, bars), f"distributed_train world 2, rank {i}: {rd} {bars}")
+    # the control: the ranks' gradients summed, not averaged
+    summed = {**ranks_b[0][1], **{k: 2 * v for k, v in ranks_b[0][1].items()
+                                  if k.startswith("grad/")}}
+    control = step_readings((ranks_b[0][0], summed), ref_b)
+    require(not within_step_bars(control, bars), f"distributed_train: the control passes {control}")
+    digests = [[s["digest"] for s in rec["steps"]] for rec, _ in ranks_b]
+    require(len(digests[0]) == 2 and digests[0] == digests[1],
+            f"distributed_train: the ranks' parameters differ after a step {digests}")
+    saves = [rec["saves"] for rec, _ in ranks_b]
+    require(saves[0] > 0 and saves[1] == 0, f"distributed_train: saves per rank {saves}")
+    mgr = CheckpointManager(cfg_b.trained_model_dir)
+    require(mgr.numbered_epochs() == [0] and mgr.restore()["step"] == 2,
+            f"distributed_train: checkpoints {mgr.numbered_epochs()}")
+    require(any("validation" in ln for ln in launch["lines"][0])
+            and not any("validation" in ln for ln in launch["lines"][1]),
+            "distributed_train: rank 0 alone validates")
+    # the entry itself resumes the run for its second epoch
+    resumed = torchrun(2, dist_train_args(None, ws, *opts_b, "train.epoch", "2", "eval_ep", "0",
+                                          worker=False, backend="gloo"), "world 2 resumed")
+    require(any("resumed at epoch 1" in ln for ln in resumed["lines"][0])
+            and mgr.numbered_epochs() == [0, 1] and mgr.restore()["step"] == 4,
+            f"distributed_train: resume {resumed['lines'][0][-5:]} {mgr.numbered_epochs()}")
+    launches = dist_launches(ranks_b)
+    relay_kernel_lines(launch)
+    record["world2_gloo"] = {
+        "launch_seconds": launch["seconds"], "resumed_launch_seconds": resumed["seconds"],
+        "global_batch": int(whole["all_src_inps"].shape[0]), "per_rank_batch": 2,
+        "first_step": readings_b, "grad_bars": bars, "float32_spread": spread,
+        "control_summed_gradients": control,
+        "step_ms": [[s["ms"] for s in rec["steps"]] for rec, _ in ranks_b],
+        "collectives_ms": [[s["collectives_ms"] for s in rec["steps"]] for rec, _ in ranks_b],
+        "collectives_share": [[s["collectives_share"] for s in rec["steps"]]
+                              for rec, _ in ranks_b],
+        "collective_calls": [[s["collective_calls"] for s in rec["steps"]]
+                             for rec, _ in ranks_b],
+        "peak_mem_gib": [rec["peak_mem_gib"] for rec, _ in ranks_b],
+        "launches_per_rank": [rec["launches"] for rec, _ in ranks_b], "saves": saves,
+        "profile_rank0_step2": ranks_b[0][0]["profile"], "resumed_step": mgr.restore()["step"]}
+    emit(phase="distributed_train", **record, phase_seconds=time.perf_counter() - t_phase)
+    return with_launches(ranks_b[0][0]["kernels"], launches)
+
+
+def phase_distributed_eval(ws: str, smi: str) -> list:
+    """Phase ``distributed_eval`` (module docstring, item 15). Returns the
+    kernels' summary records at a ``cv`` rank's shapes, with the sharded
+    frame's launches (both ranks)."""
+    from boostmvsnerfs_torch import runner
+
+    t_phase = time.perf_counter()
+    record = {"card": smi}
+    with deterministic_cudnn():
+        model, batch = dist_frame_model_and_batch()
+        with torch.no_grad():
+            whole = {k: v.float().cpu().numpy() for k, v in model(batch).items()}
+            frame_ms = median_ms(lambda: model(batch), DIST_FRAME_ITERS, warmup=1)
+    del model, batch
+    out = os.path.join(ws, "dist_frame")
+    launch = torchrun(2, [os.path.join(REPO_ROOT, "chip_smoke.py"), "--rank-worker", "frame",
+                          out], "sharded frame")
+    ranks = rank_results(out, 2)
+    relay_kernel_lines(launch)
+    for i, (_, arrays) in enumerate(ranks):
+        require(set(arrays) == set(whole), f"sharded frame keys {sorted(arrays)}")
+    errors = [{k: float(np.abs(arrays[k] - w).max()) for k, w in whole.items()}
+              for _, arrays in ranks]
+    for i, err in enumerate(errors):
+        require(err["rgb_level1"] <= DIST_FRAME_TOL and err["depth_level1"] <= DIST_FRAME_TOL,
+                f"sharded frame, rank {i}: {err}")
+    launches = dist_launches(ranks)
+    require(launches == added(ENERF_FRAME, ENERF_FRAME),
+            f"sharded frame: launches {launches} (each rank: a frame's kernels on 2 volumes)")
+    record["frame"] = {"mesh": ranks[0][0]["mesh"], "max_abs_err": errors,
+                       "unsharded_frame_ms_median": frame_ms,
+                       "sharded_frame_ms": [rec["frame_ms"] for rec, _ in ranks],
+                       "peak_mem_gib": [rec["peak_mem_gib"] for rec, _ in ranks],
+                       "launches_per_rank": [rec["launches"] for rec, _ in ranks],
+                       "launch_seconds": launch["seconds"]}
+
+    # the eval entry with 2 ranks, each rendering one of the 2 test views
+    cfg = eval_cfg(FREE_EVAL, ws, "grass")
+    save_seeded_weights(cfg)
+    with deterministic_cudnn():
+        one = runner.run_evaluate(cfg)
+    out = os.path.join(ws, "dist_eval")
+    launch = torchrun(2, [os.path.join(REPO_ROOT, "chip_smoke.py"), "--rank-worker", "eval", out,
+                          "--type", "evaluate", "--distributed", "--dist_backend", "gloo",
+                          "--cfg_file", FREE_EVAL, "workspace", ws, "scene", "grass"],
+                      "distributed evaluate")
+    evals = rank_results(out, 2)
+    require([rec["launches"] for rec, _ in evals] == [added(ENERF_FRAME)] * 2,
+            f"distributed evaluate: launches {[rec['launches'] for rec, _ in evals]} "
+            "(each rank: one test view's frame; the view selection exists)")
+    got = evals[0][0]
+    require(got["views"] == ["grass_0", "grass_8"] and len(got["frame_ms"]) == 1,
+            f"distributed evaluate: views {got['views']}, frames {got['frame_ms']}")
+    require(abs(got["summary"]["psnr"] - one["psnr"]) <= DIST_PSNR_TOL_DB
+            and abs(got["summary"]["ssim"] - one["ssim"]) <= 1e-5,
+            f"distributed evaluate: {got['summary']} against one process's {one}")
+    require(any(ln.strip().startswith("{'psnr'") for ln in launch["lines"][0])
+            and not any("psnr" in ln for ln in launch["lines"][1]),
+            "distributed evaluate: rank 0 alone prints the summary")
+    record["evaluate"] = {"summary": got["summary"],
+                          "one_process": {k: v for k, v in one.items() if np.isscalar(v)},
+                          "views": got["views"],
+                          "frame_ms": [rec["frame_ms"] for rec, _ in evals],
+                          "one_process_frame_ms": one["frame_ms"],
+                          "peak_mem_gib": [rec["peak_mem_gib"] for rec, _ in evals],
+                          "launches_per_rank": [rec["launches"] for rec, _ in evals],
+                          "launch_seconds": launch["seconds"]}
+    emit(phase="distributed_eval", **record, phase_seconds=time.perf_counter() - t_phase)
+    return with_launches(ranks[0][0]["kernels"], launches)
+
+
+def run_distributed(smi: str) -> list:
+    """The multi-GPU phases (module docstring, item 15) on a Free scene of 16
+    images at 480x736."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        free_scene(ws)
+        records = phase_distributed_train(ws, smi)
+        torch.cuda.empty_cache()
+        records += phase_distributed_eval(ws, smi)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(sys.argv[2:])
     from boostmvsnerfs_torch import set_numerics
     from boostmvsnerfs_torch.ops.cuda import _build
 
@@ -3140,6 +3828,8 @@ def main() -> int:
     records += run_train_path()
     torch.cuda.empty_cache()
     records += run_variants()
+    torch.cuda.empty_cache()
+    records += run_distributed(smi)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

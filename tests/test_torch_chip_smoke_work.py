@@ -8,6 +8,7 @@ charges its dense layers to the tensor cores at bf16 (989 TFLOP/s) and to
 the f32 units at f32 (67 TFLOP/s).
 """
 
+import contextlib
 import importlib.util
 import os
 from pathlib import Path
@@ -217,6 +218,28 @@ def test_lost_launches_leave_out_the_primer(smoke):
     events.pop()  # the block's last record
     events.append(_Event("cuLaunchKernel", cpu, n + 5))
     assert smoke.lost_launches(_Profile(events)) == 2
+
+
+def test_a_profile_that_lost_records_is_taken_again(smoke, monkeypatch):
+    """``profiled`` takes a block's profile again when torch.profiler lost a
+    record of it (each loss noted), returns the first complete one, and
+    fails once PROFILE_TRIES profiles have all lost records."""
+    outcomes, runs, notes = [], [], []
+
+    @contextlib.contextmanager
+    def fake_profile():
+        yield "profile"
+        if outcomes.pop(0):
+            raise smoke.LostRecords("lost")
+
+    monkeypatch.setattr(smoke, "complete_profile", fake_profile)
+    monkeypatch.setattr(smoke, "emit", lambda **rec: notes.append(rec))
+    outcomes[:] = [True, True, False]
+    assert smoke.profiled(lambda: runs.append(1) or len(runs)) == ("profile", 3)
+    assert [n["attempt"] for n in notes] == [1, 2]
+    outcomes[:] = [True] * smoke.PROFILE_TRIES
+    with pytest.raises(smoke.LostRecords):
+        smoke.profiled(lambda: None)
 
 
 @pytest.fixture

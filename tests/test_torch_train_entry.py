@@ -262,7 +262,7 @@ def test_boost_views_num_raises_counts_below_a_combination():
 def test_train_cli_on_the_cpu_and_refusals(finetune, capsys, monkeypatch):
     """``python -m boostmvsnerfs_torch.train --device cpu`` over the recipe
     (one step, ray-blocked); without CUDA the default device raises;
-    ``--distributed`` raises, naming its ROADMAP item, and so does ray
+    ``--distributed`` without torchrun's environment raises, and so does ray
     blocking an MVSNeRF model (the blocked step renders ENeRF levels)."""
     from pathlib import Path
 
@@ -276,7 +276,9 @@ def test_train_cli_on_the_cpu_and_refusals(finetune, capsys, monkeypatch):
             *opts]
     state = tmain.main(["--device", "cpu", "--ray_blocks", "2", *argv])
     assert state.step == 1 and "epoch 0 iter 0/1" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         tmain.main(["--distributed", *argv])
     cfg = _ft_cfg(finetune["ws"], "network_module", "boostmvsnerfs_tpu.models.boost_mvsnerf")
     with pytest.raises(ValueError, match="trains unblocked"):
