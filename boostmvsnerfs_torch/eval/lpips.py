@@ -75,6 +75,21 @@ def fixture_lpips(seed: int = 0, device=None) -> LPIPS:
     return LPIPS(sd, lins, device)
 
 
+def convert_lpips_weights(pth: str, out_path: str) -> dict:
+    """The lpips package's VGG heads from a local file (its ``vgg.pth``,
+    keys ``lin{i}.model.1.weight`` of shape (1, C, 1, 1)) -> the ``.npz``
+    that JAX's ``convert_lpips_weights`` writes (``lin0`` ... ``lin4``, each
+    (C,)). Imports no lpips and downloads nothing. Returns the arrays."""
+    sd = torch.load(pth, map_location="cpu", weights_only=True)
+    arrays = {f"lin{i}": sd[f"lin{i}.model.1.weight"].numpy().reshape(-1)
+              for i in range(len(LIN_CHANNELS))}
+    for i, c in enumerate(LIN_CHANNELS):
+        if arrays[f"lin{i}"].shape != (c,):
+            raise ValueError(f"{pth}: lin{i} has {arrays[f'lin{i}'].size} channels, not {c}")
+    np.savez(out_path, **arrays)
+    return arrays
+
+
 def load_lpips(vgg_npz: str, lin_npz: str, device=None) -> LPIPS:
     """LPIPS from the two ``.npz`` files the JAX package reads: VGG16
     weights (``conv{i}_kernel`` / ``conv{i}_bias``) and the heads

@@ -5,7 +5,9 @@ The torchvision VGG16 conv topology, channels-last in and out: the
 activations after relu1_2, relu2_2, relu3_3, relu4_3 and relu5_3. Modules
 ``conv0`` ... ``conv12`` carry the JAX tree's names; pretrained weights
 load from the same ``.npz`` the JAX package reads (``conv{i}_kernel`` HWIO,
-``conv{i}_bias``), made offline from torchvision's weights.
+``conv{i}_bias``), which ``convert_torchvision_weights`` writes from a local
+file of torchvision's weights (``python -m
+boostmvsnerfs_torch.convert_metric_weights``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,30 @@ def vgg_state_dict_from_npz(npz_path: str) -> dict:
     return vgg_state_dict_from_jax({"params": {
         f"conv{i}": {"kernel": data[f"conv{i}_kernel"], "bias": data[f"conv{i}_bias"]}
         for i in range(n)}})
+
+
+def convert_torchvision_weights(pth: str, out_path: str) -> dict:
+    """torchvision's VGG16 weights from a local file -> the ``.npz`` that
+    JAX's ``convert_torchvision_weights`` writes: ``conv{i}_kernel`` (OIHW
+    -> HWIO) and ``conv{i}_bias`` for the 13 convolutions in layer order.
+    The file holds the ``features`` state dict (keys ``N.weight`` /
+    ``N.bias``) or the whole model's (``features.N.*``, the classifier left
+    out). Imports no torchvision and downloads nothing. Returns the
+    arrays."""
+    sd = torch.load(pth, map_location="cpu", weights_only=True)
+    prefix = "features." if any(k.startswith("features.") for k in sd) else ""
+    layers = sorted(int(k[len(prefix):].split(".")[0]) for k in sd
+                    if k.startswith(prefix) and k.endswith(".weight")
+                    and k[len(prefix):].split(".")[0].isdigit())
+    n_convs = sum(v != "M" for v in VGG16_CFG)
+    if len(layers) != n_convs:
+        raise ValueError(f"{pth}: {len(layers)} convolutions, a VGG16 has {n_convs}")
+    arrays = {}
+    for i, n in enumerate(layers):
+        arrays[f"conv{i}_kernel"] = sd[f"{prefix}{n}.weight"].numpy().transpose(2, 3, 1, 0)
+        arrays[f"conv{i}_bias"] = sd[f"{prefix}{n}.bias"].numpy()
+    np.savez(out_path, **arrays)
+    return arrays
 
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)

@@ -239,7 +239,8 @@ def build_render_fn(cfg, device=None):
     split per cfg and return (render_fn, camera, options) for
     ``ViewerState``: the per-frame flow of ``runner.render_novel_path`` (the
     batch of ``runner.pose_batch``, for boost models the greedy view
-    selection per frame). Runs on CUDA unless ``device`` says otherwise.
+    selection per frame, the frame through ``runner.make_forward``). Runs
+    on CUDA unless ``device`` says otherwise.
 
     ``render_fn`` runs under ``torch.no_grad()`` itself: the server renders
     in its handler threads, and grad mode is per thread. It times the
@@ -259,6 +260,7 @@ def build_render_fn(cfg, device=None):
     device = resolve_device(device)
     model = runner.make_network(cfg, device)
     runner._init_or_load(cfg, model)
+    fwd = runner.make_forward(cfg, model)
     dataset = make_dataset(cfg, "test")
     boost = runner.requires_view_selection(cfg)
     n_views = int(cfg["enerf"]["test_input_views"])
@@ -286,7 +288,7 @@ def build_render_fn(cfg, device=None):
             batch = runner._device_batch(np_batch, device)
             sync()
             t2 = time.perf_counter()
-            out = model(batch)
+            out = fwd(batch)
             sync()
             t3 = time.perf_counter()
         render_fn.stats = {"batch_ms": (t1 - t0) * 1e3, "select_ms": (t2 - t1) * 1e3,

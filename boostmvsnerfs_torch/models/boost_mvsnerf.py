@@ -80,13 +80,14 @@ class BoostMVSNeRF(MVSNeRF):
         return torch.cat([self._coverage(batch, vis, chunk)
                           for chunk in combos.split(self.cfg.k_best)])
 
-    def fused_volumes(self, batch: dict):
-        """The feature net once over all N source views; then each of the K
-        selected combinations gathers its views, features and depth ranges,
-        K folds into the batch axis (B*K), and every combination's volume is
-        built with its own near/far. Returns (sub-batch, volumes (B*K, D,
-        h+2p, w+2p, 8), near (B*K,), far (B*K,)); the sub-batch's target
-        cameras and rays are repeated K times."""
+    def frame_volume(self, batch: dict):
+        """The render's first two stages on a batch of tensors: the feature
+        net once over all N source views; then each of the K selected
+        combinations gathers its views, features and depth ranges, K folds
+        into the batch axis (B*K), and every combination's volume is built
+        with its own near/far. Returns (the sub-batch, whose target cameras
+        are repeated K times, the volumes (B*K, D, h+2p, w+2p, 8), near
+        (B*K,), far (B*K,))."""
         K = self.cfg.k_best
         B = batch["all_src_inps"].shape[0]
         sel = batch["combos"][batch["k_best"]]  # (B, K, I)
@@ -96,8 +97,7 @@ class BoostMVSNeRF(MVSNeRF):
             return _take_views(x, sel.reshape(B, K * I)).reshape(B * K, I, *x.shape[2:])
 
         sub = {k: fold(batch[f"all_{k}"]) for k in ("src_inps", "src_exts", "src_ixts")}
-        sub.update({k: batch[k].repeat_interleave(K, dim=0)
-                    for k in ("tar_ext", "tar_ixt", "ray_idx_0")})
+        sub.update({k: batch[k].repeat_interleave(K, dim=0) for k in ("tar_ext", "tar_ixt")})
         feats = fold(self.extract_features(batch["all_src_inps"]))
         near, far = self.near_far(fold(batch["depth_ranges"]))
         pm = mvs_proj_mats(sub["src_ixts"], sub["src_exts"])
@@ -105,22 +105,22 @@ class BoostMVSNeRF(MVSNeRF):
                                    depth_line(near, far, self.cfg.num_samples))
         return sub, volume, near, far
 
-    def render(self, batch: dict) -> dict:
-        """Fused multi-cost-volume render on a batch of tensors on the
-        model's device, in the module's mode (differentiable): the K
+    def render_rays(self, sub, volume, ray_idx, near, far) -> dict:
+        """The render's last stage: the rays ``ray_idx`` (B, R), repeated
+        for each of the K volumes, through ``frame_volume``'s outputs; the K
         radiance fields blend with normalised visibility weights, which
-        carry no gradient, in one transmittance integral."""
-        B, K = batch["all_src_inps"].shape[0], self.cfg.k_best
-        sub, volume, near, far = self.fused_volumes(batch)
-        raw = self.render_volume(sub, volume, sub["ray_idx_0"], near, far, with_mask=True)
+        carry no gradient, in one transmittance integral. Every ray is
+        independent of the others."""
+        B, K = ray_idx.shape[0], self.cfg.k_best
+        raw = self.render_volume(sub, volume, ray_idx.repeat_interleave(K, dim=0), near, far,
+                                 with_mask=True)
 
         def unfold(x):  # (B*K, ...) -> (B, K, ...)
             return x.reshape(B, K, *x.shape[1:])
 
-        out = render.composite_blend(unfold(raw["net_output"]),
-                                     render.normalize_blend_masks(unfold(raw["mask"])),
-                                     unfold(raw["z_vals"]))
-        return {f"{k}_level0": v for k, v in out.items()}
+        return render.composite_blend(unfold(raw["net_output"]),
+                                      render.normalize_blend_masks(unfold(raw["mask"])),
+                                      unfold(raw["z_vals"]))
 
     @torch.no_grad()
     def forward(self, batch: dict) -> dict:

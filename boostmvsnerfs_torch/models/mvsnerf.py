@@ -538,11 +538,12 @@ class MVSNeRF(nn.Module):
         s = self.cfg.near_far_scale
         return depth_ranges[..., 0].amin(1) * s[0], depth_ranges[..., 1].amax(1) * s[1]
 
-    def render(self, batch: dict) -> dict:
-        """The forward on a batch of tensors on the model's device
-        (``to_tensors``), in the module's mode. Differentiable. The first
-        ``n_views`` source views build the volume; the feature net runs
-        over all of them, as in JAX (train-mode BatchNorm sees them all)."""
+    def frame_volume(self, batch: dict):
+        """The render's first two stages on a batch of tensors: the feature
+        net over all N source views (as in JAX: train-mode BatchNorm sees
+        them all), then the volume of the first ``n_views``. Returns (the
+        sub-batch of those views and the target camera, the volume (B, D,
+        h+2p, w+2p, 8), near (B,), far (B,))."""
         V = self.cfg.n_views
         feats = self.extract_features(batch["all_src_inps"])
         sub = {k: batch[f"all_{k}"][:, :V] for k in ("src_inps", "src_exts", "src_ixts")}
@@ -551,10 +552,22 @@ class MVSNeRF(nn.Module):
         pm = mvs_proj_mats(sub["src_ixts"], sub["src_exts"])
         volume = self.build_volume(sub["src_inps"], feats[:, :V], pm,
                                    depth_line(near, far, self.cfg.num_samples))
-        raw = self.render_volume(sub, volume, batch["ray_idx_0"], near, far, with_mask=False)
-        # composited with ENeRF's raw2outputs (softmax-normalised depth), as
-        # the reference's mvsnerf forward does
-        out = render.composite(raw["net_output"], raw["z_vals"], softmax_depth=True)
+        return sub, volume, near, far
+
+    def render_rays(self, sub, volume, ray_idx, near, far) -> dict:
+        """The render's last stage: the rays ``ray_idx`` (B, R) through
+        ``frame_volume``'s outputs, composited with ENeRF's raw2outputs
+        (softmax-normalised depth), as the reference's mvsnerf forward
+        does. Every ray is independent of the others."""
+        raw = self.render_volume(sub, volume, ray_idx, near, far, with_mask=False)
+        return render.composite(raw["net_output"], raw["z_vals"], softmax_depth=True)
+
+    def render(self, batch: dict) -> dict:
+        """The forward on a batch of tensors on the model's device
+        (``to_tensors``), in the module's mode: ``frame_volume``, then
+        ``render_rays`` over all of ``ray_idx_0``. Differentiable."""
+        sub, volume, near, far = self.frame_volume(batch)
+        out = self.render_rays(sub, volume, batch["ray_idx_0"], near, far)
         return {f"{k}_level0": v for k, v in out.items()}
 
     @torch.no_grad()

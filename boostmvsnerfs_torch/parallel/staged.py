@@ -1,5 +1,6 @@
-"""The eval forward on the ranks of a mesh (counterpart of the mesh path of
-``boostmvsnerfs_tpu/parallel/staged.py::StagedENeRF``).
+"""The eval executors (counterpart of ``boostmvsnerfs_tpu/parallel/
+staged.py``): ``StagedENeRF`` on the ranks of a mesh, ``StagedMVSNeRF`` in
+blocks of raster rows. ``runner.make_forward`` picks one for a model.
 
 ``StagedENeRF(model, mesh)`` renders one frame across ranks that each hold
 the whole batch:
@@ -19,9 +20,22 @@ the whole batch:
   a gather of the regressed depths. The rays are gathered at the end.
 
 Every rank computes the FPN over all source views (JAX shards it over the
-views). JAX's stage devices for XLA's compile time and the TPU's dispatch
-cost stay out: ``fuse_levels``, ``fuse_frame`` and ``fold_inside``, and with
-them the frame in CUDA graphs (ROADMAP queue 1 item 4).
+views).
+
+``StagedMVSNeRF(model, row_chunk)`` renders an MVSNeRF or BoostMVSNeRF frame
+as the reference's serial ray chunks do (reference
+lib/networks/boost_mvsnerf/network.py:97-135): the features and the (K
+folded) volume once (``frame_volume``), then the rays in blocks of
+``row_chunk`` whole raster rows (``render_rays``, with the cross-K blend per
+block), concatenated. The monolithic forward holds every sample's features
+at once (with the v1, v2 and color_fusion heads 23-26 GiB at 224x352 on the
+H100, PERF.md section 6); a block holds one block's.
+
+Not carried from JAX: the stage granularity options ``fuse_levels``,
+``fuse_frame`` and ``fold_inside``, ``StagedENeRF.coverage_mask`` and the
+stages' jits. They exist for XLA's compile time and the TPU's per-dispatch
+cost; PyTorch runs eagerly, and a frame in CUDA graphs is speed work, not a
+port (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -89,3 +103,37 @@ class StagedENeRF:
             out["std"] = mesh_lib.all_gather(std, cv).reshape(B, K, *std.shape[1:])[:, 0]
             ret.update({f"{key}_level{i}": v for key, v in out.items()})
         return mesh_lib.gather_rays(self.mesh, ret, ("rays",))
+
+
+def ray_blocks(ray_idx: torch.Tensor, W: int, row_chunk: int) -> list:
+    """JAX's rule (``StagedMVSNeRF._ray_blocks``): ray ids (B, N) that hold
+    whole raster rows of width ``W`` (N % W == 0), more than ``row_chunk``
+    rows and a multiple of it, split into contiguous blocks of ``row_chunk *
+    W`` ids; any others (random rays, a raster of other rows) stay one
+    block."""
+    N = ray_idx.shape[1]
+    rows = N // W if N % W == 0 else 0
+    if rows <= row_chunk or rows % row_chunk:
+        return [ray_idx]
+    return list(ray_idx.split(row_chunk * W, dim=1))
+
+
+class StagedMVSNeRF:
+    """An MVSNeRF / BoostMVSNeRF eval forward in blocks of ``row_chunk``
+    raster rows (module docstring). Call it on a batch of numpy arrays or
+    tensors; it returns the model's outputs. A block that does not fit the
+    card raises, as the model's forward would."""
+
+    def __init__(self, model, row_chunk: int = 32):
+        self.model = model
+        self.row_chunk = row_chunk
+
+    @torch.no_grad()
+    def __call__(self, batch: dict) -> dict:
+        model = self.model
+        batch = to_tensors(batch, model.device)
+        sub, volume, near, far = model.frame_volume(batch)
+        W = batch["all_src_inps"].shape[3]
+        outs = [model.render_rays(sub, volume, ids, near, far)
+                for ids in ray_blocks(batch["ray_idx_0"], W, self.row_chunk)]
+        return {f"{k}_level0": torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}

@@ -18,9 +18,12 @@ views, rank 0 runs the view-selection pre-pass while the others wait,
 trains with the distributed step and alone records, saves and validates;
 the evaluation pools the ranks' views before its summary.
 
-Not carried from the JAX runner: ``autotune_model`` and the
-``host_sync`` / ``frame_sync`` calls (TPU machinery) and ``make_forward``'s
-staged executors.
+``make_forward`` gives the eval entry, the path entry and the viewer their
+frame executor: ``StagedENeRF`` for the ENeRF family, ``StagedMVSNeRF``'s
+row blocks for the MVSNeRF family (``parallel/staged.py``).
+
+Not carried from the JAX runner: ``autotune_model``, ``make_mask_fn`` and the
+``host_sync`` / ``frame_sync`` calls (TPU machinery).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from boostmvsnerfs_torch.models.enerf import CascadeConfig, ENeRF, to_tensors
 from boostmvsnerfs_torch.models.mvsnerf import MVSNeRF, MVSNeRFConfig
 from boostmvsnerfs_torch.models.variants import CompositeENeRF, HumanENeRF
 from boostmvsnerfs_torch.parallel import mesh as mesh_lib
+from boostmvsnerfs_torch.parallel.staged import StagedENeRF, StagedMVSNeRF
 from boostmvsnerfs_torch.parallel.train import (
     TrainState,
     create_train_state,
@@ -89,6 +93,20 @@ def make_network(cfg, device=None) -> nn.Module:
     if name == "enerf_human":
         return HumanENeRF(cas, device=device)
     raise ValueError(f"unknown network module: {cfg['network_module']}")
+
+
+def make_forward(cfg, model: nn.Module):
+    """The eval forward of ``model`` (JAX ``runner.make_forward``): with
+    ``execution`` ``staged`` (the default), an ENeRF-family model's
+    ``StagedENeRF`` (the model's forward, without a mesh) and an
+    MVSNeRF-family model's ``StagedMVSNeRF`` (blocks of 32 raster rows);
+    otherwise the model itself."""
+    if cfg.get("execution", "staged") == "staged":
+        if isinstance(model, ENeRF):
+            return StagedENeRF(model)
+        if isinstance(model, MVSNeRF):
+            return StagedMVSNeRF(model)
+    return model
 
 
 def requires_view_selection(cfg) -> bool:
@@ -266,9 +284,11 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None,
                     distributed)
         vs = load_view_selection(cfg)
 
+    fwd = make_forward(cfg, model)
+
     def forward(batch):
         if n_rays == 1:
-            return model(batch)
+            return fwd(batch)
         tile = mesh_lib.shard_batch(mesh, batch, ("rays",))
         return mesh_lib.gather_rays(mesh, model(tile), ("rays",))
 
@@ -373,6 +393,7 @@ def render_novel_path(cfg, n_frames: int = 60, path_type: str = "interpolate",
     cas = CascadeConfig.from_cfg(cfg["enerf"])
     model = make_network(cfg, device)
     _init_or_load(cfg, model)
+    fwd = make_forward(cfg, model)
     dataset = make_dataset(cfg, "test")
     boost = requires_view_selection(cfg)
 
@@ -396,7 +417,7 @@ def render_novel_path(cfg, n_frames: int = 60, path_type: str = "interpolate",
         batch = _device_batch(np_batch, device)
         sync()
         t1 = time.perf_counter()
-        out = model(batch)
+        out = fwd(batch)
         sync()
         t2 = time.perf_counter()
         np_batch["meta"][0]["tar_view"] = fi

@@ -15,15 +15,25 @@ from boostmvsnerfs_torch.parallel.mesh import rank
 
 
 class SmoothedValue:
+    """The median of the last ``window_size`` values and the mean of all."""
+
     def __init__(self, window_size: int = 20):
         self.deque = deque(maxlen=window_size)
+        self.count = 0
+        self.total = 0.0
 
     def update(self, value: float):
         self.deque.append(value)
+        self.count += 1
+        self.total += value
 
     @property
     def median(self) -> float:
         return float(np.median(self.deque)) if self.deque else 0.0
+
+    @property
+    def global_avg(self) -> float:
+        return self.total / max(self.count, 1)
 
 
 class Recorder:
@@ -51,6 +61,12 @@ class Recorder:
             return
         for k, v in self.stats.items():
             self.writer.add_scalar(f"{prefix}/{k}", v.median, self.step)
+
+    def state_dict(self) -> dict:
+        return {"step": self.step}
+
+    def load_state_dict(self, d: dict):
+        self.step = int(d.get("step", 0))
 
     def close(self):
         if self.writer is not None:

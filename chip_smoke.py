@@ -19,9 +19,11 @@ phase. Three main paths are driven, each with its kernels checked first:
    event time also counts the host's share of a call), and the bound
    (bytes over 3.35 TB/s, or bf16 tensor-core operations over 989 TFLOP/s
    plus f32 operations over 67 TFLOP/s, the H100 SXM's published peaks,
-   whichever is larger). The bf16 kernels (the eval warp, the volume
-   sampler, renderer MLP, ENeRF head) are held against their plain
-   versions at bf16, and their error against the f32 plain version must
+   whichever is larger: ``boostmvsnerfs_torch/utils/roofline.py``, whose
+   work functions count what the inputs need, and print the data's share:
+   the warps' live taps, the samplers' touched pixels and voxels). The
+   bf16 kernels (the eval warp, the volume sampler, renderer MLP, ENeRF
+   head) are held against their plain versions at bf16, and their error against the f32 plain version must
    be bf16 rounding and nothing else; the volume sampler's f32 instance
    is held against the f32 plain version. The head is also checked at 2, 4 and 8 views (HEAD_VIEWS).
 4. frame   - a reduced-geometry BoostENeRF frame on the card against the
@@ -29,7 +31,8 @@ phase. Three main paths are driven, each with its kernels checked first:
 5. main    - the first main path, bench.py's workload: BoostENeRF K=4 of
    C(6,3), 480x736, planes (64, 8), only level 1 rendered, seeded random
    weights, f32 with TF32 off. Three batches checked, launches per frame
-   counted, then frame times over back-to-back frames.
+   counted, then frame times over back-to-back frames, and the frame's
+   bound and MFU (``utils/roofline.py``; main_mvsnerf too).
 6. profile - where a main-path frame's device time goes (torch.profiler):
    device-busy share, cuDNN convolutions, the ported kernels, top kernels.
 7. kernels, frame_mvsnerf, main_mvsnerf, profile_mvsnerf - the same for
@@ -55,7 +58,19 @@ phase. Three main paths are driven, each with its kernels checked first:
    scene at 128x192 on the card against the CPU port: coverage masks
    within limits that a fault planted in the CPU port must fail, picks
    equal on at least the first two greedy steps of every view, rendered
-   rgb over 45 dB and the psnr within 0.05 dB.
+   rgb over 45 dB and the psnr within 0.05 dB. The MVSNeRF frames go through
+   ``runner.make_forward``'s ``StagedMVSNeRF``: 7 row blocks of 32 rows at
+   224x352, each launching #6, #3 and #8 once. Then staged_mvsnerf: the
+   MVSNeRF family's Free recipe
+   (configs/exps/evaluate/mvsnerf_ours/free_eval.yaml, BoostMVSNeRF v0,
+   K=4 of 20, 32 samples) at 480x736 on a Free scene of 16 images, in 15
+   row blocks: the eval entry (launches against the design, psnr, frame
+   times, peak memory); under deterministic cuDNN the frame through
+   ``StagedMVSNeRF`` against the model whole (equal; frame time and peak
+   memory of each); #6, #3 and #8 at one block's shapes; the frame's bound
+   and MFU; the v1 head's staged frame against its monolithic frame at
+   224x352, and its staged frame at 480x736 with its peak memory (the
+   monolithic one would outgrow the card).
 9. visualize, path - the novel-view entries over
    configs/exps/evaluate/enerf_ours/free_eval.yaml on the same Free scene
    with seeded weights as ``latest.pt``: ``python -m boostmvsnerfs_torch.run
@@ -84,14 +99,14 @@ phase. Three main paths are driven, each with its kernels checked first:
 10. train_entry - the training entry from YAML (``runner.run_train``, what
    ``python -m boostmvsnerfs_torch.train`` calls) over
    configs/exps/finetune/enerf_ours/free/base.yaml with seeded weights as
-   the ``pretrain: enerf`` checkpoint, shortened only (one epoch of 4
+   the ``pretrain: enerf`` checkpoint, shortened only (one epoch of 2
    steps, a log line, a checkpoint and a validation per epoch): batches
    of 4 at 480x736, BoostENeRF K=4, both levels on full images, lr 5e-5,
    in TRAIN_ENTRY_RAY_BLOCKS ray blocks (the unblocked step of 4 images
    does not fit the card). The pre-pass over the train and test views,
    the steps (times, launches per step against the design, stats), the
    validation record, the checkpoint; then the run resumed with
-   ``train.epoch 2``: it begins at epoch 1 and takes 4 more steps. The
+   ``train.epoch 2``: it begins at epoch 1 and takes 2 more steps. The
    kernels on the first batch; one validation frame with the
    convolutions at bf16 (``conv_dtype``) against float32; ``run_train``
    at 128x192 for 2 steps on the card against the CPU port (the first
@@ -110,7 +125,8 @@ phase. Three main paths are driven, each with its kernels checked first:
    weights as the ``pretrain: mvsnerf`` checkpoint, shortened only as in
    item 10 and unblocked, then resumed; launches per step (the colour
    lookup only: the volume lookup and the MLP run plainly under autograd)
-   and per validation frame (#6, #3, #8), the pre-pass (geometry, no
+   and per validation frame (#6, #3, #8 per row block: 15 at 480x736, 16 at
+   512x512), the pre-pass (geometry, no
    launches), the kernels on the step's and the validation's inputs; the
    plain MVSNeRF recipe (configs/exps/finetune/mvsnerf/free/base.yaml,
    512x512) for 2 steps and a validation. One BoostMVSNeRF step at 128x192
@@ -191,12 +207,25 @@ import sys
 import tempfile
 import time
 
+T_IMPORT = time.perf_counter()  # the script's clock starts before torch loads
+
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-BF16_TC_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+from boostmvsnerfs_torch.utils.roofline import (
+    bound,
+    head_work,
+    live_tap_share,
+    mlp_work,
+    sample_bwd_work,
+    sample_work,
+    touched_pixels,
+    touched_voxels,
+    tri_work,
+    warp_bwd_work,
+    warp_work,
+)
+
 # Kernel vs plain version: both f32; the kernels sum in another order, so
 # the largest error allowed is 1e-4 of the output's largest magnitude (at
 # least 1).
@@ -214,6 +243,11 @@ BF16_MEAN_RATIO = 1.5
 MAIN_RAYS = 480 * 736
 MVS_HW = (224, 352)
 MVS_K_BEST = (0, 5, 9, 14)
+# an MVSNeRF frame's launches: one of each of its kernels per row block
+# (``StagedMVSNeRF``, behind ``runner.make_forward``) or per frame (the
+# model whole)
+MVS_FRAME = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
+MVS_ROW_CHUNK = 32  # StagedMVSNeRF's raster rows a block (JAX's row_chunk)
 # view counts of the head kernel checked beside the main path's 3
 HEAD_VIEWS = (2, 4, 8)
 NO_LAUNCHES = {"warp_variance": 0, "img_sample": 0, "enerf_head": 0, "tri_sample": 0,
@@ -373,128 +407,18 @@ def shares(bms: float, t: dict) -> dict:
     return {SHARE_NAMES[k]: None if v is None else bms / v for k, v in t.items()}
 
 
-def bound(nbytes: float, ops: float, tc_ops: float = 0.0) -> tuple[float, str]:
-    """The least time (ms) the card could take: bytes over the memory rate,
-    or f32 operations over the f32 rate plus bf16 tensor-core operations
-    over the tensor cores' rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS + tc_ops / BF16_TC_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-# Work of each kernel on given inputs: bytes (each input read once, each
-# output written once), f32 operations and, for the bf16 kernels, the dense
-# layers' operations on the tensor cores. The warp kernels skip the taps
-# that fall outside the source image, so their tap work counts only the
-# taps of these inputs that land inside (``live_tap_share``); the image
-# samplers read only the map pixels their taps touch (``touched_pixels``).
-def live_tap_share(feats, pm, dv) -> float:
-    """The share of the plane-sweep warp's bilinear taps (4 per voxel and
-    view) that land inside the source image, from the voxels' coordinates
-    as the kernels compute them."""
-    from boostmvsnerfs_torch.ops import cost_volume
-
-    Hs, Ws = feats.shape[2:4]
-    live = 0
-    for s in range(feats.shape[1]):
-        x, y = cost_volume.warp_coords(pm[:, s], dv)
-        x0, y0 = torch.floor(x.clamp(-2.0, Ws + 1.0)), torch.floor(y.clamp(-2.0, Hs + 1.0))
-        in_x = [(x0 + d >= 0) & (x0 + d <= Ws - 1) for d in (0, 1)]
-        in_y = [(y0 + d >= 0) & (y0 + d <= Hs - 1) for d in (0, 1)]
-        live += sum(int((a & b).sum()) for a in in_x for b in in_y)
-    return live / (4 * feats.shape[1] * dv.numel())
-
-
-def warp_work(feats, pm, dv, compute_dtype=torch.bfloat16):
-    """Per voxel and view the projection, 4 taps x C multiply-adds and the
-    sums of w and w^2; per voxel the variance. Either instance
-    (``compute_dtype``) reads the f32 features: the bf16 one rounds them as
-    it loads them, so the bytes are the same."""
-    B, S, Hs, Ws, C = feats.shape
-    n = dv.numel()
-    nbytes = 4 * (feats.numel() + pm.numel() + n + n * C)
-    return nbytes, n * (S * (35 + 3 * C) + 4 * C) + live_tap_share(feats, pm, dv) * n * S * 8 * C
-
-
-def touched_pixels(imgs, x, y, padding_mode="border") -> int:
-    """The distinct in-image pixels among the four bilinear taps of every
-    sample, from the coordinates as the sampler kernels clamp them: the map
-    pixels a sampler has to read (at most all of them). A ray block of the
-    fine-tuning step samples a band of each map, not the whole map."""
-    V, H, W = imgs.shape[:3]
-    lo, hi_x, hi_y = (0.0, W - 1, H - 1) if padding_mode == "border" else (-2.0, W + 1, H + 1)
-    x0 = torch.floor(x.clamp(lo, hi_x)).long()
-    y0 = torch.floor(y.clamp(lo, hi_y)).long()
-    view = torch.arange(V, device=x.device)[:, None] * (H * W)
-    hit = torch.zeros(V * H * W, dtype=torch.bool, device=x.device)
-    for dy in (0, 1):
-        for dx in (0, 1):
-            xi, yi = x0 + dx, y0 + dy
-            inside = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
-            hit[(view + yi * W + xi)[inside]] = True
-    return int(hit.sum())
-
-
-def sample_work(imgs, x, y, padding_mode="border"):
-    """Reads the map pixels the taps touch and the coordinates, writes the
-    samples; per sample the taps, per channel four products and three sums."""
-    C, n = imgs.shape[-1], x.numel()
-    return 4 * (touched_pixels(imgs, x, y, padding_mode) * C + 2 * n + n * C), n * (20 + 7 * C)
-
-
-def head_work(params, vox, feat, dirs):
-    """The dense layers' multiply-adds per sample, all on bf16 tensor cores
-    (the kernel's one contract); lr0 and color0's per-sample part over
-    [vox 8, agg 16], or [agg 16] for the image-feature-only head (no
-    voxel features read)."""
-    B, S, P, C = feat.shape
-    L = params["lr0"][0].shape[1]
-    macs = (S * C * 4 + 2 * 32 * C + S * 32 * C + S * 32 + 16 * 32 + 64 * L + 64
-            + 64 * (64 + L) + S * 64 * (C + 4) + S * 64)
-    n_weights = sum(w.numel() + b.numel() for w, b in params.values())
-    n_vox = 0 if vox is None else vox.numel()
-    nbytes = 4 * (n_vox + feat.numel() + dirs.numel() + 4 * B * P + n_weights)
-    return nbytes, 0.0, 2 * macs * B * P
-
-
-def warp_bwd_work(feats, pm, dv, g):
-    """Reads the features, matrices, depths and cotangent, writes d feats
-    and d depth; per voxel and view the projection, the per-view cotangent
-    and the coordinate derivatives, and per live tap the loads for the mean
-    and for the cotangent and the scatter (3 x 8 C operations)."""
-    B, S, Hs, Ws, C = feats.shape
-    n = dv.numel()
-    nbytes = 4 * (2 * feats.numel() + pm.numel() + 2 * n + n * C)
-    return nbytes, n * S * (80 + 21 * C) + live_tap_share(feats, pm, dv) * n * S * 24 * C
-
-
-def sample_bwd_work(imgs, x, y, g, padding_mode="border"):
-    """Reads the map pixels the taps touch, the coordinates and the
-    cotangent, writes the whole of d imgs (zero-filled, then scattered into),
-    d x and d y; per sample and channel four scattered products and the two
-    derivatives."""
-    C, n = imgs.shape[-1], x.numel()
-    maps = touched_pixels(imgs, x, y, padding_mode) * C
-    return 4 * (maps + imgs.numel() + 4 * n + n * C), n * (20 + 18 * C)
-
-
-def tri_work(vol, xyz, *_):
-    """Both instances read the f32 volume (the bf16 one rounds it)."""
-    C, n = vol.shape[-1], xyz.numel() // 3
-    return 4 * (vol.numel() + xyz.numel() + n * C), n * (8 * (2 + 2 * C) + 12)
-
-
-def mlp_work(params, pts, feat, dirs, encode_freqs=0, compute_dtype=torch.bfloat16):
-    """Multiply-adds of every layer (the weights' size) per sample, on the
-    tensor cores at bf16 and as f32 operations at f32, plus the sines and
-    cosines of an in-kernel encoding (f32)."""
-    n = pts.shape[0] * pts.shape[1]
-    macs = sum(w.numel() for w, _ in params.values())
-    n_weights = sum(w.numel() + b.numel() for w, b in params.values())
-    nbytes = 4 * (pts.numel() + feat.numel() + dirs.numel() + 4 * n + n_weights)
-    dense_ops, enc_ops = n * 2 * macs, n * 2 * 3 * encode_freqs
-    if compute_dtype == torch.bfloat16:
-        return nbytes, enc_ops, dense_ops
-    return nbytes, enc_ops + dense_ops, 0.0
+def data_shares(name: str, args) -> dict:
+    """The data-dependent parts of a kernel's work on ``args``
+    (``utils/roofline.py``): the warps' share of live taps, the samplers'
+    touched map pixels and voxels."""
+    if name.startswith("warp_variance"):
+        return {"live_tap_share": live_tap_share(*args[:3])}
+    if name == "tri_sample":
+        return {"touched_voxels": touched_voxels(*args[:2])}
+    if name.startswith("img_sample"):
+        mode = args[3] if len(args) > 3 and isinstance(args[3], str) else "border"
+        return {"touched_pixels": touched_pixels(*args[:3], mode)}
+    return {}
 
 
 def random_weights(model, seed: int) -> dict:
@@ -542,17 +466,25 @@ def head_views(params, vox, feat, dirs, n: int):
     return params, vox, feat[:, views].contiguous(), dirs[:, views].contiguous()
 
 
-def mvs_kernel_inputs(model, batch) -> dict:
+def mvs_stages(model, batch, ray_idx=None):
+    """A BoostMVSNeRF's render up to its head (``render_stages``) on the
+    rays ``ray_idx`` (B, R) of ``batch`` (all of its ``ray_idx_0`` by
+    default), each repeated for the K volumes, as ``render_rays`` does."""
+    sub, volume, near, far = model.frame_volume(batch)
+    ids = batch["ray_idx_0"] if ray_idx is None else ray_idx
+    return model.render_stages(sub, volume, ids.repeat_interleave(model.cfg.k_best, 0), near, far)
+
+
+def mvs_kernel_inputs(model, batch, ray_idx=None) -> dict:
     """Each kernel's inputs on the MVSNeRF main path, from the model's own
-    stages: {entry: [(label, args), ...]}. The MLP's encoded instance takes
-    the raw-coordinate instance's samples, encoded by the port's
-    positional_encoding."""
+    stages (``mvs_stages``, on the rays ``ray_idx``): {entry: [(label,
+    args), ...]}. The MLP's encoded instance takes the raw-coordinate
+    instance's samples, encoded by the port's positional_encoding."""
     from boostmvsnerfs_torch.ops.cuda.renderer_mlp import positional_encoding
 
     from boostmvsnerfs_torch.models.mvsnerf import KERNEL_HEADS
 
-    sub, volume, near, far = model.fused_volumes(batch)
-    calls, (uvd, feat, dirs), _, _ = model.render_stages(sub, volume, sub["ray_idx_0"], near, far)
+    calls, (uvd, feat, dirs), _, _ = mvs_stages(model, batch, ray_idx)
     lookups = {
         "tri_sample": [("render", calls["tri_sample"])],
         "tri_sample/f32": [("render", (*calls["tri_sample"], torch.float32))],
@@ -691,7 +623,7 @@ def phase_kernels(table: dict, inputs: dict, path: str) -> dict:
                  compute_dtype=rec["compute_dtype"], shapes=[list(a.shape) for a in tensors],
                  max_abs_err=err, tolerance=rtol * scale, **vs_f32, **t, plain_ms=plain_ms,
                  bound_ms=bms, bound_by=by, bytes=counts[0], ops=counts[1], tc_ops=counts[2],
-                 **shares(bms, t))
+                 **data_shares(name, args), **shares(bms, t))
             require(err <= rtol * scale, f"{name} at {label}: max abs error {err} vs plain")
             if bf16:
                 require(vs_f32["mean_abs_err_vs_f32"]
@@ -763,11 +695,14 @@ def phase_frame_mvsnerf(state: dict, net_type: str = "v0", phase: str = "frame_m
 
 
 def phase_main(model, batches, phase: str, expect: dict, rgb_key: str, n_rays: int,
-               rgb_max: float = 1.0, **describe) -> dict:
+               rgb_max: float = 1.0, costs=None, frames: int = 10, **describe) -> dict:
     """Launches per frame (counts reset just before, read just after one
     frame), three batches checked (rgb finite, in [0, ``rgb_max``]), then
-    frame times over back-to-back frames."""
+    frame times over ``frames`` back-to-back frames; with ``costs`` (the
+    frame's ``utils/roofline`` total) its bound and MFU at the median
+    frame."""
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+    from boostmvsnerfs_torch.utils import roofline
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -789,22 +724,23 @@ def phase_main(model, batches, phase: str, expect: dict, rgb_key: str, n_rays: i
     for _ in range(2):
         model(batches[0])
     torch.cuda.synchronize()
-    n = 10
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(n)]
+              for _ in range(frames)]
     t0 = time.perf_counter()
     for start, end in events:  # back to back: no host sync between frames
         start.record()
         model(batches[0])
         end.record()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / n
+    wall = (time.perf_counter() - t0) / frames
     frame_ms = [s.elapsed_time(e) for s, e in events]
     med = statistics.median(frame_ms)
+    bounds = {} if costs is None else {"frame_bound": roofline.frame_speed_of_light(
+        costs, med / 1e3, roofline.peaks())}
     emit(phase=phase, **describe, launches_per_frame=launches, frame_ms_median=med,
          frame_ms_min=min(frame_ms), frame_ms_max=max(frame_ms),
          host_wall_ms_per_frame=wall * 1e3, rays_per_s=n_rays / (med / 1e3),
-         peak_mem_gib=peak_gib, frames=n)
+         peak_mem_gib=peak_gib, frames=frames, **bounds)
     return launches
 
 
@@ -856,6 +792,7 @@ def run_enerf() -> list:
     records."""
     from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
     from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
+    from boostmvsnerfs_torch.utils import roofline
     from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
 
     model = BoostENeRF(CascadeConfig(k_best=4, render_if=(False, True)))
@@ -873,7 +810,9 @@ def run_enerf() -> list:
     phase_frame(state)
     launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main",
                           {"warp_variance": 2, "img_sample": 1, "enerf_head": 1}, "rgb_level1",
-                          MAIN_RAYS, geometry=[480, 736], views=6, k_best=4, planes=[64, 8])
+                          MAIN_RAYS, costs=roofline.flagship_render_costs(
+                              480, 736, cas=model.cas)["total"],
+                          geometry=[480, 736], views=6, k_best=4, planes=[64, 8])
     batch = make_batch(0)
     phase_profile(lambda: model(batch), "profile", ("warp_variance", "img_sample", "enerf_head"))
     for rec in summary.values():
@@ -887,6 +826,7 @@ def run_mvsnerf() -> list:
     from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
     from boostmvsnerfs_torch.models.enerf import to_tensors
     from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+    from boostmvsnerfs_torch.utils import roofline
     from boostmvsnerfs_torch.utils.synthetic import make_scene_batch, mvsnerf_batch
 
     model = BoostMVSNeRF(MVSNeRFConfig(k_best=len(MVS_K_BEST)))
@@ -906,7 +846,9 @@ def run_mvsnerf() -> list:
     phase_frame_mvsnerf(state)
     kernels = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
     launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main_mvsnerf", kernels,
-                          "rgb_level0", H * W, geometry=[H, W], views=6,
+                          "rgb_level0", H * W,
+                          costs=roofline.mvsnerf_render_costs(H, W, k_best=len(MVS_K_BEST))["total"],
+                          geometry=[H, W], views=6,
                           k_best=list(MVS_K_BEST), samples=model.cfg.num_samples)
     batch = make_batch(0)
     phase_profile(lambda: model(batch), "profile_mvsnerf", tuple(kernels))
@@ -1174,10 +1116,11 @@ def run_evaluate_path() -> list:
 
 def run_evaluate_mvsnerf_path() -> list:
     """The eval entry over BoostMVSNeRF at 224x352 (phase
-    ``evaluate_mvsnerf``); its pre-pass is geometry and launches none."""
+    ``evaluate_mvsnerf``); its pre-pass is geometry and launches none, its
+    frames go through ``StagedMVSNeRF``'s 7 row blocks."""
     from boostmvsnerfs_torch.utils.synthetic import write_scannet_scene
 
-    per = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
+    per = scaled(MVS_FRAME, mvs_row_blocks(MVS_HW[0]))
     return drive_eval_entry(
         SCANNET_EVAL, "evaluate_mvsnerf",
         lambda ws: write_scannet_scene(os.path.join(ws, "scannet_plus"), "scene0000_01",
@@ -1185,6 +1128,170 @@ def run_evaluate_mvsnerf_path() -> list:
                                        rig="varied"),
         "scene0000_01", {k: MVS_KERNELS[k] for k in per}, mvs_kernel_inputs, {}, per,
         "viewport_visibility: the first view sees nothing")
+
+
+def mvs_row_blocks(H: int) -> int:
+    """Row blocks of an MVSNeRF frame of ``H`` raster rows through
+    ``StagedMVSNeRF``: H / MVS_ROW_CHUNK where H is a multiple of it above
+    it, else one (JAX's rule)."""
+    return H // MVS_ROW_CHUNK if H > MVS_ROW_CHUNK and H % MVS_ROW_CHUNK == 0 else 1
+
+
+MVS_FREE_EVAL = "configs/exps/evaluate/mvsnerf_ours/free_eval.yaml"
+MVS_FREE_HW = (480, 736)
+STAGED_FRAMES = 3  # timed frames of each executor, after the measured one
+
+
+def frame_run(fn, batch, frames: int = STAGED_FRAMES) -> tuple:
+    """One frame of ``fn(batch)``: its outputs and, on the card, its peak
+    memory (from a reset) and the median CUDA-event time of ``frames``
+    more."""
+    if not batch["all_src_inps"].is_cuda:
+        return fn(batch), {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return out, {"peak_mem_gib": peak, "frame_ms": median_ms(lambda: fn(batch), frames, 0)}
+
+
+# The staged frame against the monolithic one, under deterministic cuDNN:
+# the volume is built once by the same call and every later step works per
+# ray or per sample, so with the v0 head, whose MLP is kernel #8, the two
+# are equal. The other heads run their layers plainly through cuBLAS, which
+# picks its kernels, and with them the order of a product's sums, by the
+# number of rows: 1.8e-7 in rgb for the v1 head at 224x352 on the NVIDIA
+# H100 80GB HBM3 (PERF.md, section 6). Those are held to 1e-5 of
+# each output's largest magnitude (at least 1).
+STAGED_PLAIN_HEAD_RTOL = 1e-5
+
+
+def staged_frames(model, batch, what: str, monolithic: bool = True,
+                  frames: int = STAGED_FRAMES) -> dict:
+    """``batch``'s frame through ``StagedMVSNeRF`` and, with ``monolithic``,
+    through the model whole, under deterministic cuDNN: every output finite,
+    rgb of the target's shape, the two frames equal (within
+    STAGED_PLAIN_HEAD_RTOL for a head without the MLP kernel). Returns each
+    executor's ``frame_run`` record and the errors."""
+    from boostmvsnerfs_torch.models.mvsnerf import KERNEL_HEADS
+    from boostmvsnerfs_torch.parallel.staged import StagedMVSNeRF
+
+    H, W = batch["all_src_inps"].shape[2:4]
+    rec = {"row_blocks": mvs_row_blocks(H)}
+    with deterministic_cudnn():
+        staged, rec["staged"] = frame_run(StagedMVSNeRF(model), batch, frames)
+        require(all(bool(torch.isfinite(v).all()) for v in staged.values())
+                and tuple(staged["rgb_level0"].shape) == (1, H * W, 3),
+                f"{what}: staged frame outputs")
+        if monolithic:
+            whole, rec["monolithic"] = frame_run(model, batch, frames)
+            require(staged.keys() == whole.keys(), f"{what}: output keys")
+            rec["max_abs_err"] = {k: float((staged[k] - whole[k]).abs().max()) for k in whole}
+            rtol = 0.0 if model.cfg.net_type in KERNEL_HEADS else STAGED_PLAIN_HEAD_RTOL
+            rec["tolerance"] = {k: rtol * max(1.0, float(v.abs().max())) for k, v in whole.items()}
+            require(all(rec["max_abs_err"][k] <= rec["tolerance"][k] for k in whole),
+                    f"{what}: staged vs monolithic {rec['max_abs_err']}")
+    return rec
+
+
+def staged_v1_frames(ws: str, vs: dict, sizes=(MVS_HW, MVS_FREE_HW), device=None,
+                     *opts) -> dict:
+    """The v1 head (``mvsnerf.net_type v1``, seeded weights) from the Free
+    eval config (and ``opts``): its staged frame against its monolithic
+    frame at the first size (224x352), then its staged frame alone at the
+    second (480x736), whose monolithic frame would outgrow the card, with
+    peak memory."""
+    from boostmvsnerfs_torch import runner
+
+    out = {}
+    for i, hw in enumerate(sizes):
+        cfg = eval_cfg(MVS_FREE_EVAL, ws, "grass", "mvsnerf.net_type", "v1",
+                       "test_dataset.input_h_w", "[{}, {}]".format(*hw), *opts)
+        model = runner.make_network(cfg, device)
+        model.load_state_dict(random_weights(model, 0), strict=True)
+        batch = first_test_batch(cfg, vs, model.device)
+        out["x".join(map(str, hw))] = staged_frames(model, batch, f"staged_mvsnerf v1 at {hw}",
+                                                    monolithic=i == 0, frames=1)
+        del model, batch
+        if model_on_card(device):
+            torch.cuda.empty_cache()
+    return out
+
+
+def model_on_card(device) -> bool:
+    return device is None or torch.device(device).type == "cuda"
+
+
+def staged_entry(cfg, device=None) -> tuple:
+    """``run_evaluate(cfg)`` with its launches counted (reset just before,
+    read just after), held to the design: no launch in the pre-pass
+    (geometry), MVS_FRAME per row block and test view. Returns (its
+    summary, its launches)."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    ret = runner.run_evaluate(cfg, device=device)
+    if model_on_card(device):
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    views = len(ret["frame_ms"])
+    H = int(cfg.test_dataset.input_h_w[0])
+    combos = math.comb(int(cfg.enerf.test_input_views), int(cfg.enerf.cost_volume_input_views))
+    expect = expected_eval_launches(views, combos, int(cfg.enerf.cas_config.k_best), {},
+                                    scaled(MVS_FRAME, mvs_row_blocks(H)))
+    require(views == 2 and launches == {**NO_LAUNCHES, **expect},
+            f"staged_mvsnerf: launches {launches}, expected {expect}")
+    for key in ("psnr", "ssim"):
+        require(math.isfinite(ret[key]), f"staged_mvsnerf: {key} {ret.get(key)}")
+    return ret, launches
+
+
+def run_staged_mvsnerf() -> list:
+    """Phase ``staged_mvsnerf`` (module docstring, item 8): the MVSNeRF
+    family's Free eval recipe at 480x736 through ``runner.make_forward``'s
+    ``StagedMVSNeRF``. Returns the kernels' summary records, with the
+    launches of the entry's run."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.parallel.staged import ray_blocks
+    from boostmvsnerfs_torch.utils import roofline
+
+    t_phase = time.perf_counter()
+    H, W = MVS_FREE_HW
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        free_scene(ws, H, W)
+        cfg = eval_cfg(MVS_FREE_EVAL, ws, "grass")
+        save_seeded_weights(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ret, launches = staged_entry(cfg)
+        entry_peak = torch.cuda.max_memory_allocated() / 2**30
+
+        model = runner.make_network(cfg)
+        runner._init_or_load(cfg, model)
+        vs = runner.load_view_selection(cfg)
+        batch = first_test_batch(cfg, vs, model.device)
+        frames = staged_frames(model, batch, "staged_mvsnerf")
+        ids = ray_blocks(batch["ray_idx_0"], W, MVS_ROW_CHUNK)
+        with torch.no_grad():
+            summary = phase_kernels({k: MVS_KERNELS[k] for k in MVS_FRAME},
+                                    mvs_kernel_inputs(model, batch, ids[0]), "staged_mvsnerf")
+        del model, batch
+        torch.cuda.empty_cache()
+        v1 = staged_v1_frames(ws, vs)
+    k_best = int(cfg.enerf.cas_config.k_best)
+    costs = roofline.mvsnerf_render_costs(H, W, k_best=k_best)["total"]
+    emit(phase="staged_mvsnerf", config=MVS_FREE_EVAL, geometry=[H, W], row_chunk=MVS_ROW_CHUNK,
+         k_best=k_best, summary={k: v for k, v in ret.items() if k != "frame_ms"},
+         launches=launches, entry_frame_ms=ret["frame_ms"], entry_peak_mem_gib=entry_peak,
+         frames=frames, staged_bound=roofline.frame_speed_of_light(
+             costs, frames["staged"]["frame_ms"] / 1e3, roofline.peaks()),
+         v1=v1, phase_seconds=time.perf_counter() - t_phase)
+    for rec in summary.values():
+        rec["launches"] = launches[rec["name"]]
+    return list(summary.values())
 
 
 # ----------------------------------------------------------------- training
@@ -1310,7 +1417,7 @@ def phase_kernels_train(inputs: dict, phase: str = "kernels_train", path: str = 
                  shapes=[list(a.shape) for a in args if torch.is_tensor(a)], max_abs_err=errs,
                  largest=scales, relative_err=[e / max(c, 1e-30) for e, c in zip(errs, scales)],
                  tolerance=rtol, **t, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                 bytes=nbytes, ops=ops, **shares(bms, t))
+                 bytes=nbytes, ops=ops, **data_shares(name, args), **shares(bms, t))
             for e, c in zip(errs, scales):
                 require(e <= rtol * c, f"{name} at {label}: error {e} vs largest {c}")
             rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
@@ -1666,10 +1773,11 @@ def run_train_path() -> list:
 
 PATH_FRAMES = 3
 FINETUNE = "configs/exps/finetune/enerf_ours/free/base.yaml"
-# the fine-tuning recipe, shortened only: one epoch of 4 steps, with a log
-# line, a checkpoint and a validation at its end
-TRAIN_ENTRY_OPTS = ("train.epoch", "1", "ep_iter", "4", "eval_ep", "1", "log_interval", "1",
-                    "save_ep", "1")
+# the fine-tuning recipe, shortened only: one epoch of TRAIN_ENTRY_STEPS
+# steps, with a log line, a checkpoint and a validation at its end
+TRAIN_ENTRY_STEPS = 2
+TRAIN_ENTRY_OPTS = ("train.epoch", "1", "ep_iter", str(TRAIN_ENTRY_STEPS), "eval_ep", "1",
+                    "log_interval", "1", "save_ep", "1")
 # The recipe's batch of 4 at 480x736 does not fit the card in JAX's
 # unblocked step (scripts/torch_train_memory.py on the NVIDIA H100 80GB
 # HBM3: out of memory with 74.9 GiB held, where batch 1 peaks at 19.3 GiB
@@ -2226,8 +2334,8 @@ def step_summary(run: dict) -> dict:
 
 def phase_train_entry(ws: str) -> list:
     """``run_train(cfg)`` over the fine-tuning recipe (module docstring,
-    item 10): the first run (pre-pass, 4 steps, a checkpoint, a
-    validation), its launches against the design, the resumed run, the
+    item 10): the first run (pre-pass, TRAIN_ENTRY_STEPS steps, a
+    checkpoint, a validation), its launches against the design, the resumed run, the
     kernels on the first batch, the bf16 convolutions, the card against the
     CPU port. Returns the kernels' summary records, with the first run's
     launches."""
@@ -2243,7 +2351,7 @@ def phase_train_entry(ws: str) -> list:
     model = runner.make_network(cfg)
     model.load_state_dict(pretrain, strict=True)
     batch = first_train_batch(cfg, vs, "cuda")
-    design = train_entry_design(model, batch, TRAIN_ENTRY_RAY_BLOCKS, steps=4)
+    design = train_entry_design(model, batch, TRAIN_ENTRY_RAY_BLOCKS, steps=TRAIN_ENTRY_STEPS)
     record = {"config": FINETUNE, "overrides": list(TRAIN_ENTRY_OPTS), "geometry": [480, 736],
               "batch": int(batch["all_src_inps"].shape[0]),
               "views": int(batch["all_src_inps"].shape[1]), "k_best": 4,
@@ -2253,8 +2361,9 @@ def phase_train_entry(ws: str) -> list:
                                                "final_step", "val", "prepass", "validations")},
                         **step_summary(run),
                         "launches_per_step": [s["launches"] for s in run["steps"]]}
-        check_train_entry_run(name, run, design, epoch, steps=4)
-    require(first["final_step"] == 4 and resumed["final_step"] == 8, "train_entry: resume")
+        check_train_entry_run(name, run, design, epoch, steps=TRAIN_ENTRY_STEPS)
+    require(first["final_step"] == TRAIN_ENTRY_STEPS
+            and resumed["final_step"] == 2 * TRAIN_ENTRY_STEPS, "train_entry: resume")
     require(CheckpointManager(cfg.trained_model_dir).numbered_epochs() == [0, 1],
             "train_entry: checkpoints")
     with torch.no_grad():
@@ -2448,11 +2557,11 @@ def train_check(ws: str, cfg_fn=None) -> dict:
 # ------------------------------- the MVSNeRF heads and MVSNeRF training
 
 MVS_HEADS = ("v1", "v2", "color_fusion")
+HEAD_FRAMES = 3  # timed frames of each head (0.2-0.4 s each on the card)
 MVS_FINETUNE = "configs/exps/finetune/mvsnerf_ours/free/base.yaml"
 MVS_PLAIN_FINETUNE = "configs/exps/finetune/mvsnerf/free/base.yaml"
 MVS_PLAIN_HW = (512, 512)  # configs/exps/evaluate/mvsnerf/free_eval.yaml
 MVS_STEP_RAYS = 1024  # the recipes' num_rays (train_img false)
-MVS_FRAME = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
 
 
 def run_mvsnerf_heads() -> list:
@@ -2491,8 +2600,8 @@ def run_mvsnerf_heads() -> list:
         rgb_max = 3.0 if net_type == "color_fusion" else 1.0
         got = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "mvsnerf_heads",
                          {"tri_sample": 1, "img_sample": 1}, "rgb_level0", H * W, rgb_max,
-                         net_type=net_type, geometry=[H, W], views=6, k_best=list(MVS_K_BEST),
-                         samples=model.cfg.num_samples)
+                         frames=HEAD_FRAMES, net_type=net_type, geometry=[H, W], views=6,
+                         k_best=list(MVS_K_BEST), samples=model.cfg.num_samples)
         launches = launches or got
         del model
         torch.cuda.empty_cache()
@@ -2508,13 +2617,14 @@ def mvs_entry_cfg(ws: str, *opts, cfg_file: str = MVS_FINETUNE):
     return make_cfg(cfg_file, ["workspace", ws, "scene", "grass", *TRAIN_ENTRY_OPTS, *opts])
 
 
-def mvs_entry_design(steps: int, test_views: int = 2) -> dict:
+def mvs_entry_design(steps: int, test_views: int = 2, blocks: int = 1) -> dict:
     """Launches of the MVSNeRF training entry by design: a step launches
     only the colour lookup (#3; the volume lookup and the MLP run plainly
     under autograd), the pre-pass none (geometry), a validation frame
-    MVS_FRAME per test view."""
+    MVS_FRAME per row block (``blocks``, ``mvs_row_blocks``) and test
+    view."""
     step = added({"img_sample": 1})
-    validation = added(scaled(MVS_FRAME, test_views))
+    validation = added(scaled(MVS_FRAME, test_views * blocks))
     return {"step": step, "prepass": added(), "validation": validation,
             "first": added(scaled(step, steps), validation),
             "resumed": added(scaled(step, steps), validation)}
@@ -2529,8 +2639,7 @@ def mvs_step_inputs(cfg, weights: dict, batch: dict, device=None) -> dict:
     model.load_state_dict(weights, strict=True)
     model.train()
     with torch.no_grad():
-        sub, volume, near, far = model.fused_volumes(batch)
-        calls, _, _, _ = model.render_stages(sub, volume, sub["ray_idx_0"], near, far)
+        calls, _, _, _ = mvs_stages(model, batch)
     return {"img_sample": [("step", calls["img_sample"])]}
 
 
@@ -2551,8 +2660,8 @@ def run_train_entry_mvsnerf() -> list:
 def phase_train_entry_mvsnerf(ws: str):
     """``run_train(cfg)`` over the BoostMVSNeRF fine-tuning recipe
     (MVS_FINETUNE), shortened only, on a Free scene at 480x736: the first
-    run (pre-pass, 4 steps, a checkpoint, a validation) and the resumed
-    run against ``mvs_entry_design``; the kernels on the first batch (the
+    run (pre-pass, TRAIN_ENTRY_STEPS steps, a checkpoint, a validation)
+    and the resumed run against ``mvs_entry_design``; the kernels on the first batch (the
     step's colour lookup) and the first test batch (the validation frame's
     three kernels); then the plain MVSNeRF recipe at 512x512 for 2 steps
     and a validation. Returns (the kernels' summary records with the
@@ -2566,10 +2675,11 @@ def phase_train_entry_mvsnerf(ws: str):
     pretrain = save_pretrain(cfg)
     first = drive_train_entry(cfg, 0)
     resumed = drive_train_entry(mvs_entry_cfg(ws, "train.epoch", "2"), 0)
-    design = mvs_entry_design(steps=4)
+    design = mvs_entry_design(steps=TRAIN_ENTRY_STEPS, blocks=mvs_row_blocks(TRAIN_HW[0]))
     for name, run, epoch in (("first", first, 0), ("resumed", resumed, 1)):
-        check_train_entry_run(name, run, design, epoch, steps=4)
-    require(first["final_step"] == 4 and resumed["final_step"] == 8, "train_entry_mvsnerf: resume")
+        check_train_entry_run(name, run, design, epoch, steps=TRAIN_ENTRY_STEPS)
+    require(first["final_step"] == TRAIN_ENTRY_STEPS
+            and resumed["final_step"] == 2 * TRAIN_ENTRY_STEPS, "train_entry_mvsnerf: resume")
     require(CheckpointManager(cfg.trained_model_dir).numbered_epochs() == [0, 1],
             "train_entry_mvsnerf: checkpoints")
     vs = runner.load_view_selection(cfg)
@@ -2606,7 +2716,9 @@ def phase_train_entry_mvsnerf(ws: str):
         plain_cfg = mvs_entry_cfg(plain_ws, "ep_iter", "2", cfg_file=MVS_PLAIN_FINETUNE)
         save_pretrain(plain_cfg)
         plain = drive_train_entry(plain_cfg, 0)
-        check_train_entry_run("first", plain, mvs_entry_design(steps=2), 0, steps=2,
+        check_train_entry_run("first", plain,
+                              mvs_entry_design(steps=2, blocks=mvs_row_blocks(MVS_PLAIN_HW[0])),
+                              0, steps=2,
                               prepass=False)
     record["plain"] = {"config": MVS_PLAIN_FINETUNE, "geometry": list(MVS_PLAIN_HW),
                        **{k: plain[k] for k in ("seconds", "launches", "peak_mem_gib",
@@ -2750,12 +2862,10 @@ def mvs_plain_times(model, batch, iters: int = 5) -> dict:
 
     model.train()
     with torch.no_grad():
-        sub, volume, near, far = model.fused_volumes(batch)
-        calls, (uvd, feat, dirs), _, _ = model.render_stages(sub, volume, sub["ray_idx_0"],
-                                                             near, far)
+        calls, (uvd, feat, dirs), _, _ = mvs_stages(model, batch)
+    volume, xyz, spr = calls["tri_sample"]
     vol = volume.detach().requires_grad_()
     feat = feat.detach().requires_grad_()
-    xyz, spr = calls["tri_sample"][1:]
     gen = torch.Generator(device=vol.device).manual_seed(5)
     g_vox = torch.randn(*xyz.shape[:2], vol.shape[-1], generator=gen, device=vol.device)
     g_raw = torch.randn(*uvd.shape[:2], 4, generator=gen, device=vol.device)
@@ -3126,8 +3236,8 @@ def phase_human(ws: str) -> None:
     validation = added(scaled({"warp_variance": model.cas.num, "img_sample": rendered,
                                "enerf_head": rendered}, 2))
     design = {"step": step, "validation": validation,
-              "first": added(scaled(step, 4), validation)}
-    check_train_entry_run("first", run, design, 0, steps=4, prepass=False)
+              "first": added(scaled(step, TRAIN_ENTRY_STEPS), validation)}
+    check_train_entry_run("first", run, design, 0, steps=TRAIN_ENTRY_STEPS, prepass=False)
     record["train"] = {"config": HUMAN_FINETUNE,
                        "overrides": [*TRAIN_ENTRY_OPTS, *HUMAN_TRAIN_OPTS],
                        "batch": int(batch["src_inps"].shape[0]), "rays_per_level": n_rays,
@@ -3160,9 +3270,9 @@ def run_variants() -> list:
 # (``rank_worker``), which drives the entries' own functions and writes
 # each rank's readings into OUT.
 DIST_TIMEOUT_S = 420
-# the training entry's recipe (TRAIN_ENTRY_OPTS), cut to one epoch of 2
-# steps a launch
-DIST_TRAIN_OPTS = (*TRAIN_ENTRY_OPTS, "ep_iter", "2")
+# the training entry's recipe (TRAIN_ENTRY_OPTS): one epoch of 2 steps a
+# launch
+DIST_TRAIN_OPTS = TRAIN_ENTRY_OPTS
 DIST_FRAME_ITERS = 5
 # the unsharded frame against the sharded one, under deterministic cuDNN
 DIST_FRAME_TOL = 1e-5
@@ -3807,29 +3917,23 @@ def main() -> int:
         log = _build.library_path(k).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[k] = [ln.split("info    : ")[-1] for ln in lines if "registers" in ln or "spill" in ln]
-    emit(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    build_seconds = time.perf_counter() - t0
+    emit(phase="build", seconds=build_seconds, ptxas=ptxas)
 
-    records = run_enerf()
-    torch.cuda.empty_cache()
-    records += run_mvsnerf()
-    torch.cuda.empty_cache()
-    records += run_evaluate_path()
-    torch.cuda.empty_cache()
-    records += run_evaluate_mvsnerf_path()
-    torch.cuda.empty_cache()
-    records += run_visualize_and_path()
-    torch.cuda.empty_cache()
-    records += run_train_entry()
-    torch.cuda.empty_cache()
-    records += run_mvsnerf_heads()
-    torch.cuda.empty_cache()
-    records += run_train_entry_mvsnerf()
-    torch.cuda.empty_cache()
-    records += run_train_path()
-    torch.cuda.empty_cache()
-    records += run_variants()
-    torch.cuda.empty_cache()
+    parts = {}
+    records = []
+    for run in (run_enerf, run_mvsnerf, run_evaluate_path, run_evaluate_mvsnerf_path,
+                run_staged_mvsnerf, run_visualize_and_path, run_train_entry, run_mvsnerf_heads,
+                run_train_entry_mvsnerf, run_train_path, run_variants):
+        t = time.perf_counter()
+        records += run()
+        parts[run.__name__] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
     records += run_distributed(smi)
+    parts["run_distributed"] = time.perf_counter() - t
+    emit(phase="seconds", build=build_seconds, parts=parts,
+         script=time.perf_counter() - T_IMPORT)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

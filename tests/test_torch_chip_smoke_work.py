@@ -561,3 +561,37 @@ def test_composite_frame_and_step_launch_designs(smoke, counted):
         k for k in state if "running" in k or "num_batches" in k}
     assert launch_counts() == smoke.added({"warp_variance": 6, "warp_variance_bwd": 6,
                                            "img_sample": 6, "img_sample_bwd": 6})
+
+
+def test_staged_mvsnerf_phase_rehearses_on_cpu(smoke, tmp_path, counted):
+    """The phase ``staged_mvsnerf`` on a Free scene at 64x96 on the CPU (8
+    samples a ray): the eval entry's launches (no pre-pass launch; 2 test
+    views, each frame in 2 row blocks of 32 rows) pass the phase's design;
+    the staged frame equals the monolithic one; the kernels' inputs are one
+    block's; the v1 head's staged frame equals its monolithic frame at
+    32x64 (one block) and renders at 64x96."""
+    from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.parallel.staged import ray_blocks
+
+    ws = str(tmp_path)
+    smoke.free_scene(ws, 64, 96)
+    opts = ("enerf.cas_config.num_samples", "[8]")
+    cfg = _in_repo(smoke.eval_cfg, smoke.MVS_FREE_EVAL, ws, "grass", "test_dataset.input_h_w",
+                   "[64, 96]", "eval_lpips", "false", *opts)
+    smoke.save_seeded_weights(cfg)
+    _, launches = _in_repo(smoke.staged_entry, cfg, "cpu")
+    assert launches == dict(smoke.NO_LAUNCHES, tri_sample=4, img_sample=4, renderer_mlp=4)
+    model = runner.make_network(cfg, "cpu")
+    runner._init_or_load(cfg, model)
+    vs = runner.load_view_selection(cfg)
+    batch = smoke.first_test_batch(cfg, vs, "cpu")
+    rec = smoke.staged_frames(model, batch, "rehearsal")
+    assert rec["row_blocks"] == 2 and set(rec["max_abs_err"].values()) == {0.0}
+    ids = ray_blocks(batch["ray_idx_0"], 96, smoke.MVS_ROW_CHUNK)
+    inputs = smoke.mvs_kernel_inputs(model, batch, ids[0])
+    (_, (imgs, x, y, mode)), = inputs["img_sample"]
+    (_, (vol, xyz, spr)), = inputs["tri_sample"]
+    assert x.shape == (4 * 3, 32 * 96 * 8) and xyz.shape == (4, 32 * 96 * 8, 3) and spr == 8
+    v1 = _in_repo(smoke.staged_v1_frames, ws, vs, ((32, 64), (64, 96)), "cpu", *opts)
+    assert set(v1["32x64"]["max_abs_err"].values()) == {0.0}
+    assert v1["64x96"]["row_blocks"] == 2 and "monolithic" not in v1["64x96"]

@@ -423,6 +423,34 @@ def test_checkpoint_manager_keeps_five_and_round_trips(tmp_path):
     assert not load_pretrain(str(tmp_path / "none"), warm)
 
 
+@pytest.mark.parametrize("values", [[], [3.0], [1.0, 5.0, 2.0, 8.0, 4.0], list(range(30))])
+def test_smoothed_value_matches_jax(values):
+    """The window's median and the mean of every value, as JAX's
+    ``SmoothedValue`` keeps them (a window of 20)."""
+    from boostmvsnerfs_torch.train.recorder import SmoothedValue
+    from boostmvsnerfs_tpu.train.recorder import SmoothedValue as JaxSmoothedValue
+
+    got, want = SmoothedValue(), JaxSmoothedValue()
+    for v in values:
+        got.update(float(v))
+        want.update(float(v))
+    assert (got.median, got.global_avg, got.count) == (want.median, want.global_avg, want.count)
+
+
+def test_recorder_state_dict_round_trips_as_jaxs():
+    from boostmvsnerfs_torch.train.recorder import Recorder
+    from boostmvsnerfs_tpu.train.recorder import Recorder as JaxRecorder
+
+    rec, jrec = Recorder(), JaxRecorder()
+    rec.step = jrec.step = 7
+    assert rec.state_dict() == jrec.state_dict() == {"step": 7}
+    fresh = Recorder()
+    fresh.load_state_dict(rec.state_dict())
+    assert fresh.step == 7
+    fresh.load_state_dict({})
+    assert fresh.step == 0
+
+
 def test_run_train_resumes_and_saves(tmp_path, capsys):
     """Two epochs in one run equal one epoch, a stop, and a resumed second
     epoch, bit for bit (the optimizer moments and schedule travel in the
