@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import json
 import threading
-import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -38,6 +37,7 @@ from boostmvsnerfs_torch.interactive.camera import (
     InteractiveCamera,
     RenderOptions,
 )
+from boostmvsnerfs_torch.utils.profiling import collect, span
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>boostmvsnerfs viewer</title><style>
@@ -131,8 +131,9 @@ def _depth_colormap(depth: np.ndarray) -> np.ndarray:
 class ViewerState:
     """Server-side state: camera + options + render closure, with a lock
     (one card: renders serialize). ``frame_times`` holds one dict per served
-    frame: ``render_ms`` (the render function's call), ``encode_ms`` (the
-    colormap and the JPEG) and the render function's ``stats``."""
+    frame: ``render_ms`` (the render function's call, the span
+    ``viewer.render``), ``encode_ms`` (the colormap and the JPEG,
+    ``viewer.encode``) and the render function's ``stats``."""
 
     def __init__(self, render_fn, camera: InteractiveCamera,
                  options: RenderOptions | None = None):
@@ -168,17 +169,18 @@ class ViewerState:
                 if "level" in ev:
                     opt.level = int(ev["level"])
 
-            t0 = time.perf_counter()
-            frame = np.asarray(self.render_fn(cam.c2w(), opt))
-            t1 = time.perf_counter()
-            if frame.ndim == 2:  # depth map
-                frame = _depth_colormap(frame)
-            ok, buf = cv2.imencode(
-                ".jpg", frame[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 92]
-            )
+            with collect() as table:
+                with span("viewer.render"):
+                    frame = np.asarray(self.render_fn(cam.c2w(), opt))
+                with span("viewer.encode"):
+                    if frame.ndim == 2:  # depth map
+                        frame = _depth_colormap(frame)
+                    ok, buf = cv2.imencode(
+                        ".jpg", frame[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 92]
+                    )
             assert ok
-            self.frame_times.append({"render_ms": (t1 - t0) * 1e3,
-                                     "encode_ms": (time.perf_counter() - t1) * 1e3,
+            self.frame_times.append({"render_ms": table.seconds("viewer.render") * 1e3,
+                                     "encode_ms": table.seconds("viewer.encode") * 1e3,
                                      **getattr(self.render_fn, "stats", {})})
             return buf.tobytes()
 
@@ -244,10 +246,12 @@ def build_render_fn(cfg, device=None):
 
     ``render_fn`` runs under ``torch.no_grad()`` itself: the server renders
     in its handler threads, and grad mode is per thread. It times the
-    batch (``batch_ms``: the source views read from disk), the selection
-    and the forward apart, the last two to a synchronisation of the card,
-    and keeps them with the picks in ``render_fn.stats`` (``batch_ms``,
-    ``select_ms``, ``forward_ms``, ``k_best``); ``render_fn.model`` is the
+    batch (``batch_ms``: the source views read from disk, the span
+    ``data.pose_batch``), the selection (``select_ms``, ``selection``) and
+    the forward (``forward_ms``, ``eval.frame``) apart, the last two to a
+    synchronisation of the card, and keeps them with the picks in
+    ``render_fn.stats`` (``batch_ms``, ``select_ms``, ``forward_ms``,
+    ``k_best``); ``render_fn.model`` is the
     network. A level
     the config does not render (level 0 under ``render_if (False, True)``)
     raises, as in JAX, and the server answers 500."""
@@ -277,22 +281,20 @@ def build_render_fn(cfg, device=None):
             torch.cuda.synchronize(device)
 
     def render_fn(c2w: np.ndarray, opt: RenderOptions) -> np.ndarray:
-        with torch.no_grad():
-            t0 = time.perf_counter()
+        with torch.no_grad(), collect() as table:
             np_batch = runner.pose_batch(cfg, dataset, scene, c2w)
-            t1 = time.perf_counter()
             if boost:
                 np_batch["combos"] = combos
                 np_batch["k_best"] = runner.greedy_select(
                     model, runner._device_batch(np_batch, device), combos, k)
             batch = runner._device_batch(np_batch, device)
             sync()
-            t2 = time.perf_counter()
-            out = fwd(batch)
-            sync()
-            t3 = time.perf_counter()
-        render_fn.stats = {"batch_ms": (t1 - t0) * 1e3, "select_ms": (t2 - t1) * 1e3,
-                           "forward_ms": (t3 - t2) * 1e3,
+            with span("eval.frame"):
+                out = fwd(batch)
+                sync()
+        render_fn.stats = {"batch_ms": table.seconds("data.pose_batch") * 1e3,
+                           "select_ms": table.seconds("selection") * 1e3,
+                           "forward_ms": table.seconds("eval.frame") * 1e3,
                            "k_best": np_batch["k_best"][0].tolist() if boost else None}
         level = opt.level
         r_s = float(render_scale[level])

@@ -17,6 +17,7 @@ import torch
 
 from boostmvsnerfs_torch.models.enerf import ENeRF, to_tensors
 from boostmvsnerfs_torch.ops import render
+from boostmvsnerfs_torch.utils.profiling import span, spanned
 
 
 def view_combinations(n_views: int, n_input: int) -> np.ndarray:
@@ -86,8 +87,9 @@ class BoostENeRF(ENeRF):
         """The FPN once over all N source views; then the K selected
         combinations (``combos[k_best]``) fold into the batch axis
         (``fold_views``)."""
-        return self.fold_views(batch, self.extract_features(batch["all_src_inps"]),
-                               batch["combos"][batch["k_best"]])
+        feats_all = self.extract_features(batch["all_src_inps"])
+        with span("model.features"):
+            return self.fold_views(batch, feats_all, batch["combos"][batch["k_best"]])
 
     # ------------------------------------------------------------------
     # view selection
@@ -153,6 +155,7 @@ class BoostENeRF(ENeRF):
             masks.append(m.reshape(B, len(chunk), *m.shape[1:]).transpose(0, 1))
         return torch.cat(masks)
 
+    @spanned("model.blend")
     def blend(self, raw: dict, B: int) -> dict:
         """The K radiance fields of ``render_rays(..., return_raw=True)``
         (batch B*K) blended with normalised visibility weights in one

@@ -14,6 +14,7 @@ from boostmvsnerfs_torch.models.boost_enerf import _take_views
 from boostmvsnerfs_torch.models.enerf import to_tensors
 from boostmvsnerfs_torch.models.mvsnerf import MVSNeRF, depth_line, mvs_proj_mats
 from boostmvsnerfs_torch.ops import geometry, render
+from boostmvsnerfs_torch.utils.profiling import spanned
 
 
 # depth samples per ray of the view selection's coverage masks (JAX
@@ -80,6 +81,7 @@ class BoostMVSNeRF(MVSNeRF):
         return torch.cat([self._coverage(batch, vis, chunk)
                           for chunk in combos.split(self.cfg.k_best)])
 
+    @spanned("model.volume")
     def frame_volume(self, batch: dict):
         """The render's first two stages on a batch of tensors: the feature
         net once over all N source views; then each of the K selected
@@ -105,6 +107,7 @@ class BoostMVSNeRF(MVSNeRF):
                                    depth_line(near, far, self.cfg.num_samples))
         return sub, volume, near, far
 
+    @spanned("model.render")
     def render_rays(self, sub, volume, ray_idx, near, far) -> dict:
         """The render's last stage: the rays ``ray_idx`` (B, R), repeated
         for each of the K volumes, through ``frame_volume``'s outputs; the K

@@ -40,6 +40,7 @@ from boostmvsnerfs_torch.ops.cuda.warp_variance import (
     fused_warp_variance,
     fused_warp_variance_diff,
 )
+from boostmvsnerfs_torch.utils.profiling import count, spanned
 
 # channels of the FPN's level_0/1/2 maps, the cost-volume inputs per level
 FPN_CHANNELS = (32, 16, 8)
@@ -130,12 +131,21 @@ class CascadeConfig:
 
 def to_tensors(batch: dict, device: torch.device, dtype=torch.float32) -> dict:
     """A batch of numpy arrays or tensors on ``device``: floats as ``dtype``
-    (the model's), integers as int64 (index tensors)."""
+    (the model's), integers as int64 (index tensors). The bytes that cross
+    from host memory to another device add to the ``h2d_bytes`` counter
+    (``utils/profiling``), after the cast: a blocking copy casts on the
+    host."""
+    to_host = torch.device(device).type == "cpu"
     out = {}
+    sent = 0
     for k, v in batch.items():
         t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-        t = t.to(device, dtype if t.is_floating_point() else torch.int64)
-        out[k] = t
+        target = dtype if t.is_floating_point() else torch.int64
+        if not to_host and t.device.type == "cpu":
+            sent += t.numel() * target.itemsize
+        out[k] = t.to(device, target)
+    if sent:
+        count("h2d_bytes", sent)
     return out
 
 
@@ -171,6 +181,7 @@ class ENeRF(nn.Module):
     # stages
     # ------------------------------------------------------------------
 
+    @spanned("model.features")
     def extract_features(self, src_inps: torch.Tensor) -> dict:
         """FPN over all source views: {'level_k': (B, S, h, w, c)}."""
         B, S = src_inps.shape[:2]
@@ -208,6 +219,7 @@ class ENeRF(nn.Module):
         )
         return dv, cost_volume.depth_values_near_far(dv, inv), pm.contiguous()
 
+    @spanned("model.volume")
     def build_level_volume(self, level, feats, src_exts, src_ixts, tar_ext, tar_ixt,
                            near_far, prev, tar_hw=None):
         """Cost volume -> regularised feature volume and regressed depth:
@@ -346,6 +358,7 @@ class ENeRF(nn.Module):
             return {"net_output": raw, "z_vals": z_vals, "mask": mask.detach()}
         return render.composite(raw, z_vals)
 
+    @spanned("model.render")
     def render_level(self, level, feats, feat_vol, depth, std, nf_map, batch, ray_idx,
                      return_raw: bool = False, tar_hw=None) -> dict:
         """``render_rays`` after ``level_maps`` (``tar_hw`` as there);

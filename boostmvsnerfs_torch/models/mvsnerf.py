@@ -49,6 +49,7 @@ from boostmvsnerfs_torch.ops.cuda.renderer_mlp import (
     renderer_mlp_plain,
 )
 from boostmvsnerfs_torch.ops.cuda.tri_sample import fused_tri_sample, tri_sample_plain
+from boostmvsnerfs_torch.utils.profiling import spanned
 
 # renderer heads (reference network.py:548-567 ``net_type``): 'v0'
 # Renderer_ours, 'v2' Renderer_linear, 'v1' / 'attention'
@@ -538,6 +539,7 @@ class MVSNeRF(nn.Module):
         s = self.cfg.near_far_scale
         return depth_ranges[..., 0].amin(1) * s[0], depth_ranges[..., 1].amax(1) * s[1]
 
+    @spanned("model.volume")
     def frame_volume(self, batch: dict):
         """The render's first two stages on a batch of tensors: the feature
         net over all N source views (as in JAX: train-mode BatchNorm sees
@@ -554,6 +556,7 @@ class MVSNeRF(nn.Module):
                                    depth_line(near, far, self.cfg.num_samples))
         return sub, volume, near, far
 
+    @spanned("model.render")
     def render_rays(self, sub, volume, ray_idx, near, far) -> dict:
         """The render's last stage: the rays ``ray_idx`` (B, R) through
         ``frame_volume``'s outputs, composited with ENeRF's raw2outputs

@@ -10,7 +10,9 @@ import: the first CUDA call of a wrapper builds its kernel, and
 all started together).
 
 Each wrapper calls ``count_launch`` exactly where it launches its kernel,
-so a run can show which kernels the main path went through.
+so a run can show which kernels the main path went through: the counts are
+the ``launches.<kernel>`` counters of ``utils/profiling``'s registry, and
+``launch_counts`` / ``reset_launch_counts`` read and zero them.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from boostmvsnerfs_torch.utils import profiling
+
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
@@ -38,23 +42,23 @@ NO_BACKWARD = ("enerf_head", "tri_sample", "renderer_mlp")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_launches = dict.fromkeys(KERNELS, 0)
+_COUNTERS = {name: f"launches.{name}" for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    profiling.count(_COUNTERS[name])
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    profiling.reset_counts(_COUNTERS.values())
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_launches)
+    totals = profiling.counts()
+    return {name: totals.get(counter, 0) for name, counter in _COUNTERS.items()}
 
 
 def nvcc() -> str:

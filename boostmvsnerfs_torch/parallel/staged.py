@@ -45,6 +45,7 @@ import torch
 from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
 from boostmvsnerfs_torch.models.enerf import to_tensors
 from boostmvsnerfs_torch.parallel import mesh as mesh_lib
+from boostmvsnerfs_torch.utils.profiling import span, spanned
 
 
 class StagedENeRF:
@@ -60,6 +61,7 @@ class StagedENeRF:
             raise ValueError("a (cv, rays) mesh shards the K cost volumes of a BoostENeRF")
 
     @torch.no_grad()
+    @spanned("executor.frame")
     def __call__(self, batch: dict) -> dict:
         model = self.model
         if self.mesh is None:
@@ -129,11 +131,14 @@ class StagedMVSNeRF:
         self.row_chunk = row_chunk
 
     @torch.no_grad()
+    @spanned("executor.frame")
     def __call__(self, batch: dict) -> dict:
         model = self.model
         batch = to_tensors(batch, model.device)
         sub, volume, near, far = model.frame_volume(batch)
         W = batch["all_src_inps"].shape[3]
-        outs = [model.render_rays(sub, volume, ids, near, far)
-                for ids in ray_blocks(batch["ray_idx_0"], W, self.row_chunk)]
+        outs = []
+        for ids in ray_blocks(batch["ray_idx_0"], W, self.row_chunk):
+            with span("executor.block"):
+                outs.append(model.render_rays(sub, volume, ids, near, far))
         return {f"{k}_level0": torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}

@@ -41,6 +41,7 @@ from boostmvsnerfs_torch.models.enerf import to_tensors
 from boostmvsnerfs_torch.parallel import mesh as mesh_lib
 from boostmvsnerfs_torch.train.loss import enerf_loss, mse2psnr
 from boostmvsnerfs_torch.train.schedule import apply_update
+from boostmvsnerfs_torch.utils.profiling import spanned
 
 
 @dataclasses.dataclass
@@ -72,6 +73,7 @@ def create_train_state(model: nn.Module, tx: Callable) -> TrainState:
     return TrainState(step=0, model=model, optimizer=optimizer, scheduler=scheduler)
 
 
+@spanned("train.step")
 def _update(state: TrainState, loss_fn: Callable, batch: dict, mesh=None) -> dict:
     state.model.train()
     param = next(state.model.parameters())

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 
 def run_dataset(cfg, device):
@@ -46,6 +45,7 @@ def run_network(cfg, device):
     from boostmvsnerfs_torch import resolve_device, runner
     from boostmvsnerfs_torch.data import make_dataset
     from boostmvsnerfs_torch.data.loader import Loader
+    from boostmvsnerfs_torch.utils.profiling import collect, span
 
     device = resolve_device(device)
     model = runner.make_network(cfg, device)
@@ -57,11 +57,11 @@ def run_network(cfg, device):
         if boost:
             np_batch = runner.attach_boost_inputs(np_batch, vs, cfg)
         batch = runner._device_batch(np_batch, device)
-        t0 = time.perf_counter()
-        model(batch)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        times.append(time.perf_counter() - t0)
+        with collect() as table, span("eval.frame"):
+            model(batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        times.append(table.seconds("eval.frame"))
         if i >= 20:
             break
     print(f"network latency: {np.mean(times[1:]) * 1000:.1f} ms "

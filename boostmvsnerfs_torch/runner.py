@@ -58,6 +58,7 @@ from boostmvsnerfs_torch.train.checkpoint import CheckpointManager, load_pretrai
 from boostmvsnerfs_torch.train.recorder import Recorder
 from boostmvsnerfs_torch.train.schedule import make_optimizer
 from boostmvsnerfs_torch.utils.port_weights import random_state_dict
+from boostmvsnerfs_torch.utils.profiling import collect, device_trace, span, spanned
 
 # ---------------------------------------------------------------------------
 # factories
@@ -115,6 +116,7 @@ def requires_view_selection(cfg) -> bool:
         name.startswith("boost_")
 
 
+@spanned("eval.to_card")
 def _device_batch(np_batch: dict, device) -> dict:
     return to_tensors({k: v for k, v in np_batch.items() if k != "meta"}, device)
 
@@ -128,17 +130,20 @@ def view_selection_path(cfg) -> str:
     return os.path.join(cfg["result_dir"], "view_selection.json")
 
 
+@spanned("selection")
 def greedy_select(model, batch: dict, combos: np.ndarray, k: int) -> np.ndarray:
     """Greedy coverage selection for one batch: (B, k) combination ids,
     padded with repeats to exactly k entries. The coverage masks of every
     combination (``model.forward_view_selection``) come to the host once."""
-    masks = model.forward_view_selection(batch, combos).cpu().numpy()  # (n_combos, B, H, W)
+    with span("selection.masks"):
+        masks = model.forward_view_selection(batch, combos).cpu().numpy()  # (n_combos, B, H, W)
     out = []
-    for b in range(masks.shape[1]):
-        picks = search_k_best(masks[:, b], k)
-        while len(picks) < k:
-            picks.append(picks[-1])
-        out.append(picks)
+    with span("selection.search"):
+        for b in range(masks.shape[1]):
+            picks = search_k_best(masks[:, b], k)
+            while len(picks) < k:
+                picks.append(picks[-1])
+            out.append(picks)
     return np.asarray(out, np.int32)
 
 
@@ -248,7 +253,8 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None,
     ``make_network`` with ``_init_or_load``'s weights; a given model keeps
     its own weights. Runs on CUDA unless ``device`` says otherwise. A frame
     is timed as the JAX entry times it: the batch lands on the device
-    first, then the forward runs to a device synchronisation. With
+    first, then the forward runs to a device synchronisation (the span
+    ``eval.frame``, read through ``utils/profiling.collect``). With
     ``cfg.profile_dir`` set, the frames run under ``utils/profiling.
     device_trace``, which writes their trace there.
 
@@ -259,8 +265,6 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None,
     runner.py:291-316), and the ranks' per-view records are pooled before
     the summary, which every rank returns and rank 0 prints; frame times
     are each rank's own."""
-    from boostmvsnerfs_torch.utils.profiling import device_trace
-
     device = resolve_device(device)
     cas = CascadeConfig.from_cfg(cfg["enerf"])
     if model is None:
@@ -314,10 +318,10 @@ def run_evaluate(cfg, model: nn.Module | None = None, device=None,
                 np_batch = attach_boost_inputs(np_batch, vs, cfg)
             batch = _device_batch(np_batch, device)
             sync()
-            t0 = time.perf_counter()
-            out = forward(batch)
-            sync()
-            net_times.append(time.perf_counter() - t0)
+            with collect() as table, span("eval.frame"):
+                out = forward(batch)
+                sync()
+            net_times.append(table.seconds("eval.frame"))
             if i_rays == 0:
                 evaluator.evaluate(out, np_batch)
     if distributed:
@@ -345,6 +349,7 @@ def path_anchors(dataset) -> tuple[str, np.ndarray]:
     return scene, c2ws[sorted({m[1] for m in dataset.metas if m[0] == scene})]
 
 
+@spanned("data.pose_batch")
 def pose_batch(cfg, dataset, scene: str, c2w: np.ndarray) -> dict:
     """The numpy batch of one camera ``c2w`` of ``scene``: its source views
     the ``test_input_views`` nearest the camera, its target image the
@@ -385,8 +390,8 @@ def render_novel_path(cfg, n_frames: int = 60, path_type: str = "interpolate",
     selection of its combinations (``greedy_select``), through the model
     into the ``Visualizer``. The weights come from ``_init_or_load``.
     Returns the visualizer's summary with, per frame, the selection's and
-    the forward's times (ms, to a device synchronisation) and the
-    ``k_best`` picks. Runs on CUDA unless ``device`` says otherwise."""
+    the forward's times (ms, to a device synchronisation: the spans
+    ``selection`` and ``eval.frame``) and the ``k_best`` picks. Runs on CUDA unless ``device`` says otherwise."""
     from boostmvsnerfs_torch.eval.visualizer import Visualizer
 
     device = resolve_device(device)
@@ -410,19 +415,20 @@ def render_novel_path(cfg, n_frames: int = 60, path_type: str = "interpolate",
 
     frames = []
     for fi, np_batch in enumerate(novel_path_batches(cfg, dataset, n_frames, path_type)):
-        t0 = time.perf_counter()
-        if boost:
-            np_batch["combos"] = combos
-            np_batch["k_best"] = greedy_select(model, _device_batch(np_batch, device), combos, k)
-        batch = _device_batch(np_batch, device)
-        sync()
-        t1 = time.perf_counter()
-        out = fwd(batch)
-        sync()
-        t2 = time.perf_counter()
+        with collect() as table:
+            if boost:
+                np_batch["combos"] = combos
+                np_batch["k_best"] = greedy_select(model, _device_batch(np_batch, device),
+                                                   combos, k)
+            batch = _device_batch(np_batch, device)
+            sync()
+            with span("eval.frame"):
+                out = fwd(batch)
+                sync()
         np_batch["meta"][0]["tar_view"] = fi
         vis.visualize(out, np_batch)
-        frames.append({"select_ms": (t1 - t0) * 1e3, "frame_ms": (t2 - t1) * 1e3,
+        frames.append({"select_ms": table.seconds("selection") * 1e3,
+                       "frame_ms": table.seconds("eval.frame") * 1e3,
                        "k_best": np_batch["k_best"][0].tolist() if boost else None})
     return {**vis.summarize(), "path_type": path_type, "per_frame": frames}
 

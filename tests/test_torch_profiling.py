@@ -1,20 +1,45 @@
-"""The port's profiling utilities (``utils/profiling.py``) on the CPU:
-``device_trace`` writes a Chrome trace and is a no-op without a directory,
-``annotate`` names a region in it, ``perf_timer`` times a block, and
-``run_evaluate`` with ``profile_dir`` writes its frames' trace there."""
+"""The port's tracing and profiling (``utils/profiling.py``) on the CPU:
+spans nest and keep their self time; with tracing off a span makes no
+annotation and reads no clock; under torch.profiler a span is a user
+annotation enclosing its layer's aten ops; a staged ENeRF and a staged
+MVSNeRF frame at 64x96 record their layers' spans; ``h2d_bytes`` counts the
+bytes a batch's host arrays send; the launch counts are the registry's; the
+benchmark's four readers of the spans and counters; ``device_trace`` and
+``run_evaluate``'s ``profile_dir`` trace."""
 
 import glob
+import importlib.util
 import json
 import os
+import sys
+import threading
 import time
+import types
 
+import numpy as np
 import pytest
 import torch
 
 from boostmvsnerfs_torch import runner
+from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
+from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
+from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
+from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
+from boostmvsnerfs_torch.ops.cuda import _build, launch_counts, reset_launch_counts
+from boostmvsnerfs_torch.parallel.staged import StagedENeRF, StagedMVSNeRF
 from boostmvsnerfs_torch.utils import profiling
-from boostmvsnerfs_torch.utils.synthetic import write_free_scene
+from boostmvsnerfs_torch.utils.profiling import collect, span, spanned, traced
+from boostmvsnerfs_torch.utils.synthetic import make_scene_batch, mvsnerf_batch, write_free_scene
 from tests.test_torch_runner import REPO, _cfgs, _save_weights
+
+METRICS = os.path.join(REPO, "portbench", "metrics")
+
+
+@pytest.fixture(autouse=True)
+def fresh_table():
+    profiling.reset_traced()
+    yield
+    profiling.reset_traced()
 
 
 def _trace_events(logdir):
@@ -27,11 +52,12 @@ def _trace_events(logdir):
 def test_device_trace_writes_a_trace_with_the_annotation(tmp_path):
     logdir = str(tmp_path / "trace")
     with profiling.device_trace(logdir) as prof:
-        with profiling.annotate("the_region"):
+        with span("the_region"):
             torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
     assert prof is not None
     names = {e.get("name") for e in _trace_events(logdir)}
     assert "the_region" in names and any("matmul" in str(n) for n in names)
+    assert traced()["spans"]["the_region"]["n"] == 1
 
 
 @pytest.mark.parametrize("logdir", [None, ""])
@@ -42,20 +68,253 @@ def test_device_trace_is_a_noop_without_a_directory(logdir, tmp_path, monkeypatc
     assert prof is None and os.listdir(tmp_path) == []
 
 
-def test_perf_timer_times_the_block(capsys):
-    with profiling.perf_timer("block", device="cpu") as t:
-        time.sleep(0.02)
-    assert 0.02 <= t.elapsed < 1.0 and t.sync("x") == "x"
-    assert "[perf] block:" in capsys.readouterr().out
-    with profiling.perf_timer("quiet", enabled=False, device="cpu"):
+def test_spans_nest_and_self_time_is_duration_less_children(monkeypatch):
+    """On a clock that reads 0, 10, 40, 50, 60, 100 ns: the outer span lasts
+    100 ns, its two children 30 and 10, so its self time is 60."""
+    clock = iter([0, 10, 40, 50, 60, 100])
+    monkeypatch.setattr(profiling, "perf_counter_ns", lambda: next(clock))
+    with collect() as table:
+        with span("outer"):
+            with span("inner"):
+                pass
+            with span("inner"):
+                pass
+    want = {"outer": {"n": 1, "host_s": 100e-9, "self_s": 60e-9},
+            "inner": {"n": 2, "host_s": 40e-9, "self_s": 40e-9}}
+    for got in (table.as_dict()["spans"], traced()["spans"]):
+        assert got.keys() == want.keys()
+        for name, entry in want.items():
+            assert got[name] == pytest.approx(entry, abs=1e-15)
+    assert table.seconds("outer") == pytest.approx(100e-9)
+
+
+def test_a_span_with_tracing_off_makes_no_annotation_and_reads_no_clock(monkeypatch):
+    """Off: no ``record_function`` call, no clock read, one shared object.
+    Inside ``collect()`` without a profiler: the clock, still no
+    annotation."""
+    calls = {"record_function": 0, "clock": 0}
+
+    def spy(key, value):
+        def fn(*args):
+            calls[key] += 1
+            return value(*args)
+        return fn
+
+    monkeypatch.setattr(profiling, "record_function", spy("record_function",
+                                                          torch.profiler.record_function))
+    monkeypatch.setattr(profiling, "perf_counter_ns", spy("clock", time.perf_counter_ns))
+
+    @spanned("decorated")
+    def work(x):
+        return x + 1
+
+    with span("a"):
+        assert work(1) == 2
+    assert span("a") is span("b") and calls == {"record_function": 0, "clock": 0}
+    assert traced() == {"spans": {}, "counters": {}}
+    with collect() as table:
+        with span("a"):
+            work(1)
+    assert calls == {"record_function": 0, "clock": 4}
+    assert table.spans["a"][0] == table.spans["decorated"][0] == 1
+
+
+def test_a_span_is_an_annotation_enclosing_its_aten_ops_under_the_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with span("layer.work"):
+            torch.ones(64, 64).matmul(torch.ones(64, 64))
+    events = prof.events()
+    (outer,) = [e for e in events if e.name == "layer.work"]
+    inner = [e for e in events if e.name == "aten::matmul"]
+    assert inner and all(outer.time_range.start <= e.time_range.start
+                         and e.time_range.end <= outer.time_range.end for e in inner)
+    parents = set()
+    e = inner[0].cpu_parent
+    while e is not None:
+        parents.add(e.name)
+        e = e.cpu_parent
+    assert "layer.work" in parents
+    assert traced()["spans"]["layer.work"]["n"] == 1
+
+
+def _frame(family: str):
+    """(executor, numpy batch, the spans a frame records) at 64x96 on the
+    CPU: a BoostENeRF of 2 levels rendering level 1, K=2; a BoostMVSNeRF in
+    4 blocks of 16 rows, K=2."""
+    if family == "enerf":
+        model = BoostENeRF(CascadeConfig(k_best=2, volume_planes=(8, 8),
+                                         render_if=(False, True)), device="cpu")
+        batch = make_scene_batch(B=1, n_views=4, H=64, W=96, boost=True, k_best=2, seed=0,
+                                 rig="forward")
+        return StagedENeRF(model), batch, {
+            "eval.to_card": 1, "executor.frame": 1, "model.features": 2, "model.volume": 2,
+            "model.render": 1, "model.blend": 1}
+    model = BoostMVSNeRF(MVSNeRFConfig(num_samples=8, k_best=2), device="cpu")
+    batch = mvsnerf_batch(make_scene_batch(B=1, n_views=4, H=64, W=96, boost=True, seed=0,
+                                           rig="forward", render_scales=(1.0,)), k_best=(0, 3))
+    return StagedMVSNeRF(model, row_chunk=16), batch, {
+        "eval.to_card": 1, "executor.frame": 1, "model.volume": 1, "executor.block": 4,
+        "model.render": 4}
+
+
+@pytest.mark.parametrize("family", ["enerf", "mvsnerf"])
+def test_a_staged_frame_records_its_layers_spans(family):
+    torch.set_num_threads(1)
+    forward, np_batch, want = _frame(family)
+    with collect() as table:
+        forward(runner._device_batch(np_batch, "cpu"))
+    got = table.as_dict()
+    assert {name: e["n"] for name, e in got["spans"].items()} == want
+    assert got["counters"] == {}  # nothing crossed to another device
+    frame = got["spans"]["executor.frame"]
+    children = sum(e["host_s"] for name, e in got["spans"].items()
+                   if name in ("model.features", "model.volume", "executor.block", "model.blend")
+                   or (name == "model.render" and family == "enerf"))
+    assert frame["self_s"] == pytest.approx(frame["host_s"] - children, rel=1e-6, abs=1e-9)
+    assert 0 <= frame["self_s"] < frame["host_s"]
+
+
+def _sent(np_batch, dtype=torch.float32) -> int:
+    """The bytes the host arrays send after the cast: floats as ``dtype``,
+    the rest as int64."""
+    return sum(np.asarray(v).size * (dtype.itemsize if np.asarray(v).dtype.kind == "f" else 8)
+               for v in np_batch.values())
+
+
+def test_h2d_bytes_counts_the_bytes_the_host_arrays_send():
+    np_batch = mvsnerf_batch(make_scene_batch(B=1, n_views=4, H=64, W=96, boost=True, seed=0,
+                                              render_scales=(1.0,)))
+    before = profiling.counts().get("h2d_bytes", 0)
+    with collect() as table:
+        on_card = to_tensors(np_batch, "meta")
+        to_tensors(on_card, "meta")  # already there: nothing crosses
+        to_tensors(np_batch, "cpu")  # host to host
+        to_tensors({k: torch.as_tensor(v) for k, v in np_batch.items()}, torch.device("meta"),
+                   torch.float64)
+    want = _sent(np_batch) + _sent(np_batch, torch.float64)
+    assert table.counters == {"h2d_bytes": want}
+    assert traced()["counters"] == {"h2d_bytes": want}
+    assert profiling.counts()["h2d_bytes"] - before == want
+    assert all(t.device.type == "meta" for t in on_card.values())
+
+
+def test_launch_counts_are_the_registrys_counters():
+    reset_launch_counts()
+    _build.count_launch("tri_sample")
+    with collect() as table:
+        _build.count_launch("tri_sample")
+    counts = launch_counts()
+    assert counts == dict(dict.fromkeys(_build.KERNELS, 0), tri_sample=2)
+    assert profiling.counts()["launches.tri_sample"] == 2
+    assert table.counters == traced()["counters"] == {"launches.tri_sample": 1}
+    reset_launch_counts()
+    assert launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+    with pytest.raises(KeyError):
+        _build.count_launch("no_such_kernel")
+
+
+def test_counters_and_spans_add_up_across_threads():
+    """8 threads count and span 2,000 times each under a short switch
+    interval: no update is lost."""
+    n_threads, n = 8, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with collect() as table:
+            def work():
+                for _ in range(n):
+                    profiling.count("ticks")
+                    with span("tick"):
+                        pass
+            threads = [threading.Thread(target=work) for _ in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert table.counters["ticks"] == n_threads * n == traced()["counters"]["ticks"]
+    assert table.spans["tick"][0] == n_threads * n
+
+
+def test_collect_scopes_nest_and_traced_keeps_everything():
+    with collect() as outer:
+        with span("first"):
+            pass
+        with collect() as inner:
+            with span("second"):
+                pass
+    assert set(outer.spans) == {"first", "second"} and set(inner.spans) == {"second"}
+    assert set(traced()["spans"]) == {"first", "second"}
+    with span("after"):  # tracing off again
         pass
-    assert capsys.readouterr().out == ""
+    assert "after" not in traced()["spans"]
+
+
+def _reader(name: str):
+    spec = importlib.util.spec_from_file_location(f"test_metric_{name}",
+                                                  os.path.join(METRICS, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def test_the_span_readers_read_the_traced_blocks_retake_included():
+    """Two profiled blocks (a retake) of two frames and one step each, the
+    batch sent through ``runner._device_batch`` to the meta device: each
+    reader divides by the count in the same table; without a profile, or
+    from a program without ``traced``, there is nothing to read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    np_batch = {**make_scene_batch(B=1, n_views=4, H=64, W=96, boost=True, seed=0),
+                "meta": [{}]}
+
+    @spanned("executor.frame")
+    def issue():
+        torch.ones(32, 32).matmul(torch.ones(32, 32))
+
+    @spanned("train.step")
+    def step():
+        torch.ones(32, 32).sum()
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(2):
+                runner._device_batch(np_batch, "meta")
+                issue()
+            step()
+    spans = traced()["spans"]
+    assert spans["executor.frame"]["n"] == 4 and spans["train.step"]["n"] == 2
+    run = types.SimpleNamespace(profile={"units": 2})
+    frames = spans["executor.frame"]
+    want = {
+        "copy_ms.frame": spans["eval.to_card"]["host_s"] / 4 * 1e3,
+        "h2d_mb.frame": _sent({k: v for k, v in np_batch.items() if k != "meta"}) / 1e6,
+        "issue_ms.frame": frames["host_s"] / 4 * 1e3,
+        "issue_ms.step": spans["train.step"]["host_s"] / 2 * 1e3,
+    }
+    for name, value in want.items():
+        read = _reader(name)
+        assert read(run) == pytest.approx(value, rel=1e-12) and value > 0
+        assert read(types.SimpleNamespace(profile=None)) is None
+    profiling.reset_traced()
+    assert all(_reader(name)(run) is None for name in want)
+
+
+def test_the_span_readers_read_nothing_from_a_program_without_spans(monkeypatch):
+    monkeypatch.delattr(profiling, "traced")
+    run = types.SimpleNamespace(profile={"units": 4})
+    for name in ("copy_ms.frame", "h2d_mb.frame", "issue_ms.frame", "issue_ms.step"):
+        assert _reader(name)(run) is None
 
 
 def test_run_evaluate_writes_a_trace_to_profile_dir(tmp_path):
     """ENeRF from configs/exps/evaluate/enerf/free_eval.yaml on the Free
     fixture at 64x96: ``profile_dir`` holds one trace of the frame loop,
-    with the model's convolutions in it."""
+    with the model's convolutions and the layers' spans in it."""
     torch.set_num_threads(1)
     ws = str(tmp_path / "ws")
     write_free_scene(f"{ws}/Free", "grass")
@@ -73,3 +332,8 @@ def test_run_evaluate_writes_a_trace_to_profile_dir(tmp_path):
     assert len(ret["frame_ms"]) == 2
     names = {str(e.get("name")) for e in _trace_events(logdir)}
     assert any("conv" in n for n in names)
+    assert {"eval.to_card", "eval.frame", "executor.frame", "model.features", "model.volume",
+            "model.render"} <= names
+    spans = traced()["spans"]
+    assert spans["eval.frame"]["n"] == spans["executor.frame"]["n"] == 2
+    assert sum(ret["frame_ms"]) == pytest.approx(spans["eval.frame"]["host_s"] * 1e3, rel=1e-9)
