@@ -16,20 +16,76 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
+
+
+# devices whose float32 training convolutions take the weight-gradient kernel
+WGRAD_DEVICES = ("cuda",)
+
+
+def _conv(conv: nn.Module, x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
+    if isinstance(conv, nn.ConvTranspose3d):
+        return F.conv_transpose3d(x, w, b, conv.stride, conv.padding, conv.output_padding,
+                                  conv.groups, conv.dilation)
+    return conv._conv_forward(x, w, b)
+
+
+class ConvWgrad(torch.autograd.Function):
+    """A convolution module's forward, with the weight's gradient from
+    ``ops/cuda/conv_wgrad`` (its plain version on the CPU): the forward is
+    the module's own call, the input's gradient PyTorch's own
+    ``convolution_backward`` (input only), the bias's the output gradient's
+    sum."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, conv):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = conv
+        return _conv(conv, x, weight, bias)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        from boostmvsnerfs_torch.ops.cuda.conv_wgrad import conv_weight_grad
+
+        x, weight = ctx.saved_tensors
+        c = ctx.conv
+        dx = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.ops.aten.convolution_backward(
+                g, x, weight, None, c.stride, c.padding, c.dilation, c.transposed,
+                c.output_padding, c.groups, [True, False, False])[0]
+        dw = conv_weight_grad(x, g, weight.shape, c.stride, c.padding, c.transposed)
+        if ctx.needs_input_grad[2]:
+            db = g.sum([0, *range(2, g.dim())])
+        return dx, dw, db, None
+
+
+def routes_wgrad(conv: nn.Module, x: torch.Tensor, dtype=None) -> bool:
+    """Whether ``conv_at`` takes ``ConvWgrad``: a float32 convolution whose
+    weight is being trained, on a device of ``WGRAD_DEVICES``, of a form the
+    kernel computes (no groups or dilation, zero padding)."""
+    return (torch.is_grad_enabled() and conv.weight.requires_grad
+            and x.device.type in WGRAD_DEVICES and dtype in (None, torch.float32)
+            and x.dtype == conv.weight.dtype == torch.float32
+            and isinstance(conv, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d))
+            and conv.groups == 1 and set(conv.dilation) == {1}
+            and conv.padding_mode == "zeros" and not isinstance(conv.padding, str))
 
 
 def conv_at(conv: nn.Module, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """``conv(x)`` (an ``nn.Conv2d`` / ``Conv3d`` / ``ConvTranspose3d``)
     with its input, weight and bias cast to ``dtype`` (flax ``nn.Conv(dtype=
-    ...)``); ``None`` runs it as it is."""
+    ...)``); ``None`` runs it as it is. A float32 convolution in training
+    (``routes_wgrad``) runs as ``ConvWgrad``: the same forward, its weight
+    gradient from the ``conv_wgrad`` kernel."""
+    if routes_wgrad(conv, x, dtype):
+        return ConvWgrad.apply(x, conv.weight, conv.bias, conv)
     if dtype is None:
         return conv(x)
     w = conv.weight.to(dtype)
     b = None if conv.bias is None else conv.bias.to(dtype)
-    if isinstance(conv, nn.ConvTranspose3d):
-        return F.conv_transpose3d(x.to(dtype), w, b, conv.stride, conv.padding,
-                                  conv.output_padding, conv.groups, conv.dilation)
-    return conv._conv_forward(x.to(dtype), w, b)
+    return _conv(conv, x.to(dtype), w, b)
 
 
 class _FlaxStats:

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from boostmvsnerfs_torch import resolve_device
-from boostmvsnerfs_torch.models.blocks import ConvBnLeaky, DeconvBnLeaky
+from boostmvsnerfs_torch.models.blocks import ConvBnLeaky, DeconvBnLeaky, conv_at
 from boostmvsnerfs_torch.models.enerf import to_tensors
 from boostmvsnerfs_torch.ops import geometry, render, sampling
 from boostmvsnerfs_torch.ops.cuda.img_sample import fused_row_sample
@@ -117,7 +117,7 @@ class MVSFeatureNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv2(self.conv1(self.conv0(x.permute(0, 3, 1, 2))))
-        return self.toplayer(x).permute(0, 2, 3, 1).contiguous()
+        return conv_at(self.toplayer, x).permute(0, 2, 3, 1).contiguous()
 
 
 class MVSCostRegNet(nn.Module):

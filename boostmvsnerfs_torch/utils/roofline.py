@@ -34,6 +34,7 @@ port's formulation).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +78,36 @@ def bound(nbytes: float, ops: float, tc_ops: float = 0.0, card: Peaks = H100) ->
 
 
 # ---------------------------------------------------------------- kernels
+
+
+def _live_pairs(n_out: int, n_in: int, k: int, stride: int, padding: int) -> int:
+    """(output position, tap) pairs of one axis whose input position lies
+    inside the input."""
+    return sum(0 <= o * stride - padding + t < n_in for o in range(n_out) for t in range(k))
+
+
+def conv_wgrad_counts(x_shape, g_shape, weight_shape, stride, padding, transposed=False):
+    """Bytes and f32 operations of a convolution's weight gradient: the input
+    ``x`` (N, C, *S) and the output's gradient ``g`` read once, the weight's
+    gradient written once; one multiply-add per (sample, output channel,
+    input channel) and live (position, tap) pair of every axis, taps on the
+    zero padding left out. A transposed convolution's weight gradient is its
+    adjoint's: ``g`` and ``x`` swap roles, ``g`` the input of a strided
+    convolution whose output is ``x``."""
+    if transposed:
+        x_shape, g_shape = g_shape, x_shape
+    N, C, *S_in = x_shape
+    M, S_out = g_shape[1], g_shape[2:]
+    live = 1
+    for o, i, k, s, p in zip(S_out, S_in, weight_shape[2:], stride, padding):
+        live *= _live_pairs(o, i, k, s, p)
+    nbytes = 4 * (math.prod(x_shape) + math.prod(g_shape) + math.prod(weight_shape))
+    return nbytes, 2 * N * M * C * live
+
+
+def conv_wgrad_work(x, g, weight_shape, stride, padding, transposed=False):
+    return conv_wgrad_counts(tuple(x.shape), tuple(g.shape), tuple(weight_shape), stride,
+                             padding, transposed)
 
 
 def live_tap_share(feats, pm, dv) -> float:

@@ -140,7 +140,10 @@ phase. Three main paths are driven, each with its kernels checked first:
    both levels rendered on full images, Adam (lr 5e-5, ep_iter 500) after
    the clip at 40, the ray-blocked step with 16 blocks. The f32 warp, the
    sampler and the backward kernels against their plain versions on the
-   step's own inputs; one plain and one blocked step at 128x192 on the
+   step's own inputs, and conv_wgrad at each of the step's 32 weight
+   gradients (the convolutions' shapes and layouts, seeded data: against
+   its plain version, a second launch equal bit for bit, beside cuDNN's
+   torch.nn.grad time and the f32 bound); one plain and one blocked step at 128x192 on the
    card against the CPU port, with faults planted in the CPU port to show
    the bars catch them; launches per step, step times over three batches;
    one profiled step.
@@ -214,6 +217,7 @@ import torch
 
 from boostmvsnerfs_torch.utils.roofline import (
     bound,
+    conv_wgrad_work,
     head_work,
     live_tap_share,
     mlp_work,
@@ -251,7 +255,7 @@ MVS_ROW_CHUNK = 32  # StagedMVSNeRF's raster rows a block (JAX's row_chunk)
 # view counts of the head kernel checked beside the main path's 3
 HEAD_VIEWS = (2, 4, 8)
 NO_LAUNCHES = {"warp_variance": 0, "img_sample": 0, "enerf_head": 0, "tri_sample": 0,
-               "renderer_mlp": 0, "warp_variance_bwd": 0, "img_sample_bwd": 0}
+               "renderer_mlp": 0, "warp_variance_bwd": 0, "img_sample_bwd": 0, "conv_wgrad": 0}
 FREE_EVAL = "configs/exps/evaluate/enerf_ours/free_eval.yaml"
 SCANNET_EVAL = "configs/exps/evaluate/mvsnerf_ours/scannet_plus_eval.yaml"
 EVAL_IMAGES = 16  # a Free scene's test views are every 8th: 0 and 8
@@ -1433,6 +1437,116 @@ def phase_kernels_train(inputs: dict, phase: str = "kernels_train", path: str = 
     return summary
 
 
+def _conv_layout(t) -> str:
+    fmt = torch.channels_last_3d if t.dim() == 5 else torch.channels_last
+    return "channels_last" if t.is_contiguous(memory_format=fmt) else \
+        "contiguous" if t.is_contiguous() else "strided"
+
+
+def seeded_conv_tensor(shape, layout: str, gen) -> torch.Tensor:
+    """Seeded normal data of ``shape`` on the card, channels-last where
+    ``layout`` says so (``_conv_layout``), else contiguous."""
+    t = torch.randn(shape, generator=gen, device=gen.device)
+    if layout == "channels_last":
+        t = t.contiguous(memory_format=torch.channels_last_3d if t.dim() == 5
+                         else torch.channels_last)
+    return t
+
+
+def routed_conv_records(model, batch, ray_blocks: int = RAY_BLOCKS) -> list:
+    """The weight gradients of one training step of ``model`` on ``batch``
+    (``make_blocked_loss``, train mode), in call order: the shapes and
+    layouts of each convolution's input and output gradient, its weight's
+    shape, stride and padding, and whether it is transposed. The step's
+    gradients are dropped; its BatchNorm statistics move."""
+    from boostmvsnerfs_torch.ops.cuda import conv_wgrad
+    from boostmvsnerfs_torch.parallel.train import make_blocked_loss
+
+    seen, real = [], conv_wgrad.conv_weight_grad
+
+    def spy(x, g, weight_shape, stride, padding, transposed=False):
+        seen.append({"x": list(x.shape), "x_layout": _conv_layout(x), "g": list(g.shape),
+                     "g_layout": _conv_layout(g), "weight": list(weight_shape),
+                     "stride": list(stride), "padding": list(padding),
+                     "transposed": bool(transposed)})
+        return real(x, g, weight_shape, stride, padding, transposed)
+
+    model.train()
+    conv_wgrad.conv_weight_grad = spy
+    try:
+        loss, _ = make_blocked_loss(model, ray_blocks)(batch)
+        loss.backward()
+    finally:
+        conv_wgrad.conv_weight_grad = real
+        model.zero_grad(set_to_none=True)
+    return seen
+
+
+def conv_wgrad_library(x, g, weight_shape, stride, padding, transposed):
+    """``torch.nn.grad.conv{2,3}d_weight`` (cuDNN) on the same weight
+    gradient, a transposed convolution's as its adjoint's."""
+    from torch.nn import grad as nn_grad
+
+    xi, gi = (g, x) if transposed else (x, g)
+    fn = nn_grad.conv3d_weight if x.dim() == 5 else nn_grad.conv2d_weight
+    return lambda: fn(xi, weight_shape, gi, stride, padding)
+
+
+def conv_wgrad_check(x, g, weight_shape, stride, padding, transposed) -> dict:
+    """``conv_wgrad``'s kernel on one weight gradient against its plain
+    version (the largest error over the largest magnitude, KERNEL_RTOL: the
+    sums run in another order) and against a second launch (equal bit for
+    bit); its times (``timings``, with ``conv_wgrad_library`` as the
+    yardstick), the plain version's and the bound."""
+    from boostmvsnerfs_torch.ops.cuda.conv_wgrad import conv_weight_grad, conv_wgrad_plain
+
+    args = (x, g, tuple(weight_shape), tuple(stride), tuple(padding), transposed)
+    got, again = conv_weight_grad(*args), conv_weight_grad(*args)
+    want = conv_wgrad_plain(*args)
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    equal = bool(torch.equal(got, again))
+    del got, again, want
+    t = timings(lambda: conv_weight_grad(*args), conv_wgrad_library(*args))
+    plain_ms = median_ms(lambda: conv_wgrad_plain(*args), 3, warmup=1)
+    nbytes, ops = conv_wgrad_work(*args)
+    bms, by = bound(nbytes, ops)
+    return {"max_abs_err": err, "largest": scale, "relative_err": err / max(scale, 1e-30),
+            "tolerance": KERNEL_RTOL, "bit_equal": equal, **t, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops, **shares(bms, t)}
+
+
+def phase_kernels_conv_wgrad(records: list, phase: str = "kernels_train",
+                             path: str = "train") -> dict:
+    """``conv_wgrad`` at each weight gradient of a training step
+    (``routed_conv_records``), on seeded normal data of its shapes and
+    layouts: ``conv_wgrad_check``, which must hold. Returns the summary
+    record, times and bounds summed over the step."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rec = {"name": "conv_wgrad", "route": "cuda",
+           "source": "boostmvsnerfs_torch/csrc/conv_wgrad.cu",
+           "replaces": "none: XLA's convolution backward", "path": path,
+           "compute_dtype": "float32", "max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0,
+           "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0}
+    nbytes = ops = 0.0
+    for i, r in enumerate(records):
+        x = seeded_conv_tensor(r["x"], r["x_layout"], gen)
+        g = seeded_conv_tensor(r["g"], r["g_layout"], gen)
+        c = conv_wgrad_check(x, g, r["weight"], r["stride"], r["padding"], r["transposed"])
+        del x, g
+        emit(phase=phase, kernel="conv_wgrad", at=f"weight gradient {i}", **r, **c)
+        require(c["relative_err"] <= KERNEL_RTOL, f"conv_wgrad at {r}: error {c['relative_err']}")
+        require(c["bit_equal"], f"conv_wgrad at {r}: two launches differ")
+        rec["max_abs_err"] = max(rec["max_abs_err"], c["max_abs_err"])
+        for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms"):
+            rec[k] += c[k]
+        nbytes += c["bytes"]
+        ops += c["ops"]
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
+    rec["weight_gradients"] = len(records)
+    return rec
+
+
 def smooth_scene_batch(H: int, W: int, seed: int) -> dict:
     """A forward-rig batch (4 views, K=2) whose target sits between source
     frames 1 and 2 (not on frame 2, where the ray difference to that view is
@@ -1661,9 +1775,26 @@ def phase_train_step_check(state: dict) -> None:
     require(record["card_blocked_vs_plain_loss_rel_err"] <= 1e-5, "card: blocked vs plain loss")
 
 
+def routed_convs(model) -> int:
+    """The convolutions of ``model`` with a weight in training: each runs
+    once a training step, through ``models/blocks.conv_at``, which launches
+    ``conv_wgrad`` once for its weight gradient. An ENeRF that reads no
+    voxel features (``use_vox_feat`` False: the composite's foreground
+    layers) still runs its feature heads, but no gradient reaches them, so
+    their backward never runs."""
+    from torch import nn
+
+    unread = {id(m) for net in model.modules()
+              if getattr(getattr(net, "cas", None), "use_vox_feat", True) is False
+              for name, m in net.named_modules() if name.endswith("feat_conv.0")}
+    return sum(isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d))
+               and m.weight.requires_grad and id(m) not in unread for m in model.modules())
+
+
 def expected_train_launches(model, batch, ray_blocks: int = RAY_BLOCKS) -> dict:
     """Launches of one step with ``ray_blocks`` (0: unblocked), from the
-    code: per level one warp and its backward; per rendered level one
+    code: every convolution's weight gradient (``routed_convs``); per level
+    one warp and its backward; per rendered level one
     sampler launch per ray block, one more per block for the checkpoint's
     recomputation when the level has more than one block, and one backward
     per block."""
@@ -1672,7 +1803,8 @@ def expected_train_launches(model, batch, ray_blocks: int = RAY_BLOCKS) -> dict:
     cas = model.cas
     H, W = batch["all_src_inps"].shape[2:4]
     n_max = max(batch[f"ray_idx_{i}"].shape[1] for i in range(cas.num) if cas.render_if[i])
-    out = dict(NO_LAUNCHES, warp_variance=cas.num, warp_variance_bwd=cas.num)
+    out = dict(NO_LAUNCHES, warp_variance=cas.num, warp_variance_bwd=cas.num,
+               conv_wgrad=routed_convs(model))
     for i in range(cas.num):
         if not cas.render_if[i]:
             continue
@@ -1700,7 +1832,8 @@ def phase_train(model, batches: list, steps: int = 6):
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     expect = expected_train_launches(model, batches[0])
     require(expect == dict(NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2, img_sample=33,
-                           img_sample_bwd=17), f"expected launches per step {expect}")
+                           img_sample_bwd=17, conv_wgrad=32),
+            f"expected launches per step {expect}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1756,6 +1889,9 @@ def run_train_path() -> list:
     model.load_state_dict(state, strict=True)
     with torch.no_grad():
         summary = phase_kernels_train(train_kernel_inputs(model, make_batch(0)))
+    records = routed_conv_records(model, make_batch(0))
+    require(len(records) == routed_convs(model), f"kernels_train: {len(records)} weight gradients")
+    summary["conv_wgrad"] = phase_kernels_conv_wgrad(records)
     torch.cuda.empty_cache()
     phase_train_step_check(state)
     model.load_state_dict(state, strict=True)  # the kernel inputs moved the BN statistics
@@ -2617,13 +2753,16 @@ def mvs_entry_cfg(ws: str, *opts, cfg_file: str = MVS_FINETUNE):
     return make_cfg(cfg_file, ["workspace", ws, "scene", "grass", *TRAIN_ENTRY_OPTS, *opts])
 
 
-def mvs_entry_design(steps: int, test_views: int = 2, blocks: int = 1) -> dict:
+def mvs_entry_design(cfg, steps: int, test_views: int = 2, blocks: int = 1) -> dict:
     """Launches of the MVSNeRF training entry by design: a step launches
-    only the colour lookup (#3; the volume lookup and the MLP run plainly
-    under autograd), the pre-pass none (geometry), a validation frame
+    the colour lookup (#3; the volume lookup and the MLP run plainly under
+    autograd) and each convolution's weight gradient (``routed_convs`` of
+    ``cfg``'s network), the pre-pass none (geometry), a validation frame
     MVS_FRAME per row block (``blocks``, ``mvs_row_blocks``) and test
     view."""
-    step = added({"img_sample": 1})
+    from boostmvsnerfs_torch import runner
+
+    step = added({"img_sample": 1, "conv_wgrad": routed_convs(runner.make_network(cfg, "cpu"))})
     validation = added(scaled(MVS_FRAME, test_views * blocks))
     return {"step": step, "prepass": added(), "validation": validation,
             "first": added(scaled(step, steps), validation),
@@ -2675,7 +2814,7 @@ def phase_train_entry_mvsnerf(ws: str):
     pretrain = save_pretrain(cfg)
     first = drive_train_entry(cfg, 0)
     resumed = drive_train_entry(mvs_entry_cfg(ws, "train.epoch", "2"), 0)
-    design = mvs_entry_design(steps=TRAIN_ENTRY_STEPS, blocks=mvs_row_blocks(TRAIN_HW[0]))
+    design = mvs_entry_design(cfg, steps=TRAIN_ENTRY_STEPS, blocks=mvs_row_blocks(TRAIN_HW[0]))
     for name, run, epoch in (("first", first, 0), ("resumed", resumed, 1)):
         check_train_entry_run(name, run, design, epoch, steps=TRAIN_ENTRY_STEPS)
     require(first["final_step"] == TRAIN_ENTRY_STEPS
@@ -2717,7 +2856,8 @@ def phase_train_entry_mvsnerf(ws: str):
         save_pretrain(plain_cfg)
         plain = drive_train_entry(plain_cfg, 0)
         check_train_entry_run("first", plain,
-                              mvs_entry_design(steps=2, blocks=mvs_row_blocks(MVS_PLAIN_HW[0])),
+                              mvs_entry_design(plain_cfg, steps=2,
+                                               blocks=mvs_row_blocks(MVS_PLAIN_HW[0])),
                               0, steps=2,
                               prepass=False)
     record["plain"] = {"config": MVS_PLAIN_FINETUNE, "geometry": list(MVS_PLAIN_HW),
@@ -2817,7 +2957,8 @@ def phase_train_step_check_mvsnerf() -> None:
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 
     t_phase = time.perf_counter()
-    state = random_weights(BoostMVSNeRF(MVSNeRFConfig(k_best=2, num_samples=8), device="cpu"), 0)
+    model = BoostMVSNeRF(MVSNeRFConfig(k_best=2, num_samples=8), device="cpu")
+    state = random_weights(model, 0)
     batch = mvs_step_batch(*TRAIN_CHECK_HW, seed=3)
     reset_launch_counts()
     lg, gg = mvs_step_grads(state, batch, "cuda", torch.float32)
@@ -2838,7 +2979,7 @@ def phase_train_step_check_mvsnerf() -> None:
               "card_vs_cpu_worst": max(grad_rel_errors(gg, gc).values()),
               "bars": {"tensor": MVS_GRAD_BARS[0], "global": MVS_GRAD_BARS[1]},
               "cpu_float32_vs_float64": bars["spread"], "cpu_planted_faults": bars["faults"]}
-    require(card_launches == added({"img_sample": 1}),
+    require(card_launches == added({"img_sample": 1, "conv_wgrad": routed_convs(model)}),
             f"train_step_check_mvsnerf: launches of the card's step {card_launches}")
     require(all(within_bars(r, MVS_GRAD_BARS) for r in bars["spread"]),
             "float32's own spread fails the bars")
@@ -3145,8 +3286,8 @@ def phase_composite_train() -> None:
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 
     t_phase = time.perf_counter()
-    state = random_weights(CompositeENeRF(CascadeConfig(), num_fg_layers=2,
-                                          fg_hw=COMPOSITE_CHECK_FG, device="cpu"), 0)
+    model = CompositeENeRF(CascadeConfig(), num_fg_layers=2, fg_hw=COMPOSITE_CHECK_FG, device="cpu")
+    state = random_weights(model, 0)
     batch = composite_batch(*COMPOSITE_CHECK_HW, COMPOSITE_CHECK_ORIGINS, seed=3, targets=True)
     reset_launch_counts()
     lg, gg = composite_step_grads(state, batch, "cuda", torch.float32)
@@ -3159,9 +3300,10 @@ def phase_composite_train() -> None:
                                                                  torch.float32)[1])
     vs_ref = grad_rel_errors(gg, ref)
     worst = sorted(vs_ref, key=vs_ref.get, reverse=True)[:3]
-    # per level: 3 volumes (#1 f32 and #2 each), 3 renders (#3 and #4 each)
+    # per level: 3 volumes (#1 f32 and #2 each), 3 renders (#3 and #4 each);
+    # every convolution once
     design = added({"warp_variance": 6, "warp_variance_bwd": 6, "img_sample": 6,
-                    "img_sample_bwd": 6})
+                    "img_sample_bwd": 6, "conv_wgrad": routed_convs(model)})
     record = {"geometry": list(COMPOSITE_CHECK_HW), "fg_hw": list(COMPOSITE_CHECK_FG),
               "origins": COMPOSITE_CHECK_ORIGINS, "views": 3, "launches_card_step": card_launches,
               "loss_card": lg, "loss_cpu": lc, "loss_cpu_float64": ref_loss,

@@ -1,0 +1,208 @@
+"""The fine-tuning step's weight gradients on the card, layer by layer.
+
+    python3 scripts/torch_conv_layers.py [--seed 1234] [--out conv_layers.jsonl]
+
+Builds the benchmark's fine-tuning cell (``portbench``'s
+``enerf_free_finetune``: the scene and weights from the seed, the recipe
+loader's batches of 4 at 480x736, the step in 2 ray blocks, set-up's checked
+steps), then
+
+1. runs one step and records, in call order, every convolution that
+   ``models/blocks.conv_at`` sends through ``ConvWgrad``: its layer, input
+   and output shapes and strides, weight shape, stride, padding and whether
+   it is transposed;
+2. profiles one more step with shapes recorded (primed as the benchmark
+   primes it) and lists, for each ``ConvWgradBackward``, the device kernels
+   under it (the input gradient's cuDNN kernels and ``conv_wgrad``'s) with
+   their ms; then the step's top kernels and its convolution kernels;
+3. replays each layer's weight gradient alone, on seeded normal data of the
+   layer's shapes and layout, through ``chip_smoke.conv_wgrad_check``: the
+   kernel against its plain version and a second launch, its device ms
+   beside cuDNN's (``torch.nn.grad``) and its float32 bound.
+
+Needs one CUDA device. Prints one JSON line per record (also written to
+``--out``), then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+CELL = "enerf_free_finetune"
+ROUTED = "ConvWgradBackward"
+CONV_KERNELS = ("wgrad", "dgrad", "conv_wgrad")
+
+
+def emit(sink, **record) -> None:
+    line = json.dumps(record)
+    print(line, flush=True)
+    sink.write(line + "\n")
+
+
+def record_layers(model, step) -> list:
+    """The routed convolutions of one call of ``step()`` in call order
+    (module docstring, 1)."""
+    from boostmvsnerfs_torch.models import blocks
+
+    seen, names = [], {m: n for n, m in model.named_modules()}
+    real = blocks.ConvWgrad.apply
+
+    def spy(x, w, b, conv):
+        out = real(x, w, b, conv)
+        seen.append({"layer": names.get(conv), "kind": type(conv).__name__,
+                     "x": list(x.shape), "x_strides": list(x.stride()),
+                     "weight": list(w.shape), "out": list(out.shape),
+                     "out_strides": list(out.stride()), "stride": list(conv.stride),
+                     "padding": list(conv.padding), "transposed": conv.transposed})
+        return out
+
+    blocks.ConvWgrad.apply = spy
+    try:
+        step()
+    finally:
+        del blocks.ConvWgrad.apply  # Function's own again
+    return seen
+
+
+def kernels_under(e) -> list:
+    """(name, us) of every device kernel launched under host op ``e``."""
+    out = [(k.name, k.duration) for k in e.kernels]
+    for c in e.cpu_children:
+        out += kernels_under(c)
+    return out
+
+
+def backward_table(prof, layers: list) -> list:
+    """Each ``ConvWgradBackward`` of the profile with what runs under it,
+    matched to its layer by its output gradient's shape (the backward meets
+    the layers in reverse order)."""
+    free = list(layers)
+    rows = []
+    for e in prof.events():
+        if e.device_type.name != "CPU" or e.name != ROUTED:
+            continue
+        g = [list(s) for s in e.input_shapes][:1]
+        match = next((r for r in reversed(free) if [r["out"]] == g), None)
+        if match is not None:
+            free.remove(match)
+        ks = kernels_under(e)
+        rows.append({"layer": match and match["layer"], "grad_out": g[0] if g else None,
+                     "device_ms": sum(us for _, us in ks) / 1e3,
+                     "kernels": [[n[:90], us / 1e3] for n, us in ks]})
+    return rows
+
+
+def strided_normal(shape, strides, gen):
+    import torch
+
+    return torch.empty_strided(shape, strides, device="cuda").normal_(generator=gen)
+
+
+@contextlib.contextmanager
+def shapes_profile():
+    """torch.profiler with shapes recorded, primed as the benchmark primes
+    its profiles (``portbench/harness/profile.primed_profile``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.harness import profile as profile_lib
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(profile_lib.PRIMER_KERNELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(profile_lib.PROFILE_LEAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(profile_lib.PROFILE_TAIL_S)
+
+
+def replay(smoke, layers: list, seed: int, out) -> None:
+    """Module docstring, 3: each layer's weight gradient alone."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    totals = {"kernel_ms": 0.0, "cudnn_ms": 0.0, "bound_ms": 0.0}
+    for r in layers:
+        x = strided_normal(r["x"], r["x_strides"], gen)
+        g = strided_normal(r["out"], r["out_strides"], gen)
+        rec = smoke.conv_wgrad_check(x, g, r["weight"], r["stride"], r["padding"],
+                                     r["transposed"])
+        totals["kernel_ms"] += rec["device_ms"]
+        totals["cudnn_ms"] += rec["library_device_ms"]
+        totals["bound_ms"] += rec["bound_ms"]
+        emit(out, phase="replay", **{k: r[k] for k in ("layer", "x", "out", "weight", "stride",
+                                                       "transposed")}, **rec)
+    emit(out, phase="replay_total", **totals)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--out", default="conv_layers.jsonl")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_conv_layers: needs a CUDA device", file=sys.stderr)
+        return 1
+    import boostmvsnerfs_torch
+    from portbench import run as bench
+    from portbench.harness import drive
+    from portbench.harness import profile as profile_lib
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    boostmvsnerfs_torch.set_numerics()
+    torch.backends.cudnn.benchmark = False
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    manifest = bench.load_manifest()
+    _, config, traffic = bench.cell_of(manifest, CELL)
+    with open(os.path.join(ROOT, config["file"])) as f:
+        config_file = json.load(f)
+    t0 = time.perf_counter()
+    flow = drive.make_flow(drive.Context(config_file, traffic, args.seed, torch.device("cuda", 0)))
+    with open(args.out, "w") as out:
+        try:
+            emit(out, phase="setup", seconds=time.perf_counter() - t0)
+            layers = record_layers(flow.model, flow.unit)
+            for r in layers:
+                emit(out, phase="layer", **r)
+            with shapes_profile() as prof:
+                t = time.perf_counter()
+                flow.unit()
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - t
+            for row in backward_table(prof, layers):
+                emit(out, phase="backward", **row)
+            summary = profile_lib.summarize(prof, 1, ())
+            emit(out, phase="step", host_s=step_s, busy_s=summary["busy_s"],
+                 conv_s=summary["conv_s"], device_ops=summary["device_ops"],
+                 conv_kernels_s={k: v for k, v in summary["kernels_s"].items()
+                                 if any(s in k for s in CONV_KERNELS)})
+            del prof
+            flow.free_program()
+            replay(smoke, layers, args.seed, out)
+        finally:
+            flow.close()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -260,10 +260,14 @@ def counted(monkeypatch, one_thread):
     calls as the wrappers count their launches on the card, so that
     ``launch_counts`` reads what a card run would launch. The models import
     first: a module that imports a plain version by name (the train-mode
-    head) keeps the original, which launches nothing on the card."""
+    head) keeps the original, which launches nothing on the card. The
+    convolutions' weight gradients take their route on the CPU too, as on
+    the card (``models/blocks.WGRAD_DEVICES``)."""
     import boostmvsnerfs_torch.runner  # noqa: F401
+    from boostmvsnerfs_torch.models import blocks
     from boostmvsnerfs_torch.ops.cuda import (
         _build,
+        conv_wgrad,
         enerf_head,
         img_sample,
         renderer_mlp,
@@ -271,7 +275,9 @@ def counted(monkeypatch, one_thread):
         warp_variance,
     )
 
-    for module, attr, name in ((warp_variance, "warp_variance_plain", "warp_variance"),
+    monkeypatch.setattr(blocks, "WGRAD_DEVICES", ("cuda", "cpu"))
+    for module, attr, name in ((conv_wgrad, "conv_wgrad_plain", "conv_wgrad"),
+                               (warp_variance, "warp_variance_plain", "warp_variance"),
                                (warp_variance, "warp_variance_bwd_plain", "warp_variance_bwd"),
                                (img_sample, "row_sample_plain", "img_sample"),
                                (img_sample, "row_sample_bwd_plain", "img_sample_bwd"),
@@ -343,7 +349,7 @@ def test_train_entry_design_and_resume(smoke, tmp_path, counted):
     assert tuple(batch["all_src_inps"].shape[:2]) == (1, 3)  # 3 views: one combination
     design = smoke.train_entry_design(model, batch, 2, steps=1)
     assert design["step"] == dict(smoke.NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2,
-                                  img_sample=5, img_sample_bwd=3)
+                                  img_sample=5, img_sample_bwd=3, conv_wgrad=32)
     assert design["prepass"] == dict(smoke.NO_LAUNCHES, warp_variance=2 * 14 + 2 * 5 * 2)
     smoke.check_train_entry_run("first", first, design, 0, steps=1)
     smoke.check_train_entry_run("resumed", resumed, design, 1, steps=1)
@@ -354,8 +360,13 @@ def test_train_entry_design_and_resume(smoke, tmp_path, counted):
 
 
 class BoostENeRFLike:
+    """The loss settings of a BoostENeRF, and no convolutions."""
+
     def __init__(self, cas):
         self.cas = cas
+
+    def modules(self):
+        return iter(())
 
 
 def _train_run(batches, dtype, steps_snaps, model=None, cas=None):
@@ -447,9 +458,9 @@ def test_mvsnerf_train_entry_design_and_resume(smoke, tmp_path, counted):
     first = smoke.drive_train_entry(cfg, 0, "cpu")
     resumed = smoke.drive_train_entry(_in_repo(smoke.mvs_entry_cfg, ws, *opts, "train.epoch",
                                                "2"), 0, "cpu")
-    design = smoke.mvs_entry_design(steps=1)
+    design = smoke.mvs_entry_design(cfg, steps=1)
     assert design["first"] == dict(smoke.NO_LAUNCHES, img_sample=3, tri_sample=2,
-                                   renderer_mlp=2)
+                                   renderer_mlp=2, conv_wgrad=19)
     smoke.check_train_entry_run("first", first, design, 0, steps=1)
     smoke.check_train_entry_run("resumed", resumed, design, 1, steps=1)
     assert (first["final_step"], resumed["final_step"]) == (1, 2)
@@ -553,14 +564,17 @@ def test_composite_frame_and_step_launch_designs(smoke, counted):
         (_, (params, vox, feat, _)), = inputs[f"enerf_head/no_vox_C{C}"]
         assert vox is None and feat.shape[-1] == C and params["lr0"][0].shape[1] == 16
     reset_launch_counts()
-    state = smoke.random_weights(CompositeENeRF(model.cas, num_fg_layers=2,
-                                                fg_hw=smoke.COMPOSITE_CHECK_FG, device="cpu"), 0)
+    step_model = CompositeENeRF(model.cas, num_fg_layers=2, fg_hw=smoke.COMPOSITE_CHECK_FG,
+                                device="cpu")
+    state = smoke.random_weights(step_model, 0)
     step_batch = smoke.composite_batch(64, 96, ((16, 0), (32, 0)), seed=3, targets=True)
     loss, grads = smoke.composite_step_grads(state, step_batch, "cpu", torch.float32)
     assert np.isfinite(loss) and grads.keys() == state.keys() - {
         k for k in state if "running" in k or "num_batches" in k}
+    assert smoke.routed_convs(step_model) == 72  # 76 with the foreground's unread heads
     assert launch_counts() == smoke.added({"warp_variance": 6, "warp_variance_bwd": 6,
-                                           "img_sample": 6, "img_sample_bwd": 6})
+                                           "img_sample": 6, "img_sample_bwd": 6,
+                                           "conv_wgrad": 72})
 
 
 def test_staged_mvsnerf_phase_rehearses_on_cpu(smoke, tmp_path, counted):

@@ -505,7 +505,8 @@ def test_render_novel_path_frame_on_the_card(dev, tmp_path, monkeypatch):
 def test_run_train_step_on_the_card(dev, tmp_path, monkeypatch):
     """One ``run_train(cfg)`` step of the fine-tuning recipe on the card
     (64x96, batch 1, K=4, both levels on full images, no validation): the
-    f32 warp and the sampler with their backward kernels, and the loss
+    f32 warp and the sampler with their backward kernels, the 32
+    convolutions' weight gradients, and the loss
     within 1e-4 of the CPU port's from the same pretrain weights and view
     selection."""
     import shutil
@@ -537,8 +538,47 @@ def test_run_train_step_on_the_card(dev, tmp_path, monkeypatch):
             # of 5 chunks, 2 warps each; then the step
             assert counts["warp_variance"] == 2 * 14 + 2 * 5 * 2 + 2
             assert [counts[k] for k in ("warp_variance_bwd", "img_sample",
-                                        "img_sample_bwd")] == [2, 2, 2]
+                                        "img_sample_bwd", "conv_wgrad")] == [2, 2, 2, 32]
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+@pytest.mark.parametrize("case", [
+    # (input, weight, stride, padding, transposed): the networks' families
+    ((2, 3, 40, 56), (8, 3, 3, 3), 1, 1, False),
+    ((2, 8, 40, 56), (16, 8, 5, 5), 2, 2, False),
+    ((2, 8, 40, 56), (32, 8, 1, 1), 1, 0, False),
+    ((2, 16, 6, 30, 46), (8, 16, 3, 3, 3), 1, 1, False),
+    ((2, 8, 6, 30, 46), (16, 8, 3, 3, 3), 2, 1, False),
+    ((2, 8, 6, 30, 46), (1, 8, 3, 3, 3), 1, 1, False),
+    ((2, 64, 2, 8, 12), (64, 64, 3, 3, 3), 1, 1, False),
+    ((2, 16, 3, 15, 23), (16, 8, 3, 3, 3), 2, 1, True),
+])
+def test_conv_wgrad_kernel(dev, case):
+    """The weight-gradient kernel against its plain version (1e-4 of the
+    largest magnitude: the sums run in another order), on channels-last
+    inputs as the networks pass them and on contiguous ones; two launches
+    equal bit for bit; one launch counted per gradient."""
+    from boostmvsnerfs_torch.ops.cuda.conv_wgrad import conv_weight_grad, conv_wgrad_plain
+
+    x_shape, w_shape, s, p, transposed = case
+    dims = len(x_shape) - 2
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(x_shape, generator=gen, device=dev)
+    w = torch.zeros(w_shape, device=dev)
+    if transposed:
+        y = torch.nn.functional.conv_transpose3d(x, w, stride=s, padding=p, output_padding=s - 1)
+    else:
+        y = (torch.nn.functional.conv2d if dims == 2 else torch.nn.functional.conv3d)(
+            x, w, stride=s, padding=p)
+    g = torch.randn(y.shape, generator=gen, device=dev)
+    fmt = torch.channels_last if dims == 2 else torch.channels_last_3d
+    args = ((s,) * dims, (p,) * dims, transposed)
+    want = conv_wgrad_plain(x, g, w_shape, *args)
+    for xx, gg in ((x, g), (x.contiguous(memory_format=fmt), g.contiguous(memory_format=fmt))):
+        got = conv_weight_grad(xx, gg, w_shape, *args)
+        _close_scaled(got, want, "dW")
+        assert torch.equal(got, conv_weight_grad(xx, gg, w_shape, *args))
+    assert launch_counts()["conv_wgrad"] == 4
 
 
 def _mvs_batch(seed=0, rays=None):
@@ -581,9 +621,9 @@ def test_mvsnerf_head_frames_on_the_card(dev, net_type):
 
 
 def test_mvsnerf_train_step_on_the_card(dev):
-    """A BoostMVSNeRF train step on the card launches only the colour
-    lookup (#3): the volume lookup and the MLP take their plain versions
-    under autograd. Its loss is within 1e-4 of the CPU port's. The eval
+    """A BoostMVSNeRF train step on the card launches the colour lookup
+    (#3) and the 19 convolutions' weight gradients: the volume lookup and
+    the MLP take their plain versions under autograd. Its loss is within 1e-4 of the CPU port's. The eval
     render under autograd reaches the volume-lookup kernel, whose wrapper
     refuses a tensor that requires grad."""
     from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
@@ -601,7 +641,8 @@ def test_mvsnerf_train_step_on_the_card(dev):
         state = create_train_state(model, make_optimizer({"lr": 5e-5}, 10))
         reset_launch_counts()
         losses[d] = float(make_train_step(model, cas=cas)(state, batch)["loss"])
-    assert {k: v for k, v in launch_counts().items() if v} == {"img_sample": 1}
+    assert {k: v for k, v in launch_counts().items() if v} == {"img_sample": 1,
+                                                                "conv_wgrad": 19}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
     model.eval()
     with pytest.raises(RuntimeError, match="not differentiable"):

@@ -511,12 +511,14 @@ def test_eval_forward_after_training_keeps_running_statistics(variables):
     assert out["rgb_level1"].shape == batch["rgb_1"].shape
 
 
-def test_chip_smoke_train_phases_rehearse_on_cpu():
+def test_chip_smoke_train_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's training pieces at 32x64 on the CPU: the backward
     kernels' inputs from the model's train-mode stages (each wrapper takes
     its plain version here), their work counts, the launches per blocked
     step the code implies (16 blocks: the same counts as at 480x736), the
-    smooth card-vs-CPU batch and the gradient comparison."""
+    step's weight gradients that the card routes to ``conv_wgrad`` (routed
+    here too, through its plain version), the smooth card-vs-CPU batch and
+    the gradient comparison."""
     import importlib.util
     from pathlib import Path
 
@@ -559,7 +561,15 @@ def test_chip_smoke_train_phases_rehearse_on_cpu():
             assert min(smoke.TRAIN_KERNELS["img_sample"][3](*fwd)) > 0
     assert smoke.expected_train_launches(model, batch) == dict(
         smoke.NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2, img_sample=33,
-        img_sample_bwd=17)
+        img_sample_bwd=17, conv_wgrad=32)
+    from boostmvsnerfs_torch.models import blocks
+
+    monkeypatch.setattr(blocks, "WGRAD_DEVICES", ("cuda", "cpu"))
+    records = smoke.routed_conv_records(model, batch)
+    assert len(records) == smoke.routed_convs(model) == 32
+    assert records[0]["weight"] == [1, 8, 3, 3, 3] and records[-1]["weight"] == [8, 3, 3, 3]
+    assert {r["x_layout"] for r in records} == {"channels_last"}
+    assert all(p.grad is None for p in model.parameters())
     smooth = smoke.smooth_scene_batch(32, 64, seed=3)
     assert smooth["src_inps"].shape == (1, 4, 32, 64, 3)
     assert np.abs(smooth["src_inps"]).max() <= 1.5
