@@ -49,7 +49,7 @@ from boostmvsnerfs_torch.ops.cuda.renderer_mlp import (
     renderer_mlp_plain,
 )
 from boostmvsnerfs_torch.ops.cuda.tri_sample import fused_tri_sample, tri_sample_plain
-from boostmvsnerfs_torch.utils.profiling import spanned
+from boostmvsnerfs_torch.utils.profiling import count, spanned
 
 # renderer heads (reference network.py:548-567 ``net_type``): 'v0'
 # Renderer_ours, 'v2' Renderer_linear, 'v1' / 'attention'
@@ -393,6 +393,7 @@ class MVSNeRF(nn.Module):
         f = self.feature(all_src_inps.reshape(B * V, *all_src_inps.shape[2:]))
         return f.reshape(B, V, *f.shape[1:])  # (B, V, H/4, W/4, 32)
 
+    @spanned("model.warp")
     def raw_volume(self, src_inps, feats, proj_mats, depth_values) -> torch.Tensor:
         """Padded cost volume, (B, D, h+2p, w+2p, 9+32): the reference
         view's RGB, each source view's RGB warped by the plane sweep (both in
@@ -443,11 +444,14 @@ class MVSNeRF(nn.Module):
 
     def sample_points(self, batch, ray_idx, near, far):
         """Uniform depth samples of the rays at ``ray_idx`` (B, R):
-        (world_xyz (B, R, D, 3), ray_d (B, R, 3), z_vals (B, R, D))."""
+        (world_xyz (B, R, D, 3), ray_d (B, R, 3), z_vals (B, R, D)). Counts
+        the B*R*D samples under ``render.samples`` (BoostMVSNeRF folds its K
+        volumes into B), from the shapes alone."""
         W = batch["src_inps"].shape[3]
         xy = geometry.flat_idx_to_xy(ray_idx, W).to(near.dtype)
         ray_o, ray_d = geometry.rays_from_pixels(batch["tar_ixt"], batch["tar_ext"], xy)
         B, R = ray_idx.shape
+        count("render.samples", B * R * self.cfg.num_samples)
         z_vals = depth_line(near, far, self.cfg.num_samples)[:, None, :].expand(B, R, -1)
         world_xyz = ray_o[..., None, :] + ray_d[..., None, :] * z_vals[..., None]
         return world_xyz, ray_d, z_vals

@@ -2,8 +2,10 @@
 spans nest and keep their self time; with tracing off a span makes no
 annotation and reads no clock; under torch.profiler a span is a user
 annotation enclosing its layer's aten ops; a staged ENeRF and a staged
-MVSNeRF frame at 64x96 record their layers' spans; ``h2d_bytes`` counts the
-bytes a batch's host arrays send; the launch counts are the registry's; the
+MVSNeRF frame at 64x96 record their layers' spans; an MVSNeRF training step
+records ``model.warp`` and counts ``render.samples``, and with tracing off
+its spans cost the flag check alone; ``h2d_bytes`` counts the bytes a
+batch's host arrays send; the launch counts are the registry's; the
 benchmark's four readers of the spans and counters; ``device_trace`` and
 ``run_evaluate``'s ``profile_dir`` trace."""
 
@@ -155,8 +157,8 @@ def _frame(family: str):
     batch = mvsnerf_batch(make_scene_batch(B=1, n_views=4, H=64, W=96, boost=True, seed=0,
                                            rig="forward", render_scales=(1.0,)), k_best=(0, 3))
     return StagedMVSNeRF(model, row_chunk=16), batch, {
-        "eval.to_card": 1, "executor.frame": 1, "model.volume": 1, "executor.block": 4,
-        "model.render": 4}
+        "eval.to_card": 1, "executor.frame": 1, "model.volume": 1, "model.warp": 1,
+        "executor.block": 4, "model.render": 4}
 
 
 @pytest.mark.parametrize("family", ["enerf", "mvsnerf"])
@@ -167,13 +169,78 @@ def test_a_staged_frame_records_its_layers_spans(family):
         forward(runner._device_batch(np_batch, "cpu"))
     got = table.as_dict()
     assert {name: e["n"] for name, e in got["spans"].items()} == want
-    assert got["counters"] == {}  # nothing crossed to another device
+    # nothing crossed to another device; the MVSNeRF frame's B*K*H*W*D samples
+    assert got["counters"] == ({} if family == "enerf" else {"render.samples": 2 * 64 * 96 * 8})
     frame = got["spans"]["executor.frame"]
     children = sum(e["host_s"] for name, e in got["spans"].items()
                    if name in ("model.features", "model.volume", "executor.block", "model.blend")
                    or (name == "model.render" and family == "enerf"))
     assert frame["self_s"] == pytest.approx(frame["host_s"] - children, rel=1e-6, abs=1e-9)
     assert 0 <= frame["self_s"] < frame["host_s"]
+
+
+def _mvsnerf_step():
+    """(step, state, numpy batch) of the recipe's unblocked BoostMVSNeRF
+    training step at 64x96 on the CPU: K=2, 8 samples, 2 targets of 64
+    random rays, the loss of a one-level cascade."""
+    from boostmvsnerfs_torch.parallel.train import create_train_state, make_train_step
+    from boostmvsnerfs_torch.train.schedule import make_optimizer
+
+    model = BoostMVSNeRF(MVSNeRFConfig(num_samples=8, k_best=2), device="cpu")
+    rays = make_scene_batch(B=2, n_views=4, H=64, W=96, boost=True, seed=0, rig="forward",
+                            render_scales=(1.0,), with_targets=True, ray_subsample={0: 64})
+    batch = {**mvsnerf_batch(rays, k_best=(0, 3)), "ray_idx_0": rays["ray_idx_0"]}
+    cas = CascadeConfig(num=1, render_if=(True,), train_img=(False,), loss_weight=(1.0,))
+    state = create_train_state(model, make_optimizer({"lr": 5e-5}, 1))
+    return make_train_step(model, cas=cas), state, batch
+
+
+def test_an_mvsnerf_step_records_the_warp_and_counts_its_samples():
+    """One training step: ``model.warp`` inside ``model.volume`` once, and
+    ``render.samples`` B*K*R*D = 2*2*64*8, in the scope and in ``traced()``;
+    the counter's total counts it too."""
+    torch.set_num_threads(1)
+    step, state, batch = _mvsnerf_step()
+    before = profiling.counts().get("render.samples", 0)
+    with collect() as table:
+        step(state, batch)
+    got = table.as_dict()
+    assert {name: e["n"] for name, e in got["spans"].items()} == {
+        "train.step": 1, "model.volume": 1, "model.warp": 1, "model.render": 1}
+    assert got["counters"] == traced()["counters"] == {"render.samples": 2 * 2 * 64 * 8}
+    assert profiling.counts()["render.samples"] - before == 2 * 2 * 64 * 8
+    volume, warp = got["spans"]["model.volume"], got["spans"]["model.warp"]
+    assert 0 < warp["host_s"] < volume["host_s"]
+    assert volume["self_s"] == pytest.approx(volume["host_s"] - warp["host_s"], rel=1e-6,
+                                             abs=1e-9)
+
+
+def test_the_step_spans_off_cost_one_flag_check(monkeypatch):
+    """Tracing off, the same step: every span is the shared no-op (no
+    annotation, no clock read, nothing traced), and the counter's total
+    still counts."""
+    torch.set_num_threads(1)
+    calls = {"record_function": 0, "clock": 0, "flag": 0}
+
+    def spy(key, value):
+        def fn(*args):
+            calls[key] += 1
+            return value(*args)
+        return fn
+
+    monkeypatch.setattr(profiling, "record_function", spy("record_function",
+                                                          torch.profiler.record_function))
+    monkeypatch.setattr(profiling, "perf_counter_ns", spy("clock", time.perf_counter_ns))
+    step, state, batch = _mvsnerf_step()
+    monkeypatch.setattr(profiling, "_profiler_enabled",
+                        spy("flag", profiling._profiler_enabled))
+    before = profiling.counts().get("render.samples", 0)
+    step(state, batch)
+    assert calls["record_function"] == calls["clock"] == 0
+    # the four spans' checks, and one in the counter
+    assert calls["flag"] == 5
+    assert traced() == {"spans": {}, "counters": {}}
+    assert profiling.counts()["render.samples"] - before == 2 * 2 * 64 * 8
 
 
 def _sent(np_batch, dtype=torch.float32) -> int:
