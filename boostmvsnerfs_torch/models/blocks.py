@@ -21,6 +21,11 @@ from torch.autograd.function import once_differentiable
 
 # devices whose float32 training convolutions take the weight-gradient kernel
 WGRAD_DEVICES = ("cuda",)
+# devices whose float32 3D convolutions take the data-gradient kernel: the
+# forward of a transposed one, the input gradient of the others in training
+DGRAD_DEVICES = ("cuda",)
+# the kernels' operand type (their plain versions compute in the tensors')
+KERNEL_DTYPE = torch.float32
 
 
 def _conv(conv: nn.Module, x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
@@ -31,55 +36,87 @@ def _conv(conv: nn.Module, x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
 
 
 class ConvWgrad(torch.autograd.Function):
-    """A convolution module's forward, with the weight's gradient from
-    ``ops/cuda/conv_wgrad`` (its plain version on the CPU): the forward is
-    the module's own call, the input's gradient PyTorch's own
-    ``convolution_backward`` (input only), the bias's the output gradient's
-    sum."""
+    """A convolution module's forward and backward on the port's
+    convolution kernels where ``routes_wgrad`` / ``routes_dgrad`` take them
+    (their plain versions on the CPU): the weight's gradient from
+    ``ops/cuda/conv_wgrad``; a transposed convolution's forward and another
+    convolution's input gradient from ``ops/cuda/conv_dgrad``; else the
+    module's own forward and PyTorch's ``convolution_backward`` (input
+    only). The bias's gradient is the output gradient's sum."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, conv):
+        from boostmvsnerfs_torch.ops.cuda.conv_dgrad import conv_transpose_forward
+
         ctx.save_for_backward(x, weight)
         ctx.conv = conv
+        ctx.dgrad = routes_dgrad(conv, x)
+        if ctx.dgrad and conv.transposed:
+            return conv_transpose_forward(x, weight, bias, conv.stride, conv.padding,
+                                          conv.output_padding)
         return _conv(conv, x, weight, bias)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        from boostmvsnerfs_torch.ops.cuda.conv_dgrad import conv_data_grad
         from boostmvsnerfs_torch.ops.cuda.conv_wgrad import conv_weight_grad
 
         x, weight = ctx.saved_tensors
         c = ctx.conv
-        dx = db = None
+        dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = torch.ops.aten.convolution_backward(
-                g, x, weight, None, c.stride, c.padding, c.dilation, c.transposed,
-                c.output_padding, c.groups, [True, False, False])[0]
-        dw = conv_weight_grad(x, g, weight.shape, c.stride, c.padding, c.transposed)
+            if ctx.dgrad and not c.transposed:
+                dx = conv_data_grad(g, weight, x.shape, c.stride, c.padding)
+            else:
+                dx = torch.ops.aten.convolution_backward(
+                    g, x, weight, None, c.stride, c.padding, c.dilation, c.transposed,
+                    c.output_padding, c.groups, [True, False, False])[0]
+        if ctx.needs_input_grad[1]:
+            dw = conv_weight_grad(x, g, weight.shape, c.stride, c.padding, c.transposed)
         if ctx.needs_input_grad[2]:
             db = g.sum([0, *range(2, g.dim())])
         return dx, dw, db, None
 
 
-def routes_wgrad(conv: nn.Module, x: torch.Tensor, dtype=None) -> bool:
-    """Whether ``conv_at`` takes ``ConvWgrad``: a float32 convolution whose
-    weight is being trained, on a device of ``WGRAD_DEVICES``, of a form the
-    kernel computes (no groups or dilation, zero padding)."""
-    return (torch.is_grad_enabled() and conv.weight.requires_grad
-            and x.device.type in WGRAD_DEVICES and dtype in (None, torch.float32)
-            and x.dtype == conv.weight.dtype == torch.float32
+def _kernel_form(conv: nn.Module, x: torch.Tensor, dtype) -> bool:
+    """A convolution at ``KERNEL_DTYPE`` without groups or dilation,
+    zero-padded, of a type the kernels compute."""
+    return (dtype in (None, KERNEL_DTYPE) and x.dtype == conv.weight.dtype == KERNEL_DTYPE
             and isinstance(conv, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d))
             and conv.groups == 1 and set(conv.dilation) == {1}
             and conv.padding_mode == "zeros" and not isinstance(conv.padding, str))
+
+
+def routes_wgrad(conv: nn.Module, x: torch.Tensor, dtype=None) -> bool:
+    """Whether ``conv_at`` takes ``ConvWgrad`` for the weight's gradient: a
+    float32 convolution whose weight is being trained, on a device of
+    ``WGRAD_DEVICES``, of a form the kernel computes (no groups or
+    dilation, zero padding)."""
+    return (torch.is_grad_enabled() and conv.weight.requires_grad
+            and x.device.type in WGRAD_DEVICES and _kernel_form(conv, x, dtype))
+
+
+def routes_dgrad(conv: nn.Module, x: torch.Tensor, dtype=None) -> bool:
+    """Whether the data-gradient form of ``conv`` on ``x`` takes the
+    ``conv_dgrad`` kernel (a transposed convolution's forward; another's
+    input gradient, inside ``ConvWgrad``): a float32 3D convolution of
+    kernel 3, padding 1 and stride 1 or 2 (no groups or dilation), on a
+    device of ``DGRAD_DEVICES``."""
+    return (x.device.type in DGRAD_DEVICES and _kernel_form(conv, x, dtype)
+            and isinstance(conv, (nn.Conv3d, nn.ConvTranspose3d))
+            and tuple(conv.kernel_size) == (3, 3, 3) and tuple(conv.padding) == (1, 1, 1)
+            and set(conv.stride) <= {1, 2})
 
 
 def conv_at(conv: nn.Module, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """``conv(x)`` (an ``nn.Conv2d`` / ``Conv3d`` / ``ConvTranspose3d``)
     with its input, weight and bias cast to ``dtype`` (flax ``nn.Conv(dtype=
     ...)``); ``None`` runs it as it is. A float32 convolution in training
-    (``routes_wgrad``) runs as ``ConvWgrad``: the same forward, its weight
-    gradient from the ``conv_wgrad`` kernel."""
-    if routes_wgrad(conv, x, dtype):
+    (``routes_wgrad``) and a float32 transposed one that ``routes_dgrad``
+    takes run as ``ConvWgrad``: the same function, on the kernels."""
+    if routes_wgrad(conv, x, dtype) or (isinstance(conv, nn.ConvTranspose3d)
+                                        and routes_dgrad(conv, x, dtype)):
         return ConvWgrad.apply(x, conv.weight, conv.bias, conv)
     if dtype is None:
         return conv(x)

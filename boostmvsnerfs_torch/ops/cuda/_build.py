@@ -35,7 +35,7 @@ PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 KERNELS = ("warp_variance", "img_sample", "enerf_head", "tri_sample", "renderer_mlp",
-           "warp_variance_bwd", "img_sample_bwd", "conv_wgrad")
+           "warp_variance_bwd", "img_sample_bwd", "conv_wgrad", "conv_dgrad")
 # forward kernels that have no backward kernel (none in the JAX package
 # either): their wrappers refuse autograd
 NO_BACKWARD = ("enerf_head", "tri_sample", "renderer_mlp")

@@ -110,6 +110,22 @@ def conv_wgrad_work(x, g, weight_shape, stride, padding, transposed=False):
                              padding, transposed)
 
 
+def conv_dgrad_counts(g_shape, x_shape, weight_shape, stride, padding):
+    """Bytes and f32 operations of a convolution's data gradient (its input
+    ``x``'s, for its output's gradient ``g``; a transposed convolution's
+    forward is its adjoint's, ``g`` its input and ``x`` its output):
+    ``g`` and the weight read once, the input's gradient written once, and
+    the multiply-adds of the weight gradient (``conv_wgrad_counts``), one
+    per (sample, output channel, input channel) and live (position, tap)
+    pair, taps on the zero padding left out."""
+    return conv_wgrad_counts(x_shape, g_shape, weight_shape, stride, padding)
+
+
+def conv_dgrad_work(g, weight, x_shape, stride, padding):
+    return conv_dgrad_counts(tuple(g.shape), tuple(x_shape), tuple(weight.shape), stride,
+                             padding)
+
+
 def live_tap_share(feats, pm, dv) -> float:
     """The share of the plane-sweep warp's bilinear taps (4 per voxel and
     view) that land inside the source image, from the voxels' coordinates

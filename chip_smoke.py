@@ -21,7 +21,9 @@ phase. Three main paths are driven, each with its kernels checked first:
    plus f32 operations over 67 TFLOP/s, the H100 SXM's published peaks,
    whichever is larger: ``boostmvsnerfs_torch/utils/roofline.py``, whose
    work functions count what the inputs need, and print the data's share:
-   the warps' live taps, the samplers' touched pixels and voxels). The
+   the warps' live taps, the samplers' touched pixels and voxels); and
+   conv_dgrad at each transposed convolution of a frame (5 BoostENeRF, 3
+   BoostMVSNeRF), as conv_wgrad is checked in training (item 13). The
    bf16 kernels (the eval warp, the volume sampler, renderer MLP, ENeRF
    head) are held against their plain versions at bf16, and their error against the f32 plain version must
    be bf16 rounding and nothing else; the volume sampler's f32 instance
@@ -140,10 +142,11 @@ phase. Three main paths are driven, each with its kernels checked first:
    both levels rendered on full images, Adam (lr 5e-5, ep_iter 500) after
    the clip at 40, the ray-blocked step with 16 blocks. The f32 warp, the
    sampler and the backward kernels against their plain versions on the
-   step's own inputs, and conv_wgrad at each of the step's 32 weight
-   gradients (the convolutions' shapes and layouts, seeded data: against
-   its plain version, a second launch equal bit for bit, beside cuDNN's
-   torch.nn.grad time and the f32 bound); one plain and one blocked step at 128x192 on the
+   step's own inputs, conv_wgrad at each of the step's 32 weight
+   gradients and conv_dgrad at each of its 21 data gradients (5 transposed
+   forwards, 16 input gradients) (the convolutions' shapes and layouts,
+   seeded data: against its plain version, a second launch equal bit for
+   bit, beside cuDNN's torch.nn.grad time and the f32 bound); one plain and one blocked step at 128x192 on the
    card against the CPU port, with faults planted in the CPU port to show
    the bars catch them; launches per step, step times over three batches;
    one profiled step.
@@ -255,7 +258,11 @@ MVS_ROW_CHUNK = 32  # StagedMVSNeRF's raster rows a block (JAX's row_chunk)
 # view counts of the head kernel checked beside the main path's 3
 HEAD_VIEWS = (2, 4, 8)
 NO_LAUNCHES = {"warp_variance": 0, "img_sample": 0, "enerf_head": 0, "tri_sample": 0,
-               "renderer_mlp": 0, "warp_variance_bwd": 0, "img_sample_bwd": 0, "conv_wgrad": 0}
+               "renderer_mlp": 0, "warp_variance_bwd": 0, "img_sample_bwd": 0, "conv_wgrad": 0,
+               "conv_dgrad": 0}
+# an MVSNeRF frame's launches once a frame, outside its row blocks: the
+# U-Net's three transposed convolutions (conv_dgrad), in ``frame_volume``
+MVS_VOLUME = {"conv_dgrad": 3}
 FREE_EVAL = "configs/exps/evaluate/enerf_ours/free_eval.yaml"
 SCANNET_EVAL = "configs/exps/evaluate/mvsnerf_ours/scannet_plus_eval.yaml"
 EVAL_IMAGES = 16  # a Free scene's test views are every 8th: 0 and 8
@@ -810,15 +817,16 @@ def run_enerf() -> list:
     with torch.no_grad():
         summary = phase_kernels(ENERF_KERNELS, main_path_kernel_inputs(model, make_batch(0)),
                                 "boost_enerf")
+        summary["conv_dgrad"] = phase_eval_conv_dgrad(model, make_batch(0), "boost_enerf")
     torch.cuda.empty_cache()
     phase_frame(state)
     launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main",
-                          {"warp_variance": 2, "img_sample": 1, "enerf_head": 1}, "rgb_level1",
+                          ENERF_FRAME, "rgb_level1",
                           MAIN_RAYS, costs=roofline.flagship_render_costs(
                               480, 736, cas=model.cas)["total"],
                           geometry=[480, 736], views=6, k_best=4, planes=[64, 8])
     batch = make_batch(0)
-    phase_profile(lambda: model(batch), "profile", ("warp_variance", "img_sample", "enerf_head"))
+    phase_profile(lambda: model(batch), "profile", tuple(ENERF_FRAME))
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
     return list(summary.values())
@@ -846,9 +854,10 @@ def run_mvsnerf() -> list:
     with torch.no_grad():
         summary = phase_kernels(MVS_KERNELS, mvs_kernel_inputs(model, make_batch(0)),
                                 "boost_mvsnerf")
+        summary["conv_dgrad"] = phase_eval_conv_dgrad(model, make_batch(0), "boost_mvsnerf")
     torch.cuda.empty_cache()
     phase_frame_mvsnerf(state)
-    kernels = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
+    kernels = {**MVS_FRAME, **MVS_VOLUME}
     launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main_mvsnerf", kernels,
                           "rgb_level0", H * W,
                           costs=roofline.mvsnerf_render_costs(H, W, k_best=len(MVS_K_BEST))["total"],
@@ -1109,13 +1118,14 @@ def run_evaluate_path() -> list:
     pre-pass launches the warp at both levels per chunk of combinations."""
     from boostmvsnerfs_torch.utils.synthetic import write_free_scene
 
-    per = {"warp_variance": 2, "img_sample": 1, "enerf_head": 1}
+    per = ENERF_FRAME
     return drive_eval_entry(
         FREE_EVAL, "evaluate",
         lambda ws: write_free_scene(os.path.join(ws, "Free"), "grass", EVAL_IMAGES, 480, 736,
                                     rig="varied"),
-        "grass", {k: ENERF_KERNELS[k] for k in per}, main_path_kernel_inputs,
-        {"warp_variance": 2}, per, "warp_variance: the first view's features lost")
+        "grass", {k: ENERF_KERNELS[k] for k in per if k in ENERF_KERNELS},
+        main_path_kernel_inputs, ENERF_CHUNK, per,
+        "warp_variance: the first view's features lost")
 
 
 def run_evaluate_mvsnerf_path() -> list:
@@ -1124,13 +1134,13 @@ def run_evaluate_mvsnerf_path() -> list:
     frames go through ``StagedMVSNeRF``'s 7 row blocks."""
     from boostmvsnerfs_torch.utils.synthetic import write_scannet_scene
 
-    per = scaled(MVS_FRAME, mvs_row_blocks(MVS_HW[0]))
+    per = added(scaled(MVS_FRAME, mvs_row_blocks(MVS_HW[0])), MVS_VOLUME)
     return drive_eval_entry(
         SCANNET_EVAL, "evaluate_mvsnerf",
         lambda ws: write_scannet_scene(os.path.join(ws, "scannet_plus"), "scene0000_01",
                                        EVAL_IMAGES, *MVS_HW, test_ids=SCANNET_TEST_IDS,
                                        rig="varied"),
-        "scene0000_01", {k: MVS_KERNELS[k] for k in per}, mvs_kernel_inputs, {}, per,
+        "scene0000_01", {k: MVS_KERNELS[k] for k in MVS_FRAME}, mvs_kernel_inputs, {}, per,
         "viewport_visibility: the first view sees nothing")
 
 
@@ -1231,7 +1241,7 @@ def model_on_card(device) -> bool:
 def staged_entry(cfg, device=None) -> tuple:
     """``run_evaluate(cfg)`` with its launches counted (reset just before,
     read just after), held to the design: no launch in the pre-pass
-    (geometry), MVS_FRAME per row block and test view. Returns (its
+    (geometry), MVS_FRAME per row block and MVS_VOLUME per test view. Returns (its
     summary, its launches)."""
     from boostmvsnerfs_torch import runner
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1245,7 +1255,7 @@ def staged_entry(cfg, device=None) -> tuple:
     H = int(cfg.test_dataset.input_h_w[0])
     combos = math.comb(int(cfg.enerf.test_input_views), int(cfg.enerf.cost_volume_input_views))
     expect = expected_eval_launches(views, combos, int(cfg.enerf.cas_config.k_best), {},
-                                    scaled(MVS_FRAME, mvs_row_blocks(H)))
+                                    added(scaled(MVS_FRAME, mvs_row_blocks(H)), MVS_VOLUME))
     require(views == 2 and launches == {**NO_LAUNCHES, **expect},
             f"staged_mvsnerf: launches {launches}, expected {expect}")
     for key in ("psnr", "ssim"):
@@ -1547,6 +1557,124 @@ def phase_kernels_conv_wgrad(records: list, phase: str = "kernels_train",
     return rec
 
 
+def dgrad_records(run) -> list:
+    """The data gradients that ``conv_dgrad`` computes while ``run()`` runs,
+    in call order: the output gradient's (a transposed convolution's
+    input's) shape and layout, the weight's shape, the input's shape,
+    stride, padding, and which of the two uses it is (``transposed``: a
+    transposed convolution's forward, else a convolution's input
+    gradient)."""
+    from boostmvsnerfs_torch.ops.cuda import conv_dgrad
+
+    seen, real, real_t = [], conv_dgrad.conv_data_grad, conv_dgrad.conv_transpose_forward
+    forward = []
+
+    def spy(g, weight, x_shape, stride, padding):
+        seen.append({"g": list(g.shape), "g_layout": _conv_layout(g),
+                     "weight": list(weight.shape), "x": list(x_shape), "stride": list(stride),
+                     "padding": list(padding), "transposed": bool(forward)})
+        return real(g, weight, x_shape, stride, padding)
+
+    def spy_t(*args):
+        forward.append(1)
+        try:
+            return real_t(*args)
+        finally:
+            forward.pop()
+
+    conv_dgrad.conv_data_grad, conv_dgrad.conv_transpose_forward = spy, spy_t
+    try:
+        run()
+    finally:
+        conv_dgrad.conv_data_grad, conv_dgrad.conv_transpose_forward = real, real_t
+    return seen
+
+
+def conv_dgrad_library(g, weight, x_shape, stride, padding):
+    """cuDNN on the same data gradient (``torch.nn.grad.conv3d_input``:
+    ``convolution_backward``, as autograd and ``F.conv_transpose3d``
+    reach it)."""
+    from torch.nn import grad as nn_grad
+
+    return lambda: nn_grad.conv3d_input(tuple(x_shape), weight, g, tuple(stride), tuple(padding))
+
+
+def library_kernels(fn) -> list:
+    """[name, device ms] of the kernels one call of ``fn`` launches."""
+    fn()
+    prof, _ = profiled(fn)
+    return [[e.key[:90], e.device_time_total / 1e3] for e in block_kernels(prof)]
+
+
+def conv_dgrad_check(g, weight, x_shape, stride, padding) -> dict:
+    """``conv_dgrad``'s kernel on one data gradient against its plain
+    version (the largest error over the largest magnitude, KERNEL_RTOL: the
+    sums run in another order) and against a second launch (equal bit for
+    bit); its times (``timings``, with ``conv_dgrad_library`` as the
+    yardstick, whose kernels are named), the plain version's and the
+    bound."""
+    from boostmvsnerfs_torch.ops.cuda.conv_dgrad import conv_data_grad, conv_dgrad_plain
+    from boostmvsnerfs_torch.utils.roofline import conv_dgrad_work
+
+    args = (g, weight, tuple(x_shape), tuple(stride), tuple(padding))
+    got, again = conv_data_grad(*args), conv_data_grad(*args)
+    want = conv_dgrad_plain(*args)
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    equal = bool(torch.equal(got, again))
+    del got, again, want
+    t = timings(lambda: conv_data_grad(*args), conv_dgrad_library(*args))
+    plain_ms = median_ms(lambda: conv_dgrad_plain(*args), 3, warmup=1)
+    nbytes, ops = conv_dgrad_work(*args)
+    bms, by = bound(nbytes, ops)
+    return {"max_abs_err": err, "largest": scale, "relative_err": err / max(scale, 1e-30),
+            "tolerance": KERNEL_RTOL, "bit_equal": equal, **t, "plain_ms": plain_ms,
+            "library_kernels": library_kernels(conv_dgrad_library(*args)),
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops, **shares(bms, t)}
+
+
+def phase_eval_conv_dgrad(model, batch, path: str) -> dict:
+    """``conv_dgrad`` at the transposed convolutions of one eval frame of
+    ``model`` on ``batch`` (as many as ``routed_dgrads`` counts), in phase
+    ``kernels``."""
+    records = dgrad_records(lambda: model(batch))
+    require(len(records) == routed_dgrads(model, train=False) and
+            all(r["transposed"] for r in records), f"kernels: data gradients {records}")
+    return phase_kernels_conv_dgrad(records, "kernels", path)
+
+
+def phase_kernels_conv_dgrad(records: list, phase: str, path: str) -> dict:
+    """``conv_dgrad`` at each data gradient of a frame or step
+    (``dgrad_records``), on seeded normal data of its shapes and layouts:
+    ``conv_dgrad_check``, which must hold. Returns the summary record,
+    times and bounds summed over the frame or step."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rec = {"name": "conv_dgrad", "route": "cuda",
+           "source": "boostmvsnerfs_torch/csrc/conv_dgrad.cu",
+           "replaces": "none: XLA's transposed convolution and convolution backward",
+           "path": path, "compute_dtype": "float32", "max_abs_err": 0.0, "ms": 0.0,
+           "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "library_device_ms": 0.0}
+    nbytes = ops = 0.0
+    for i, r in enumerate(records):
+        g = seeded_conv_tensor(r["g"], r["g_layout"], gen)
+        w = torch.randn(r["weight"], generator=gen, device="cuda") / math.sqrt(
+            math.prod(r["weight"][1:]))
+        c = conv_dgrad_check(g, w, r["x"], r["stride"], r["padding"])
+        del g, w
+        emit(phase=phase, kernel="conv_dgrad", at=f"data gradient {i}", **r, **c)
+        require(c["relative_err"] <= KERNEL_RTOL, f"conv_dgrad at {r}: error {c['relative_err']}")
+        require(c["bit_equal"], f"conv_dgrad at {r}: two launches differ")
+        rec["max_abs_err"] = max(rec["max_abs_err"], c["max_abs_err"])
+        for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms"):
+            rec[k] += c[k]
+        nbytes += c["bytes"]
+        ops += c["ops"]
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
+    rec["data_gradients"] = len(records)
+    return rec
+
+
 def smooth_scene_batch(H: int, W: int, seed: int) -> dict:
     """A forward-rig batch (4 views, K=2) whose target sits between source
     frames 1 and 2 (not on frame 2, where the ray difference to that view is
@@ -1784,11 +1912,38 @@ def routed_convs(model) -> int:
     their backward never runs."""
     from torch import nn
 
-    unread = {id(m) for net in model.modules()
-              if getattr(getattr(net, "cas", None), "use_vox_feat", True) is False
-              for name, m in net.named_modules() if name.endswith("feat_conv.0")}
+    unread = unread_heads(model)
     return sum(isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d))
                and m.weight.requires_grad and id(m) not in unread for m in model.modules())
+
+
+def unread_heads(model) -> set:
+    """The ids of the feature heads whose output no gradient reaches: those
+    of an ENeRF that reads no voxel features (``routed_convs``)."""
+    return {id(m) for net in model.modules()
+            if getattr(getattr(net, "cas", None), "use_vox_feat", True) is False
+            for name, m in net.named_modules() if name.endswith("feat_conv.0")}
+
+
+def routed_dgrads(model, train: bool = True) -> int:
+    """``conv_dgrad``'s launches in one pass of ``model``'s networks (each
+    runs once a frame, a pre-pass chunk or a training step): one per
+    transposed 3D convolution, its forward; in a training step (``train``)
+    one more per other 3D convolution of kernel 3, its input gradient,
+    where its backward runs (``routed_convs``' unread heads left out). The
+    networks compute in float32 (``models/blocks.routes_dgrad``)."""
+    from torch import nn
+
+    unread = unread_heads(model)
+    n = 0
+    for m in model.modules():
+        if not isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)) or tuple(m.kernel_size) != (3,) * 3:
+            continue
+        if isinstance(m, nn.ConvTranspose3d):
+            n += 1
+        elif train and m.weight.requires_grad and id(m) not in unread:
+            n += 1
+    return n
 
 
 def expected_train_launches(model, batch, ray_blocks: int = RAY_BLOCKS) -> dict:
@@ -1804,7 +1959,7 @@ def expected_train_launches(model, batch, ray_blocks: int = RAY_BLOCKS) -> dict:
     H, W = batch["all_src_inps"].shape[2:4]
     n_max = max(batch[f"ray_idx_{i}"].shape[1] for i in range(cas.num) if cas.render_if[i])
     out = dict(NO_LAUNCHES, warp_variance=cas.num, warp_variance_bwd=cas.num,
-               conv_wgrad=routed_convs(model))
+               conv_wgrad=routed_convs(model), conv_dgrad=routed_dgrads(model))
     for i in range(cas.num):
         if not cas.render_if[i]:
             continue
@@ -1832,7 +1987,7 @@ def phase_train(model, batches: list, steps: int = 6):
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     expect = expected_train_launches(model, batches[0])
     require(expect == dict(NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2, img_sample=33,
-                           img_sample_bwd=17, conv_wgrad=32),
+                           img_sample_bwd=17, conv_wgrad=32, conv_dgrad=21),
             f"expected launches per step {expect}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1889,16 +2044,21 @@ def run_train_path() -> list:
     model.load_state_dict(state, strict=True)
     with torch.no_grad():
         summary = phase_kernels_train(train_kernel_inputs(model, make_batch(0)))
-    records = routed_conv_records(model, make_batch(0))
+    held = {}
+    dgrads = dgrad_records(lambda: held.update(w=routed_conv_records(model, make_batch(0))))
+    records = held["w"]
     require(len(records) == routed_convs(model), f"kernels_train: {len(records)} weight gradients")
+    require(len(dgrads) == routed_dgrads(model), f"kernels_train: {len(dgrads)} data gradients")
     summary["conv_wgrad"] = phase_kernels_conv_wgrad(records)
+    summary["conv_dgrad"] = phase_kernels_conv_dgrad(dgrads, "kernels_train", "train")
     torch.cuda.empty_cache()
     phase_train_step_check(state)
     model.load_state_dict(state, strict=True)  # the kernel inputs moved the BN statistics
     batches = [make_batch(s) for s in (0, 1, 2)]
     launches, train_state, step = phase_train(model, batches)
     phase_profile(lambda: step(train_state, batches[0]), "profile_train",
-                  ("warp_variance", "img_sample", "warp_variance_bwd", "img_sample_bwd"),
+                  ("warp_variance", "img_sample", "warp_variance_bwd", "img_sample_bwd",
+                   "conv_wgrad", "conv_dgrad"),
                   frames=1, unit="step")
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
@@ -1992,11 +2152,14 @@ def free_scene(ws: str, H: int = 480, W: int = 736) -> None:
 
 def prepass_design(views: int, combos: int, k: int) -> dict:
     """The BoostENeRF pre-pass's launches over ``views`` target views:
-    ceil(combos / k) chunks each, each chunk 2 warps (one per level)."""
-    return {"warp_variance": views * math.ceil(combos / k) * 2}
+    ceil(combos / k) chunks each, each chunk ENERF_CHUNK."""
+    return scaled(ENERF_CHUNK, views * math.ceil(combos / k))
 
 
-ENERF_FRAME = {"warp_variance": 2, "img_sample": 1, "enerf_head": 1}
+# a BoostENeRF volume build of both levels: 2 warps (one per level) and the
+# U-Nets' 5 transposed convolutions (conv_dgrad: 2 at level 0, 3 at level 1)
+ENERF_CHUNK = {"warp_variance": 2, "conv_dgrad": 5}
+ENERF_FRAME = {**ENERF_CHUNK, "img_sample": 1, "enerf_head": 1}
 
 
 def phase_visualize(ws: str) -> None:
@@ -2063,7 +2226,7 @@ def phase_path(ws: str) -> list:
     require(np_batch["k_best"][0].tolist() == runs["interpolate"]["per_frame"][0]["k_best"],
             "path: the first frame's picks differ from the run's")
     with torch.no_grad():
-        summary = phase_kernels({k: ENERF_KERNELS[k] for k in ENERF_FRAME},
+        summary = phase_kernels({k: ENERF_KERNELS[k] for k in ENERF_FRAME if k in ENERF_KERNELS},
                                 main_path_kernel_inputs(model, runner._device_batch(np_batch,
                                                                                   "cuda")),
                                 "path")
@@ -2328,7 +2491,7 @@ def phase_gui(cfg) -> list:
         hook.remove()
 
     with torch.no_grad():
-        summary = phase_kernels({k: ENERF_KERNELS[k] for k in ENERF_FRAME},
+        summary = phase_kernels({k: ENERF_KERNELS[k] for k in ENERF_FRAME if k in ENERF_KERNELS},
                                 main_path_kernel_inputs(render_fn.model, batches[0]), "gui")
         reruns = {}
         for mode in ("default", "deterministic", "default", "deterministic"):
@@ -2544,7 +2707,8 @@ def train_entry_design(model, batch, ray_blocks: int, steps: int,
                     prepass_design(test_views, 20, cas.k_best))
     rendered = sum(cas.render_if[: cas.num])
     validation = added(scaled({"warp_variance": cas.num, "img_sample": rendered,
-                               "enerf_head": rendered}, test_views))
+                               "enerf_head": rendered,
+                               "conv_dgrad": routed_dgrads(model, train=False)}, test_views))
     return {"step": step, "prepass": prepass, "validation": validation,
             "first": added(prepass, scaled(step, steps), validation),
             "resumed": added(scaled(step, steps), validation)}
@@ -2582,10 +2746,13 @@ def run_train_entry() -> list:
 def bf16_conv_check(ws: str, vs: dict) -> dict:
     """The first validation frame with the trained weights, the convolutions
     at ``conv_dtype`` bfloat16 against float32: the rgb mean absolute
-    difference under 0.05 (JAX's bar, tests/test_mixed_precision.py), and
+    difference under 0.05 (JAX's bar, tests/test_mixed_precision.py),
     forward hooks on the batch norms seeing bf16 inputs (the convolutions'
-    outputs) in the bf16 model and float32 ones in the other."""
+    outputs) in the bf16 model and float32 ones in the other, and
+    ``conv_dgrad`` launched for the float32 frame's transposed convolutions
+    only (the bf16 ones keep cuDNN)."""
     from boostmvsnerfs_torch import runner
+    from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
     from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
 
     cfg = train_entry_cfg(ws)
@@ -2601,10 +2768,12 @@ def bf16_conv_check(ws: str, vs: dict) -> dict:
             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
                 m.register_forward_hook(hook)
         torch.cuda.synchronize()
+        reset_launch_counts()
         t0 = time.perf_counter()
         rgb[dtype] = model(batch)["rgb_level1"].cpu().numpy()
         torch.cuda.synchronize()
         seen[f"{dtype}_frame_ms"] = (time.perf_counter() - t0) * 1e3
+        seen[f"{dtype}_conv_dgrad"] = launch_counts()["conv_dgrad"]
     diff = float(np.abs(rgb["bfloat16"] - rgb["float32"]).mean())
     out = {"rgb_mean_abs_diff": diff, "psnr_db": psnr_db(rgb["bfloat16"], rgb["float32"]),
            "batch_norm_inputs": {k: sorted(v) if isinstance(v, set) else v
@@ -2612,6 +2781,8 @@ def bf16_conv_check(ws: str, vs: dict) -> dict:
     require(diff < 0.05, f"bf16 convolutions: rgb mean difference {diff}")
     require(seen["bfloat16"] == {"torch.bfloat16"} and seen["float32"] == {"torch.float32"},
             f"bf16 convolutions: batch norm inputs {seen}")
+    require((seen["float32_conv_dgrad"], seen["bfloat16_conv_dgrad"]) == (
+        routed_dgrads(model, train=False), 0), f"bf16 convolutions: conv_dgrad launches {seen}")
     return out
 
 
@@ -2735,7 +2906,8 @@ def run_mvsnerf_heads() -> list:
         # color_fusion sums one sigmoid colour per view of a combination
         rgb_max = 3.0 if net_type == "color_fusion" else 1.0
         got = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "mvsnerf_heads",
-                         {"tri_sample": 1, "img_sample": 1}, "rgb_level0", H * W, rgb_max,
+                         {"tri_sample": 1, "img_sample": 1, **MVS_VOLUME}, "rgb_level0",
+                         H * W, rgb_max,
                          frames=HEAD_FRAMES, net_type=net_type, geometry=[H, W], views=6,
                          k_best=list(MVS_K_BEST), samples=model.cfg.num_samples)
         launches = launches or got
@@ -2756,14 +2928,16 @@ def mvs_entry_cfg(ws: str, *opts, cfg_file: str = MVS_FINETUNE):
 def mvs_entry_design(cfg, steps: int, test_views: int = 2, blocks: int = 1) -> dict:
     """Launches of the MVSNeRF training entry by design: a step launches
     the colour lookup (#3; the volume lookup and the MLP run plainly under
-    autograd) and each convolution's weight gradient (``routed_convs`` of
-    ``cfg``'s network), the pre-pass none (geometry), a validation frame
-    MVS_FRAME per row block (``blocks``, ``mvs_row_blocks``) and test
-    view."""
+    autograd), each convolution's weight gradient (``routed_convs`` of
+    ``cfg``'s network) and the data gradients (``routed_dgrads``), the
+    pre-pass none (geometry), a validation frame MVS_FRAME per row block
+    (``blocks``, ``mvs_row_blocks``) and MVS_VOLUME per test view."""
     from boostmvsnerfs_torch import runner
 
-    step = added({"img_sample": 1, "conv_wgrad": routed_convs(runner.make_network(cfg, "cpu"))})
-    validation = added(scaled(MVS_FRAME, test_views * blocks))
+    model = runner.make_network(cfg, "cpu")
+    step = added({"img_sample": 1, "conv_wgrad": routed_convs(model),
+                  "conv_dgrad": routed_dgrads(model)})
+    validation = added(scaled(MVS_FRAME, test_views * blocks), scaled(MVS_VOLUME, test_views))
     return {"step": step, "prepass": added(), "validation": validation,
             "first": added(scaled(step, steps), validation),
             "resumed": added(scaled(step, steps), validation)}
@@ -2979,7 +3153,8 @@ def phase_train_step_check_mvsnerf() -> None:
               "card_vs_cpu_worst": max(grad_rel_errors(gg, gc).values()),
               "bars": {"tensor": MVS_GRAD_BARS[0], "global": MVS_GRAD_BARS[1]},
               "cpu_float32_vs_float64": bars["spread"], "cpu_planted_faults": bars["faults"]}
-    require(card_launches == added({"img_sample": 1, "conv_wgrad": routed_convs(model)}),
+    require(card_launches == added({"img_sample": 1, "conv_wgrad": routed_convs(model),
+                                    "conv_dgrad": routed_dgrads(model)}),
             f"train_step_check_mvsnerf: launches of the card's step {card_launches}")
     require(all(within_bars(r, MVS_GRAD_BARS) for r in bars["spread"]),
             "float32's own spread fails the bars")
@@ -3051,7 +3226,8 @@ def phase_profile_train_mvsnerf(cfg, weights: dict, batch: dict) -> None:
     step = make_train_step(model, cas=CascadeConfig.from_cfg(cfg.enerf))
     for _ in range(2):
         step(state, batch)
-    phase_profile(lambda: step(state, batch), "profile_train_mvsnerf", ("img_sample",),
+    phase_profile(lambda: step(state, batch), "profile_train_mvsnerf",
+                  ("img_sample", "conv_wgrad", "conv_dgrad"),
                   frames=1, unit="step")
     emit(phase="profile_train_mvsnerf_plain", **mvs_plain_times(model, batch))
 
@@ -3073,8 +3249,9 @@ COMPOSITE_CHECK_ORIGINS = ((16, 16), (120, 56))
 # per frame, from the code (CompositeENeRF.render with render_if [false,
 # true]): each level builds a volume per foreground layer and one for the
 # background (#1 x 3 x 2); level 1 renders each layer and the background
-# (#3 x 3, #5 x 3, of them 2 without voxel features)
-COMPOSITE_FRAME = {"warp_variance": 6, "img_sample": 3, "enerf_head": 3}
+# (#3 x 3, #5 x 3, of them 2 without voxel features); every layer's U-Nets
+# are MinCostRegNets, 2 transposed convolutions each (conv_dgrad x 3 x 2 x 2)
+COMPOSITE_FRAME = {"warp_variance": 6, "img_sample": 3, "enerf_head": 3, "conv_dgrad": 12}
 COMPOSITE_NO_VOX_HEADS = 2
 HUMAN_EVAL = "configs/exps/evaluate/enerf/free_eval.yaml"
 HUMAN_FINETUNE = "configs/exps/finetune/enerf/free/base.yaml"
@@ -3234,8 +3411,7 @@ def run_composite() -> list:
                           bg_planes=list(model.bg.cas.volume_planes),
                           no_vox_heads_per_frame=no_vox, check=check)
     batch = make_batch(0)
-    phase_profile(lambda: model(batch), "profile_composite",
-                  ("warp_variance", "img_sample", "enerf_head"))
+    phase_profile(lambda: model(batch), "profile_composite", tuple(COMPOSITE_FRAME))
     emit(phase="composite_seconds", seconds=time.perf_counter() - t_phase)
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
@@ -3303,7 +3479,8 @@ def phase_composite_train() -> None:
     # per level: 3 volumes (#1 f32 and #2 each), 3 renders (#3 and #4 each);
     # every convolution once
     design = added({"warp_variance": 6, "warp_variance_bwd": 6, "img_sample": 6,
-                    "img_sample_bwd": 6, "conv_wgrad": routed_convs(model)})
+                    "img_sample_bwd": 6, "conv_wgrad": routed_convs(model),
+                    "conv_dgrad": routed_dgrads(model)})
     record = {"geometry": list(COMPOSITE_CHECK_HW), "fg_hw": list(COMPOSITE_CHECK_FG),
               "origins": COMPOSITE_CHECK_ORIGINS, "views": 3, "launches_card_step": card_launches,
               "loss_card": lg, "loss_cpu": lc, "loss_cpu_float64": ref_loss,
@@ -3356,7 +3533,8 @@ def phase_human(ws: str) -> None:
     views = len(ret["frame_ms"])
     cas = runner.make_network(cfg, "cpu").cas
     rendered = sum(cas.render_if)
-    frame = {"warp_variance": cas.num, "img_sample": rendered, "enerf_head": rendered}
+    frame = {"warp_variance": cas.num, "img_sample": rendered, "enerf_head": rendered,
+             "conv_dgrad": routed_dgrads(runner.make_network(cfg, "cpu"), train=False)}
     require(launches == added(scaled(frame, views)), f"human eval: launches {launches}")
     require(views == 2 and math.isfinite(ret["psnr"]), f"human eval: {ret}")
     record = {"evaluate": {"config": HUMAN_EVAL, "launches": launches,
@@ -3376,7 +3554,8 @@ def phase_human(ws: str) -> None:
     step = expected_train_launches(model, batch, 0)
     rendered = sum(model.cas.render_if)
     validation = added(scaled({"warp_variance": model.cas.num, "img_sample": rendered,
-                               "enerf_head": rendered}, 2))
+                               "enerf_head": rendered,
+                               "conv_dgrad": routed_dgrads(model, train=False)}, 2))
     design = {"step": step, "validation": validation,
               "first": added(scaled(step, TRAIN_ENTRY_STEPS), validation)}
     check_train_entry_run("first", run, design, 0, steps=TRAIN_ENTRY_STEPS, prepass=False)
@@ -3859,7 +4038,8 @@ def dist_train_design(cfg, batch: dict, steps: int, prepass: bool, validation: b
                   prepass_design(2, 20, cas.k_best)]
     if validation:
         parts.append(scaled({"warp_variance": cas.num, "img_sample": rendered,
-                             "enerf_head": rendered}, 2))
+                             "enerf_head": rendered,
+                             "conv_dgrad": routed_dgrads(model, train=False)}, 2))
     return added(*parts)
 
 

@@ -262,11 +262,13 @@ def counted(monkeypatch, one_thread):
     first: a module that imports a plain version by name (the train-mode
     head) keeps the original, which launches nothing on the card. The
     convolutions' weight gradients take their route on the CPU too, as on
-    the card (``models/blocks.WGRAD_DEVICES``)."""
+    the card (``models/blocks.WGRAD_DEVICES``), and so do the 3D
+    convolutions' data gradients (``DGRAD_DEVICES``)."""
     import boostmvsnerfs_torch.runner  # noqa: F401
     from boostmvsnerfs_torch.models import blocks
     from boostmvsnerfs_torch.ops.cuda import (
         _build,
+        conv_dgrad,
         conv_wgrad,
         enerf_head,
         img_sample,
@@ -276,7 +278,9 @@ def counted(monkeypatch, one_thread):
     )
 
     monkeypatch.setattr(blocks, "WGRAD_DEVICES", ("cuda", "cpu"))
+    monkeypatch.setattr(blocks, "DGRAD_DEVICES", ("cuda", "cpu"))
     for module, attr, name in ((conv_wgrad, "conv_wgrad_plain", "conv_wgrad"),
+                               (conv_dgrad, "conv_dgrad_plain", "conv_dgrad"),
                                (warp_variance, "warp_variance_plain", "warp_variance"),
                                (warp_variance, "warp_variance_bwd_plain", "warp_variance_bwd"),
                                (img_sample, "row_sample_plain", "img_sample"),
@@ -320,7 +324,8 @@ def test_visualize_and_path_launch_designs(smoke, tmp_path, counted):
     reset_launch_counts()
     out = runner.render_novel_path(cfg, n_frames=2, device="cpu")
     per_frame = smoke.added(smoke.prepass_design(1, 20, 4), smoke.ENERF_FRAME)
-    assert per_frame == dict(smoke.NO_LAUNCHES, warp_variance=12, img_sample=1, enerf_head=1)
+    assert per_frame == dict(smoke.NO_LAUNCHES, warp_variance=12, img_sample=1, enerf_head=1,
+                             conv_dgrad=30)
     assert launch_counts() == smoke.scaled(per_frame, 2)
     assert len(out["per_frame"]) == 2 and all(len(f["k_best"]) == 4 for f in out["per_frame"])
 
@@ -349,8 +354,9 @@ def test_train_entry_design_and_resume(smoke, tmp_path, counted):
     assert tuple(batch["all_src_inps"].shape[:2]) == (1, 3)  # 3 views: one combination
     design = smoke.train_entry_design(model, batch, 2, steps=1)
     assert design["step"] == dict(smoke.NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2,
-                                  img_sample=5, img_sample_bwd=3, conv_wgrad=32)
-    assert design["prepass"] == dict(smoke.NO_LAUNCHES, warp_variance=2 * 14 + 2 * 5 * 2)
+                                  img_sample=5, img_sample_bwd=3, conv_wgrad=32, conv_dgrad=21)
+    assert design["prepass"] == dict(smoke.NO_LAUNCHES, warp_variance=2 * 14 + 2 * 5 * 2,
+                                     conv_dgrad=5 * 14 + 5 * 5 * 2)
     smoke.check_train_entry_run("first", first, design, 0, steps=1)
     smoke.check_train_entry_run("resumed", resumed, design, 1, steps=1)
     assert (first["final_step"], resumed["final_step"]) == (1, 2)
@@ -460,7 +466,7 @@ def test_mvsnerf_train_entry_design_and_resume(smoke, tmp_path, counted):
                                                "2"), 0, "cpu")
     design = smoke.mvs_entry_design(cfg, steps=1)
     assert design["first"] == dict(smoke.NO_LAUNCHES, img_sample=3, tri_sample=2,
-                                   renderer_mlp=2, conv_wgrad=19)
+                                   renderer_mlp=2, conv_wgrad=19, conv_dgrad=10 + 2 * 3)
     smoke.check_train_entry_run("first", first, design, 0, steps=1)
     smoke.check_train_entry_run("resumed", resumed, design, 1, steps=1)
     assert (first["final_step"], resumed["final_step"]) == (1, 2)
@@ -572,9 +578,12 @@ def test_composite_frame_and_step_launch_designs(smoke, counted):
     assert np.isfinite(loss) and grads.keys() == state.keys() - {
         k for k in state if "running" in k or "num_batches" in k}
     assert smoke.routed_convs(step_model) == 72  # 76 with the foreground's unread heads
+    # 12 transposed convolutions; the input gradients of the 6 U-Nets' 7
+    # others, less the foreground's 4 unread heads (no backward)
+    assert smoke.routed_dgrads(step_model) == 12 + 6 * 7 - 4
     assert launch_counts() == smoke.added({"warp_variance": 6, "warp_variance_bwd": 6,
                                            "img_sample": 6, "img_sample_bwd": 6,
-                                           "conv_wgrad": 72})
+                                           "conv_wgrad": 72, "conv_dgrad": 50})
 
 
 def test_staged_mvsnerf_phase_rehearses_on_cpu(smoke, tmp_path, counted):
@@ -594,7 +603,8 @@ def test_staged_mvsnerf_phase_rehearses_on_cpu(smoke, tmp_path, counted):
                    "[64, 96]", "eval_lpips", "false", *opts)
     smoke.save_seeded_weights(cfg)
     _, launches = _in_repo(smoke.staged_entry, cfg, "cpu")
-    assert launches == dict(smoke.NO_LAUNCHES, tri_sample=4, img_sample=4, renderer_mlp=4)
+    assert launches == dict(smoke.NO_LAUNCHES, tri_sample=4, img_sample=4, renderer_mlp=4,
+                            conv_dgrad=2 * 3)
     model = runner.make_network(cfg, "cpu")
     runner._init_or_load(cfg, model)
     vs = runner.load_view_selection(cfg)

@@ -539,6 +539,9 @@ def test_run_train_step_on_the_card(dev, tmp_path, monkeypatch):
             assert counts["warp_variance"] == 2 * 14 + 2 * 5 * 2 + 2
             assert [counts[k] for k in ("warp_variance_bwd", "img_sample",
                                         "img_sample_bwd", "conv_wgrad")] == [2, 2, 2, 32]
+            # the pre-pass's 24 chunks, 5 transposed convolutions each; the
+            # step's 5 and its 16 input gradients
+            assert counts["conv_dgrad"] == 5 * (14 + 2 * 5) + 21
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
 
 
@@ -579,6 +582,54 @@ def test_conv_wgrad_kernel(dev, case):
         _close_scaled(got, want, "dW")
         assert torch.equal(got, conv_weight_grad(xx, gg, w_shape, *args))
     assert launch_counts()["conv_wgrad"] == 4
+
+
+@pytest.mark.parametrize("case", [
+    # (input, weight, stride, transposed): the networks' 3D families
+    ((2, 16, 6, 30, 46), (8, 16, 3, 3, 3), 1, False),
+    ((2, 8, 6, 30, 45), (16, 8, 3, 3, 3), 2, False),
+    ((2, 8, 7, 29, 46), (16, 8, 3, 3, 3), 2, False),
+    ((2, 8, 6, 30, 46), (1, 8, 3, 3, 3), 1, False),
+    ((2, 41, 5, 21, 29), (8, 41, 3, 3, 3), 1, False),
+    ((2, 64, 2, 8, 12), (64, 64, 3, 3, 3), 1, False),
+    ((2, 64, 2, 8, 13), (64, 32, 3, 3, 3), 2, True),
+    ((2, 16, 3, 15, 23), (16, 8, 3, 3, 3), 2, True),
+])
+def test_conv_dgrad_kernel(dev, case):
+    """The data-gradient kernel against its plain version (1e-4 of the
+    largest magnitude: the sums run in another order) and cuDNN, on
+    channels-last and contiguous output gradients: a convolution's input
+    gradient, or a transposed convolution's forward; two launches equal bit
+    for bit; one launch counted per call."""
+    from boostmvsnerfs_torch.ops.cuda.conv_dgrad import (
+        conv_data_grad,
+        conv_dgrad_plain,
+        conv_transpose_forward,
+    )
+
+    F = torch.nn.functional
+    x_shape, w_shape, s, transposed = case
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(x_shape, generator=gen, device=dev)
+    w = torch.randn(w_shape, generator=gen, device=dev)
+    stride, padding = (s,) * 3, (1,) * 3
+    if transposed:
+        want = F.conv_transpose3d(x, w, stride=s, padding=1, output_padding=s - 1)
+        for xx in (x, x.contiguous(memory_format=torch.channels_last_3d)):
+            got = conv_transpose_forward(xx, w, None, stride, padding, (s - 1,) * 3)
+            _close_scaled(got, want, "y")
+            _close_scaled(got, conv_dgrad_plain(xx, w, want.shape, stride, padding), "y plain")
+            assert torch.equal(got, conv_transpose_forward(xx, w, None, stride, padding,
+                                                           (s - 1,) * 3))
+    else:
+        g = torch.randn(F.conv3d(x, w, stride=s, padding=1).shape, generator=gen, device=dev)
+        want = conv_dgrad_plain(g, w, x_shape, stride, padding)
+        _close_scaled(torch.nn.grad.conv3d_input(x_shape, w, g, stride, padding), want, "cudnn")
+        for gg in (g, g.contiguous(memory_format=torch.channels_last_3d)):
+            got = conv_data_grad(gg, w, x_shape, stride, padding)
+            _close_scaled(got, want, "dX")
+            assert torch.equal(got, conv_data_grad(gg, w, x_shape, stride, padding))
+    assert launch_counts()["conv_dgrad"] == 4
 
 
 def _mvs_batch(seed=0, rays=None):
@@ -642,7 +693,8 @@ def test_mvsnerf_train_step_on_the_card(dev):
         reset_launch_counts()
         losses[d] = float(make_train_step(model, cas=cas)(state, batch)["loss"])
     assert {k: v for k, v in launch_counts().items() if v} == {"img_sample": 1,
-                                                                "conv_wgrad": 19}
+                                                                "conv_wgrad": 19,
+                                                                "conv_dgrad": 10}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
     model.eval()
     with pytest.raises(RuntimeError, match="not differentiable"):

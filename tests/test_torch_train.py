@@ -561,7 +561,7 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(monkeypatch):
             assert min(smoke.TRAIN_KERNELS["img_sample"][3](*fwd)) > 0
     assert smoke.expected_train_launches(model, batch) == dict(
         smoke.NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2, img_sample=33,
-        img_sample_bwd=17, conv_wgrad=32)
+        img_sample_bwd=17, conv_wgrad=32, conv_dgrad=21)
     from boostmvsnerfs_torch.models import blocks
 
     monkeypatch.setattr(blocks, "WGRAD_DEVICES", ("cuda", "cpu"))
