@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from boostmvsnerfs_torch.ops.cuda import conv_dgrad, conv_wgrad
+
 
 # devices whose float32 training convolutions take the weight-gradient kernel
 WGRAD_DEVICES = ("cuda",)
@@ -35,48 +37,44 @@ def _conv(conv: nn.Module, x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
     return conv._conv_forward(x, w, b)
 
 
-class ConvWgrad(torch.autograd.Function):
+class KernelConv(torch.autograd.Function):
     """A convolution module's forward and backward on the port's
-    convolution kernels where ``routes_wgrad`` / ``routes_dgrad`` take them
-    (their plain versions on the CPU): the weight's gradient from
-    ``ops/cuda/conv_wgrad``; a transposed convolution's forward and another
+    convolution kernels (their plain versions on the CPU): the weight's
+    gradient from ``ops/cuda/conv_wgrad``; with ``dgrad`` (``conv_at``'s
+    ``routes_dgrad``) a transposed convolution's forward and another
     convolution's input gradient from ``ops/cuda/conv_dgrad``; else the
     module's own forward and PyTorch's ``convolution_backward`` (input
     only). The bias's gradient is the output gradient's sum."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, conv):
-        from boostmvsnerfs_torch.ops.cuda.conv_dgrad import conv_transpose_forward
-
+    def forward(ctx, x, weight, bias, conv, dgrad):
         ctx.save_for_backward(x, weight)
         ctx.conv = conv
-        ctx.dgrad = routes_dgrad(conv, x)
-        if ctx.dgrad and conv.transposed:
-            return conv_transpose_forward(x, weight, bias, conv.stride, conv.padding,
-                                          conv.output_padding)
+        ctx.dgrad = dgrad
+        if dgrad and conv.transposed:
+            return conv_dgrad.conv_transpose_forward(x, weight, bias, conv.stride,
+                                                     conv.padding, conv.output_padding)
         return _conv(conv, x, weight, bias)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        from boostmvsnerfs_torch.ops.cuda.conv_dgrad import conv_data_grad
-        from boostmvsnerfs_torch.ops.cuda.conv_wgrad import conv_weight_grad
-
         x, weight = ctx.saved_tensors
         c = ctx.conv
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             if ctx.dgrad and not c.transposed:
-                dx = conv_data_grad(g, weight, x.shape, c.stride, c.padding)
+                dx = conv_dgrad.conv_data_grad(g, weight, x.shape, c.stride, c.padding)
             else:
                 dx = torch.ops.aten.convolution_backward(
                     g, x, weight, None, c.stride, c.padding, c.dilation, c.transposed,
                     c.output_padding, c.groups, [True, False, False])[0]
         if ctx.needs_input_grad[1]:
-            dw = conv_weight_grad(x, g, weight.shape, c.stride, c.padding, c.transposed)
+            dw = conv_wgrad.conv_weight_grad(x, g, weight.shape, c.stride, c.padding,
+                                            c.transposed)
         if ctx.needs_input_grad[2]:
             db = g.sum([0, *range(2, g.dim())])
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def _kernel_form(conv: nn.Module, x: torch.Tensor, dtype) -> bool:
@@ -89,7 +87,7 @@ def _kernel_form(conv: nn.Module, x: torch.Tensor, dtype) -> bool:
 
 
 def routes_wgrad(conv: nn.Module, x: torch.Tensor, dtype=None) -> bool:
-    """Whether ``conv_at`` takes ``ConvWgrad`` for the weight's gradient: a
+    """Whether ``conv_at`` takes ``KernelConv`` for the weight's gradient: a
     float32 convolution whose weight is being trained, on a device of
     ``WGRAD_DEVICES``, of a form the kernel computes (no groups or
     dilation, zero padding)."""
@@ -100,24 +98,26 @@ def routes_wgrad(conv: nn.Module, x: torch.Tensor, dtype=None) -> bool:
 def routes_dgrad(conv: nn.Module, x: torch.Tensor, dtype=None) -> bool:
     """Whether the data-gradient form of ``conv`` on ``x`` takes the
     ``conv_dgrad`` kernel (a transposed convolution's forward; another's
-    input gradient, inside ``ConvWgrad``): a float32 3D convolution of
-    kernel 3, padding 1 and stride 1 or 2 (no groups or dilation), on a
+    input gradient, inside ``KernelConv``): a float32 3D convolution of the
+    kernel's shape (``conv_dgrad.fits``; no groups or dilation), on a
     device of ``DGRAD_DEVICES``."""
     return (x.device.type in DGRAD_DEVICES and _kernel_form(conv, x, dtype)
             and isinstance(conv, (nn.Conv3d, nn.ConvTranspose3d))
-            and tuple(conv.kernel_size) == (3, 3, 3) and tuple(conv.padding) == (1, 1, 1)
-            and set(conv.stride) <= {1, 2})
+            and conv_dgrad.fits(conv.kernel_size, conv.stride, conv.padding))
 
 
 def conv_at(conv: nn.Module, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """``conv(x)`` (an ``nn.Conv2d`` / ``Conv3d`` / ``ConvTranspose3d``)
     with its input, weight and bias cast to ``dtype`` (flax ``nn.Conv(dtype=
-    ...)``); ``None`` runs it as it is. A float32 convolution in training
-    (``routes_wgrad``) and a float32 transposed one that ``routes_dgrad``
-    takes run as ``ConvWgrad``: the same function, on the kernels."""
-    if routes_wgrad(conv, x, dtype) or (isinstance(conv, nn.ConvTranspose3d)
-                                        and routes_dgrad(conv, x, dtype)):
-        return ConvWgrad.apply(x, conv.weight, conv.bias, conv)
+    ...)``); ``None`` runs it as it is. Both routes are decided here: a
+    float32 convolution in training (``routes_wgrad``) and a float32
+    transposed one that ``routes_dgrad`` takes run as ``KernelConv``, with
+    the data-gradient route handed to it: the same function, on the
+    kernels."""
+    wgrad = routes_wgrad(conv, x, dtype)
+    dgrad = (wgrad or conv.transposed) and routes_dgrad(conv, x, dtype)
+    if wgrad or dgrad:
+        return KernelConv.apply(x, conv.weight, conv.bias, conv, dgrad)
     if dtype is None:
         return conv(x)
     w = conv.weight.to(dtype)

@@ -38,6 +38,14 @@ def conv_dgrad_plain(g: torch.Tensor, weight: torch.Tensor, x_shape, stride,
     return out[(slice(None), slice(None), *(slice(p, p + i) for p, i in zip(padding, S)))]
 
 
+def fits(kernel_size, stride, padding) -> bool:
+    """The kernel's shape rule: kernel 3, padding 1 and stride 1 or 2 in
+    each of the three dimensions (``models/blocks.routes_dgrad`` routes by
+    it, ``conv_data_grad`` raises outside it)."""
+    return (tuple(kernel_size) == (3, 3, 3) and tuple(padding) == (1, 1, 1)
+            and set(stride) <= {1, 2})
+
+
 def _check(g, weight, x_shape, stride, padding) -> None:
     if g.dim() != 5 or weight.dim() != 5 or len(x_shape) != 5:
         raise ValueError(f"{NAME}: g {tuple(g.shape)}, weight {tuple(weight.shape)} and input "
@@ -46,7 +54,7 @@ def _check(g, weight, x_shape, stride, padding) -> None:
     if g.shape[1] != M or x_shape[1] != C or g.shape[0] != x_shape[0]:
         raise ValueError(f"{NAME}: g {tuple(g.shape)} and input {tuple(x_shape)} do not fit "
                          f"weight {tuple(weight.shape)}")
-    if tuple(ks) != (3, 3, 3) or tuple(padding) != (1, 1, 1) or not set(stride) <= {1, 2}:
+    if not fits(ks, stride, padding):
         raise ValueError(f"{NAME}: kernel {tuple(ks)}, padding {tuple(padding)} and stride "
                          f"{tuple(stride)}: the kernel takes kernel 3, padding 1, stride 1 or 2")
     for o, i, s in zip(g.shape[2:], x_shape[2:], stride):

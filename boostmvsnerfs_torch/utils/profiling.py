@@ -30,14 +30,18 @@ profile's first kernels as lying outside its window (kineto's
 kernel of a 5-kernel profile by the end of a long run, and up to 8 of a
 burst of spin kernels at a profile's start. So a profile on the card starts
 with ``PRIMER_KERNELS`` spin kernels and ``PROFILE_LEAD_S`` of idle time
-before the region it traces (``primed_profile``), which kept every record of
-the region in every profile taken so far.
+before the region it traces (``primed_profile``). Late in a long run the
+primer does not always keep them: ``complete_profile`` raises
+``LostRecords`` when a kernel launched in the region has no device record,
+and ``profiled`` takes such a profile again, up to ``PROFILE_TRIES`` in all,
+so every time read from its profile comes from one that kept them all.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import json
 import os
 import threading
 import time
@@ -49,6 +53,7 @@ from torch.profiler import record_function
 PRIMER_KERNELS = 32
 PROFILE_LEAD_S = 0.25
 PROFILE_TAIL_S = 0.05
+PROFILE_TRIES = 3
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 
@@ -227,3 +232,56 @@ def device_trace(logdir: str | None):
     with primed_profile() as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{time.time_ns()}.json"))
+
+
+class LostRecords(AssertionError):
+    """torch.profiler kept no device record of a kernel launched in a
+    ``complete_profile`` block (ROADMAP fault 12)."""
+
+
+def lost_launches(prof) -> int:
+    """Kernel launches of a ``primed_profile`` block (those after the
+    primer's) whose kernel has no device record: launches and kernels pair
+    by their correlation ids."""
+    events = prof.profiler.kineto_results.events()
+    recorded = {e.correlation_id() for e in events
+                if e.device_type() == torch.autograd.DeviceType.CUDA}
+    launches = sorted(e.correlation_id() for e in events
+                      if e.device_type() == torch.autograd.DeviceType.CPU
+                      and e.name().startswith(("cudaLaunch", "cuLaunch")))
+    return sum(c not in recorded for c in launches[PRIMER_KERNELS:])
+
+
+@contextlib.contextmanager
+def complete_profile():
+    """``primed_profile`` on the card over the block; raises ``LostRecords``
+    when a kernel launched in the block has no device record."""
+    with primed_profile(cuda=True) as prof:
+        yield prof
+    lost = lost_launches(prof)
+    if lost:
+        raise LostRecords(f"torch.profiler lost the device records of {lost} kernel launches")
+
+
+def profiled(block) -> tuple:
+    """``block()`` under ``complete_profile``, taken again when torch.profiler
+    loses a record of it (each loss printed as a ``profile_retaken`` JSON
+    line; up to PROFILE_TRIES profiles, then ``LostRecords``): (the complete
+    profile, the last run's value)."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        try:
+            with complete_profile() as prof:
+                value = block()
+            return prof, value
+        except LostRecords as e:
+            print(json.dumps({"phase": "profile_retaken", "attempt": attempt, "reason": str(e)}),
+                  flush=True)
+            if attempt == PROFILE_TRIES:
+                raise
+
+
+def block_kernels(prof) -> list:
+    """The kernels of a ``primed_profile``'s block (the primer's spin
+    kernels left out), from ``key_averages``."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]

@@ -23,7 +23,7 @@ phase. Three main paths are driven, each with its kernels checked first:
    work functions count what the inputs need, and print the data's share:
    the warps' live taps, the samplers' touched pixels and voxels); and
    conv_dgrad at each transposed convolution of a frame (5 BoostENeRF, 3
-   BoostMVSNeRF), as conv_wgrad is checked in training (item 13). The
+   BoostMVSNeRF), as conv_wgrad is checked in training (item 12). The
    bf16 kernels (the eval warp, the volume sampler, renderer MLP, ENeRF
    head) are held against their plain versions at bf16, and their error against the f32 plain version must
    be bf16 rounding and nothing else; the volume sampler's f32 instance
@@ -33,15 +33,12 @@ phase. Three main paths are driven, each with its kernels checked first:
 5. main    - the first main path, bench.py's workload: BoostENeRF K=4 of
    C(6,3), 480x736, planes (64, 8), only level 1 rendered, seeded random
    weights, f32 with TF32 off. Three batches checked, launches per frame
-   counted, then frame times over back-to-back frames, and the frame's
-   bound and MFU (``utils/roofline.py``; main_mvsnerf too).
-6. profile - where a main-path frame's device time goes (torch.profiler):
-   device-busy share, cuDNN convolutions, the ported kernels, top kernels.
-7. kernels, frame_mvsnerf, main_mvsnerf, profile_mvsnerf - the same for
+   counted, the peak memory.
+6. kernels, frame_mvsnerf, main_mvsnerf - the same for
    the second main path, scripts/bench_mvsnerf.py's workload: BoostMVSNeRF
    K=4 of C(6,3) (combinations 0, 5, 9, 14), 224x352, 32 samples per ray,
    the published widths (pad 24, 8-ch volume, MLP 6x128), every pixel.
-8. evaluate, evaluate_mvsnerf - the eval entry from YAML, as a user runs
+7. evaluate, evaluate_mvsnerf - the eval entry from YAML, as a user runs
    it (``boostmvsnerfs_torch.runner.run_evaluate``, what ``python -m
    boostmvsnerfs_torch.run --type evaluate`` calls), on scenes written to
    a temporary workspace with seeded random weights saved as the port's
@@ -55,8 +52,8 @@ phase. Three main paths are driven, each with its kernels checked first:
    differently. The view-selection pre-pass, every test frame and the
    metrics; launches of the whole run against the design's count; each
    kernel against its plain version on the entry's first test batch; the
-   pre-pass per target view (and its launches, per chunk of K
-   combinations), LPIPS per image and the peak memory; then the same
+   pre-pass's launches per target view (per chunk of K combinations) and
+   the peak memory; then the same
    scene at 128x192 on the card against the CPU port: coverage masks
    within limits that a fault planted in the CPU port must fail, picks
    equal on at least the first two greedy steps of every view, rendered
@@ -66,14 +63,14 @@ phase. Three main paths are driven, each with its kernels checked first:
    MVSNeRF family's Free recipe
    (configs/exps/evaluate/mvsnerf_ours/free_eval.yaml, BoostMVSNeRF v0,
    K=4 of 20, 32 samples) at 480x736 on a Free scene of 16 images, in 15
-   row blocks: the eval entry (launches against the design, psnr, frame
-   times, peak memory); under deterministic cuDNN the frame through
-   ``StagedMVSNeRF`` against the model whole (equal; frame time and peak
-   memory of each); #6, #3 and #8 at one block's shapes; the frame's bound
-   and MFU; the v1 head's staged frame against its monolithic frame at
+   row blocks: the eval entry (launches against the design, psnr, its
+   frame times, peak memory); under deterministic cuDNN the frame through
+   ``StagedMVSNeRF`` against the model whole (equal; the peak memory of
+   each); #6, #3 and #8 at one block's shapes; the v1 head's staged frame
+   against its monolithic frame at
    224x352, and its staged frame at 480x736 with its peak memory (the
    monolithic one would outgrow the card).
-9. visualize, path - the novel-view entries over
+8. visualize, path - the novel-view entries over
    configs/exps/evaluate/enerf_ours/free_eval.yaml on the same Free scene
    with seeded weights as ``latest.pt``: ``python -m boostmvsnerfs_torch.run
    --type visualize`` (the pre-pass, every test view, the videos written
@@ -98,7 +95,7 @@ phase. Three main paths are driven, each with its kernels checked first:
    reruns of that frame under cuDNN's default and deterministic algorithms;
    ``render_fn`` against ``render_novel_path``'s frames; the middle pose at
    128x192 on the card against the CPU port.
-10. train_entry - the training entry from YAML (``runner.run_train``, what
+9. train_entry - the training entry from YAML (``runner.run_train``, what
    ``python -m boostmvsnerfs_torch.train`` calls) over
    configs/exps/finetune/enerf_ours/free/base.yaml with seeded weights as
    the ``pretrain: enerf`` checkpoint, shortened only (one epoch of 2
@@ -106,7 +103,7 @@ phase. Three main paths are driven, each with its kernels checked first:
    of 4 at 480x736, BoostENeRF K=4, both levels on full images, lr 5e-5,
    in TRAIN_ENTRY_RAY_BLOCKS ray blocks (the unblocked step of 4 images
    does not fit the card). The pre-pass over the train and test views,
-   the steps (times, launches per step against the design, stats), the
+   the steps (launches per step against the design, stats), the
    validation record, the checkpoint; then the run resumed with
    ``train.epoch 2``: it begins at epoch 1 and takes 2 more steps. The
    kernels on the first batch; one validation frame with the
@@ -114,18 +111,18 @@ phase. Three main paths are driven, each with its kernels checked first:
    at 128x192 for 2 steps on the card against the CPU port (the first
    step's loss and the parameters' change, with a skipped Adam step as
    the control).
-11. mvsnerf_heads - BoostMVSNeRF at the second main path's workload with
+10. mvsnerf_heads - BoostMVSNeRF at the second main path's workload with
    each of its other renderer heads (net_type v1, v2, color_fusion, whose
    MLPs run plainly on every device): the volume and colour lookups
    against their plain versions, then per head the reduced frame on the
    card against the CPU port (rgb PSNR over 45 dB), launches per frame
-   (#6 and #3 once, the MLP kernel never), frame times and peak memory.
-12. train_entry_mvsnerf, train_step_check_mvsnerf, profile_train_mvsnerf -
-   MVSNeRF training from YAML: ``runner.run_train`` over
+   (#6 and #3 once, the MLP kernel never) and peak memory.
+11. train_entry_mvsnerf, train_step_check_mvsnerf - MVSNeRF training from
+   YAML: ``runner.run_train`` over
    configs/exps/finetune/mvsnerf_ours/free/base.yaml (BoostMVSNeRF, batch
    4 of 1024 random rays at 480x736, K=4, 8 samples, lr 5e-5) with seeded
    weights as the ``pretrain: mvsnerf`` checkpoint, shortened only as in
-   item 10 and unblocked, then resumed; launches per step (the colour
+   item 9 and unblocked, then resumed; launches per step (the colour
    lookup only: the volume lookup and the MLP run plainly under autograd)
    and per validation frame (#6, #3, #8 per row block: 15 at 480x736, 16 at
    512x512), the pre-pass (geometry, no
@@ -134,9 +131,7 @@ phase. Three main paths are driven, each with its kernels checked first:
    512x512) for 2 steps and a validation. One BoostMVSNeRF step at 128x192
    on the card against the float64 CPU port, with faults planted in the
    CPU port outside the bars, and ``run_train`` at 128x192 card vs CPU.
-   One profiled step of the recipe, and its plain volume lookup and MLP
-   alone, forward and backward.
-13. kernels_train, train_step_check, train, profile_train - the third main
+12. kernels_train, train_step_check, train - the third main
    path, the BoostENeRF fine-tuning step of scripts/bench_train.py
    (--modes fast --ray-blocks 16): K=4 of C(6,3), 480x736, forward rig,
    both levels rendered on full images, Adam (lr 5e-5, ep_iter 500) after
@@ -148,10 +143,10 @@ phase. Three main paths are driven, each with its kernels checked first:
    seeded data: against its plain version, a second launch equal bit for
    bit, beside cuDNN's torch.nn.grad time and the f32 bound); one plain and one blocked step at 128x192 on the
    card against the CPU port, with faults planted in the CPU port to show
-   the bars catch them; launches per step, step times over three batches;
-   one profiled step.
-14. kernels (path composite), composite, profile_composite,
-   composite_train, human - the ENeRF variants. ``CompositeENeRF`` from
+   the bars catch them; launches per step, the loss, every parameter
+   moved, the peak memory.
+13. kernels (path composite), composite, composite_train, human - the
+   ENeRF variants. ``CompositeENeRF`` from
    YAML (configs/exps/evaluate/enerf/base_eval.yaml, the eval cascade:
    planes (64, 8), samples (8, 2), level 1 rendered; ``network_module``
    enerf_composite, 2 foreground layers of 224x320 at origins (96, 64) and
@@ -159,17 +154,17 @@ phase. Three main paths are driven, each with its kernels checked first:
    the head's image-feature-only instance (C = 11 and 35) on the first
    layer's crop against their plain versions; the reduced frame (128x192,
    64x64 crops) on the card against the CPU port (rgb over 45 dB); launches
-   per frame (#1 6, #3 3, #5 3, 2 of them without voxel features), frame
-   times, peak memory; one profiled frame. One train step of the 2-layer
+   per frame (#1 6, #3 3, #5 3, 2 of them without voxel features), peak
+   memory. One train step of the 2-layer
    composite at 128x192 on the card against the float64 CPU port (the
    BoostENeRF gradient bars, float32's spread and two planted faults on
    both sides). ``HumanENeRF`` through the eval entry
    (configs/exps/evaluate/enerf/free_eval.yaml) and the training entry
-   (configs/exps/finetune/enerf/free/base.yaml, shortened as item 10, on
+   (configs/exps/finetune/enerf/free/base.yaml, shortened as item 9, on
    random rays drawn on the mask with two 32x32 patches at level 1) on
    the Free scene: launches against the design, steps, peak memory;
    ``run_train`` at 128x192 on the card against the CPU port.
-15. distributed_train, distributed_eval - multi-GPU through
+14. distributed_train, distributed_eval - multi-GPU through
    torch.distributed: ranks launched by ``python -m torch.distributed.run``
    (each launch killed, with its ranks, past DIST_TIMEOUT_S), on a Free scene
    of 16 images at 480x736. distributed_train: the fine-tuning recipe of item
@@ -190,7 +185,7 @@ phase. Three main paths are driven, each with its kernels checked first:
    deterministic cuDNN, within DIST_FRAME_TOL of the unsharded frame (its
    target moved off the source cameras); then ``python -m
    boostmvsnerfs_torch.run --type evaluate --distributed`` with 2 gloo
-   ranks on the eval scene of item 8: rank 0's summary covers both test
+   ranks on the eval scene of item 7: rank 0's summary covers both test
    views and equals one process's. The kernels at a rank's shapes.
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and a last status line. Any failed check raises,
@@ -218,6 +213,8 @@ T_IMPORT = time.perf_counter()  # the script's clock starts before torch loads
 import numpy as np
 import torch
 
+from boostmvsnerfs_torch.ops.cuda import KERNELS
+from boostmvsnerfs_torch.utils.profiling import block_kernels, complete_profile, profiled
 from boostmvsnerfs_torch.utils.roofline import (
     bound,
     conv_wgrad_work,
@@ -257,9 +254,7 @@ MVS_FRAME = {"tri_sample": 1, "img_sample": 1, "renderer_mlp": 1}
 MVS_ROW_CHUNK = 32  # StagedMVSNeRF's raster rows a block (JAX's row_chunk)
 # view counts of the head kernel checked beside the main path's 3
 HEAD_VIEWS = (2, 4, 8)
-NO_LAUNCHES = {"warp_variance": 0, "img_sample": 0, "enerf_head": 0, "tri_sample": 0,
-               "renderer_mlp": 0, "warp_variance_bwd": 0, "img_sample_bwd": 0, "conv_wgrad": 0,
-               "conv_dgrad": 0}
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # an MVSNeRF frame's launches once a frame, outside its row blocks: the
 # U-Net's three transposed convolutions (conv_dgrad), in ``frame_volume``
 MVS_VOLUME = {"conv_dgrad": 3}
@@ -281,7 +276,6 @@ MASK_PIXEL_SHARE_TOL = 5e-4
 # greedy steps that the card-vs-CPU check must compare on every target view
 EVAL_STEPS_COMPARED = 2
 TRAIN_HW = (480, 736)
-TRAIN_RAYS = 120 * 184 + 480 * 736  # both levels' full images
 TRAIN_CFG = {"lr": 5e-5, "optim": "adam", "eps": 1e-8}
 TRAIN_EP_ITER = 500
 RAY_BLOCKS = 16
@@ -310,82 +304,6 @@ def median_ms(fn, iters: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-class LostRecords(AssertionError):
-    """torch.profiler kept no device record of a kernel launched in a
-    ``complete_profile`` block (ROADMAP fault 12)."""
-
-
-@contextlib.contextmanager
-def complete_profile():
-    """torch.profiler over the block, after the primer of
-    ``boostmvsnerfs_torch.utils.profiling.primed_profile`` (spin kernels and
-    idle time before the block: torch.profiler on the H100 machines drops a
-    profile's first device records, ROADMAP fault 12); raises
-    ``LostRecords`` when a kernel launched in the block has no device
-    record."""
-    from boostmvsnerfs_torch.utils.profiling import primed_profile
-
-    with primed_profile(cuda=True) as prof:
-        yield prof
-    lost = lost_launches(prof)
-    if lost:
-        raise LostRecords(f"torch.profiler lost the device records of {lost} kernel launches")
-
-
-# A profile that lost a record (fault 12: late in a long run the primer
-# does not always keep them) is taken again, up to this many profiles in
-# all: every time reported still comes from a profile that kept them all.
-PROFILE_TRIES = 3
-
-
-def profiled(block) -> tuple:
-    """``block()`` under ``complete_profile``, taken again when torch.profiler
-    loses a record of it (each loss noted in a ``profile_retaken`` line; up
-    to PROFILE_TRIES profiles): (the complete profile, the last run's
-    value)."""
-    for attempt in range(1, PROFILE_TRIES + 1):
-        try:
-            with complete_profile() as prof:
-                value = block()
-            return prof, value
-        except LostRecords as e:
-            emit(phase="profile_retaken", attempt=attempt, reason=str(e))
-            if attempt == PROFILE_TRIES:
-                raise
-
-
-def __getattr__(name: str):
-    """``PRIMER_KERNELS``, the primer's launch count, from the package
-    (scripts/torch_profile_probe.py reads it here)."""
-    if name == "PRIMER_KERNELS":
-        from boostmvsnerfs_torch.utils.profiling import PRIMER_KERNELS
-
-        return PRIMER_KERNELS
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def lost_launches(prof) -> int:
-    """Kernel launches of a ``complete_profile`` block (those after the
-    primer's) whose kernel has no device record: launches and kernels pair
-    by their correlation ids."""
-    from boostmvsnerfs_torch.utils.profiling import PRIMER_KERNELS
-
-    events = prof.profiler.kineto_results.events()
-    recorded = {e.correlation_id() for e in events
-                if e.device_type() == torch.autograd.DeviceType.CUDA}
-    launches = sorted(e.correlation_id() for e in events
-                      if e.device_type() == torch.autograd.DeviceType.CPU
-                      and e.name().startswith(("cudaLaunch", "cuLaunch")))
-    return sum(c not in recorded for c in launches[PRIMER_KERNELS:])
-
-
-def block_kernels(prof) -> list:
-    """The kernels of a ``complete_profile``'s block (the primer's spin
-    kernels left out), from ``key_averages``."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
 
 
 def device_ms(fn, iters: int = 5) -> float:
@@ -706,14 +624,11 @@ def phase_frame_mvsnerf(state: dict, net_type: str = "v0", phase: str = "frame_m
 
 
 def phase_main(model, batches, phase: str, expect: dict, rgb_key: str, n_rays: int,
-               rgb_max: float = 1.0, costs=None, frames: int = 10, **describe) -> dict:
+               rgb_max: float = 1.0, **describe) -> dict:
     """Launches per frame (counts reset just before, read just after one
-    frame), three batches checked (rgb finite, in [0, ``rgb_max``]), then
-    frame times over ``frames`` back-to-back frames; with ``costs`` (the
-    frame's ``utils/roofline`` total) its bound and MFU at the median
-    frame."""
+    frame), three batches checked (rgb finite, in [0, ``rgb_max``]) and the
+    peak memory."""
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
-    from boostmvsnerfs_torch.utils import roofline
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -731,71 +646,8 @@ def phase_main(model, batches, phase: str, expect: dict, rgb_key: str, n_rays: i
         require(float(rgb.min()) >= 0.0 and float(rgb.max()) <= rgb_max,
                 f"rgb outside [0, {rgb_max}] (seed {seed})")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
-    for _ in range(2):
-        model(batches[0])
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(frames)]
-    t0 = time.perf_counter()
-    for start, end in events:  # back to back: no host sync between frames
-        start.record()
-        model(batches[0])
-        end.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / frames
-    frame_ms = [s.elapsed_time(e) for s, e in events]
-    med = statistics.median(frame_ms)
-    bounds = {} if costs is None else {"frame_bound": roofline.frame_speed_of_light(
-        costs, med / 1e3, roofline.peaks())}
-    emit(phase=phase, **describe, launches_per_frame=launches, frame_ms_median=med,
-         frame_ms_min=min(frame_ms), frame_ms_max=max(frame_ms),
-         host_wall_ms_per_frame=wall * 1e3, rays_per_s=n_rays / (med / 1e3),
-         peak_mem_gib=peak_gib, frames=frames, **bounds)
+    emit(phase=phase, **describe, launches_per_frame=launches, peak_mem_gib=peak_gib)
     return launches
-
-
-def phase_profile(run, phase: str, kernels, frames: int = 2, unit: str = "frame") -> None:
-    """Where the device time of ``run()`` (one frame or train step) goes,
-    from torch.profiler: per run, the device-busy time (sum of kernel times;
-    one stream, so they do not overlap) against the run's CUDA-event time,
-    the busy time under cuDNN convolutions and batch norm (forward and
-    backward), under each ported kernel and in the rest (the glue), the
-    top kernels by time and, in a train step, autograd's top backward
-    functions by the device time of their kernels."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-    def block():
-        start.record()
-        for _ in range(frames):
-            run()
-        end.record()
-
-    prof, _ = profiled(block)
-    events = prof.key_averages()
-    kernel_events = block_kernels(prof)
-    per_run = lambda us: us / 1e3 / frames  # noqa: E731
-    busy = per_run(sum(e.device_time_total for e in kernel_events))
-    wall = start.elapsed_time(end) / frames
-    by_op = {e.key: per_run(e.device_time_total) for e in events}
-    ported = {name: per_run(sum(e.device_time_total for e in kernel_events
-                                if f"{name}_kernel" in e.key))
-              for name in kernels}
-    parts = {"convolution_ms": by_op.get("aten::convolution", 0.0),
-             "convolution_backward_ms": by_op.get("aten::convolution_backward", 0.0),
-             "batch_norm_ms": by_op.get("aten::batch_norm", 0.0),
-             "batch_norm_backward_ms": sum(v for k, v in by_op.items()
-                                           if k.endswith("batch_norm_backward"))}
-    top = sorted(kernel_events, key=lambda e: -e.device_time_total)[:12]
-    backward = sorted((e for e in events if e.key.startswith("autograd::engine::evaluate_function")),
-                      key=lambda e: -e.device_time_total)[:8]
-    extra = {"backward_functions_ms": {e.key.split(": ", 1)[-1]: per_run(e.device_time_total)
-                                       for e in backward}} if backward else {}
-    emit(phase=phase, **{f"{unit}s": frames, f"{unit}_ms": wall}, device_busy_ms=busy,
-         device_idle_share=1.0 - busy / wall, **parts, ported_kernels_ms=ported,
-         glue_ms=busy - sum(parts.values()) - sum(ported.values()),
-         top_kernels=[{"kernel": e.key[:120], "device_ms": per_run(e.device_time_total),
-                       "calls": e.count / frames} for e in top], **extra)
 
 
 def run_enerf() -> list:
@@ -803,7 +655,6 @@ def run_enerf() -> list:
     records."""
     from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
     from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
-    from boostmvsnerfs_torch.utils import roofline
     from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
 
     model = BoostENeRF(CascadeConfig(k_best=4, render_if=(False, True)))
@@ -821,12 +672,8 @@ def run_enerf() -> list:
     torch.cuda.empty_cache()
     phase_frame(state)
     launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main",
-                          ENERF_FRAME, "rgb_level1",
-                          MAIN_RAYS, costs=roofline.flagship_render_costs(
-                              480, 736, cas=model.cas)["total"],
+                          ENERF_FRAME, "rgb_level1", MAIN_RAYS,
                           geometry=[480, 736], views=6, k_best=4, planes=[64, 8])
-    batch = make_batch(0)
-    phase_profile(lambda: model(batch), "profile", tuple(ENERF_FRAME))
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
     return list(summary.values())
@@ -838,7 +685,6 @@ def run_mvsnerf() -> list:
     from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
     from boostmvsnerfs_torch.models.enerf import to_tensors
     from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
-    from boostmvsnerfs_torch.utils import roofline
     from boostmvsnerfs_torch.utils.synthetic import make_scene_batch, mvsnerf_batch
 
     model = BoostMVSNeRF(MVSNeRFConfig(k_best=len(MVS_K_BEST)))
@@ -857,14 +703,9 @@ def run_mvsnerf() -> list:
         summary["conv_dgrad"] = phase_eval_conv_dgrad(model, make_batch(0), "boost_mvsnerf")
     torch.cuda.empty_cache()
     phase_frame_mvsnerf(state)
-    kernels = {**MVS_FRAME, **MVS_VOLUME}
-    launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main_mvsnerf", kernels,
-                          "rgb_level0", H * W,
-                          costs=roofline.mvsnerf_render_costs(H, W, k_best=len(MVS_K_BEST))["total"],
-                          geometry=[H, W], views=6,
-                          k_best=list(MVS_K_BEST), samples=model.cfg.num_samples)
-    batch = make_batch(0)
-    phase_profile(lambda: model(batch), "profile_mvsnerf", tuple(kernels))
+    launches = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "main_mvsnerf",
+                          {**MVS_FRAME, **MVS_VOLUME}, "rgb_level0", H * W, geometry=[H, W],
+                          views=6, k_best=list(MVS_K_BEST), samples=model.cfg.num_samples)
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
     return list(summary.values())
@@ -941,11 +782,9 @@ def first_test_batch(cfg, view_selection, device):
                                 device)
 
 
-def prepass_per_view(cfg, model) -> dict:
-    """The pre-pass of each target view alone (``greedy_select``, masks to
-    the host and the greedy search): its time and launches, and the
-    per-combination cost (``combo_coverage_mask`` of the first 4
-    combinations, the FPN on each combination's views) scaled to all."""
+def prepass_per_view(cfg, model) -> list:
+    """The launches of each target view's pre-pass alone
+    (``greedy_select``)."""
     from boostmvsnerfs_torch import runner
     from boostmvsnerfs_torch.data import make_dataset
     from boostmvsnerfs_torch.data.loader import Loader
@@ -953,23 +792,17 @@ def prepass_per_view(cfg, model) -> dict:
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 
     k = int(cfg.enerf.cas_config.k_best)
-    ms, launches, per_combo = [], [], []
+    launches = []
     for np_batch in Loader(make_dataset(cfg, "test"), batch_size=1):
         batch = runner._device_batch(np_batch, model.device)
         combos = view_combinations(batch["all_src_inps"].shape[1],
                                    int(cfg.enerf.cost_volume_input_views))
-        runner.greedy_select(model, batch, combos, k)  # warm
         torch.cuda.synchronize()
         reset_launch_counts()
-        t0 = time.perf_counter()
         runner.greedy_select(model, batch, combos, k)
         torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
         launches.append({n: c for n, c in launch_counts().items() if c})
-        for c in combos[:4]:
-            per_combo.append(median_ms(lambda: model.combo_coverage_mask(batch, c), 3, 1))
-    return {"prepass_ms_per_view": ms, "prepass_launches_per_view": launches,
-            "per_combination_ms_x_combinations": statistics.mean(per_combo) * len(combos)}
+    return launches
 
 
 def check_selection(models: dict, np_batch: dict, cfg, mask_fault: str, render: bool):
@@ -1051,10 +884,9 @@ def eval_check(cfg_file: str, ws: str, scene: str, mask_fault: str) -> dict:
 
 def drive_eval_entry(cfg_file: str, phase: str, write_scene, scene: str, table: dict,
                      kernel_inputs, per_chunk: dict, per_frame: dict, mask_fault: str) -> list:
-    """One eval-entry phase (module docstring, item 8): returns its kernels'
+    """One eval-entry phase (module docstring, item 7): returns its kernels'
     summary records, with the launches of the entry's run."""
     from boostmvsnerfs_torch import runner
-    from boostmvsnerfs_torch.eval.lpips import fixture_lpips
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 
     t_phase = time.perf_counter()
@@ -1091,22 +923,17 @@ def drive_eval_entry(cfg_file: str, phase: str, write_scene, scene: str, table: 
             summary = phase_kernels(table, kernel_inputs(model, batch), phase)
         prepass = prepass_per_view(cfg, model)
         per_view = {n: math.ceil(combos / k) * c for n, c in per_chunk.items()}
-        for got in prepass["prepass_launches_per_view"]:
+        for got in prepass:
             require(got == per_view, f"{phase}: pre-pass launches per view {got}")
         H, W = batch["all_src_inps"].shape[2:4]
-        lp = fixture_lpips()
-        a, b = (torch.rand(1, H, W, 3, device="cuda") * 2 - 1 for _ in range(2))
-        lpips_ms = median_ms(lambda: lp(a, b), 5)
-        del model, batch, lp
+        del model, batch
         torch.cuda.empty_cache()
         check = eval_check(cfg_file, ws, scene, mask_fault)
-    frame_ms = ret["frame_ms"]
     emit(phase=phase, config=cfg_file, geometry=[int(H), int(W)], views=n_views,
          combinations=combos, k_best=k, target_views=views, view_selection=vs,
          summary={k_: v for k_, v in ret.items() if k_ != "frame_ms"},
-         launches=launches, frame_ms=frame_ms, frame_ms_median=statistics.median(frame_ms),
-         frame_ms_min=min(frame_ms), frame_ms_max=max(frame_ms), entry_seconds=seconds,
-         **prepass, lpips_ms_per_image=lpips_ms, peak_mem_gib=peak_gib, check=check,
+         launches=launches, frame_ms=ret["frame_ms"], entry_seconds=seconds,
+         prepass_launches_per_view=prepass, peak_mem_gib=peak_gib, check=check,
          phase_seconds=time.perf_counter() - t_phase)
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
@@ -1153,13 +980,11 @@ def mvs_row_blocks(H: int) -> int:
 
 MVS_FREE_EVAL = "configs/exps/evaluate/mvsnerf_ours/free_eval.yaml"
 MVS_FREE_HW = (480, 736)
-STAGED_FRAMES = 3  # timed frames of each executor, after the measured one
 
 
-def frame_run(fn, batch, frames: int = STAGED_FRAMES) -> tuple:
+def frame_run(fn, batch) -> tuple:
     """One frame of ``fn(batch)``: its outputs and, on the card, its peak
-    memory (from a reset) and the median CUDA-event time of ``frames``
-    more."""
+    memory (from a reset)."""
     if not batch["all_src_inps"].is_cuda:
         return fn(batch), {}
     torch.cuda.synchronize()
@@ -1167,8 +992,7 @@ def frame_run(fn, batch, frames: int = STAGED_FRAMES) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     out = fn(batch)
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    return out, {"peak_mem_gib": peak, "frame_ms": median_ms(lambda: fn(batch), frames, 0)}
+    return out, {"peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 # The staged frame against the monolithic one, under deterministic cuDNN:
@@ -1182,8 +1006,7 @@ def frame_run(fn, batch, frames: int = STAGED_FRAMES) -> tuple:
 STAGED_PLAIN_HEAD_RTOL = 1e-5
 
 
-def staged_frames(model, batch, what: str, monolithic: bool = True,
-                  frames: int = STAGED_FRAMES) -> dict:
+def staged_frames(model, batch, what: str, monolithic: bool = True) -> dict:
     """``batch``'s frame through ``StagedMVSNeRF`` and, with ``monolithic``,
     through the model whole, under deterministic cuDNN: every output finite,
     rgb of the target's shape, the two frames equal (within
@@ -1195,12 +1018,12 @@ def staged_frames(model, batch, what: str, monolithic: bool = True,
     H, W = batch["all_src_inps"].shape[2:4]
     rec = {"row_blocks": mvs_row_blocks(H)}
     with deterministic_cudnn():
-        staged, rec["staged"] = frame_run(StagedMVSNeRF(model), batch, frames)
+        staged, rec["staged"] = frame_run(StagedMVSNeRF(model), batch)
         require(all(bool(torch.isfinite(v).all()) for v in staged.values())
                 and tuple(staged["rgb_level0"].shape) == (1, H * W, 3),
                 f"{what}: staged frame outputs")
         if monolithic:
-            whole, rec["monolithic"] = frame_run(model, batch, frames)
+            whole, rec["monolithic"] = frame_run(model, batch)
             require(staged.keys() == whole.keys(), f"{what}: output keys")
             rec["max_abs_err"] = {k: float((staged[k] - whole[k]).abs().max()) for k in whole}
             rtol = 0.0 if model.cfg.net_type in KERNEL_HEADS else STAGED_PLAIN_HEAD_RTOL
@@ -1227,7 +1050,7 @@ def staged_v1_frames(ws: str, vs: dict, sizes=(MVS_HW, MVS_FREE_HW), device=None
         model.load_state_dict(random_weights(model, 0), strict=True)
         batch = first_test_batch(cfg, vs, model.device)
         out["x".join(map(str, hw))] = staged_frames(model, batch, f"staged_mvsnerf v1 at {hw}",
-                                                    monolithic=i == 0, frames=1)
+                                                    monolithic=i == 0)
         del model, batch
         if model_on_card(device):
             torch.cuda.empty_cache()
@@ -1264,13 +1087,12 @@ def staged_entry(cfg, device=None) -> tuple:
 
 
 def run_staged_mvsnerf() -> list:
-    """Phase ``staged_mvsnerf`` (module docstring, item 8): the MVSNeRF
+    """Phase ``staged_mvsnerf`` (module docstring, item 7): the MVSNeRF
     family's Free eval recipe at 480x736 through ``runner.make_forward``'s
     ``StagedMVSNeRF``. Returns the kernels' summary records, with the
     launches of the entry's run."""
     from boostmvsnerfs_torch import runner
     from boostmvsnerfs_torch.parallel.staged import ray_blocks
-    from boostmvsnerfs_torch.utils import roofline
 
     t_phase = time.perf_counter()
     H, W = MVS_FREE_HW
@@ -1295,14 +1117,11 @@ def run_staged_mvsnerf() -> list:
         del model, batch
         torch.cuda.empty_cache()
         v1 = staged_v1_frames(ws, vs)
-    k_best = int(cfg.enerf.cas_config.k_best)
-    costs = roofline.mvsnerf_render_costs(H, W, k_best=k_best)["total"]
     emit(phase="staged_mvsnerf", config=MVS_FREE_EVAL, geometry=[H, W], row_chunk=MVS_ROW_CHUNK,
-         k_best=k_best, summary={k: v for k, v in ret.items() if k != "frame_ms"},
-         launches=launches, entry_frame_ms=ret["frame_ms"], entry_peak_mem_gib=entry_peak,
-         frames=frames, staged_bound=roofline.frame_speed_of_light(
-             costs, frames["staged"]["frame_ms"] / 1e3, roofline.peaks()),
-         v1=v1, phase_seconds=time.perf_counter() - t_phase)
+         k_best=int(cfg.enerf.cas_config.k_best),
+         summary={k: v for k, v in ret.items() if k != "frame_ms"}, launches=launches,
+         entry_frame_ms=ret["frame_ms"], entry_peak_mem_gib=entry_peak, frames=frames, v1=v1,
+         phase_seconds=time.perf_counter() - t_phase)
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
     return list(summary.values())
@@ -1972,12 +1791,11 @@ def expected_train_launches(model, batch, ray_blocks: int = RAY_BLOCKS) -> dict:
     return out
 
 
-def phase_train(model, batches: list, steps: int = 6):
+def phase_train(model, batch: dict) -> dict:
     """The fine-tuning step at full width: launches per step (counts reset
-    just before one step, read just after), the loss finite and the
-    parameters moved, then step times over ``steps`` more steps cycling
-    the batches (after 2 warm-up steps in all). Returns (launches, the
-    train state, the step function)."""
+    just before one step, read just after) against the design, the loss
+    finite, every parameter moved and the peak memory. Returns the
+    launches."""
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
     from boostmvsnerfs_torch.parallel.train import create_train_state, make_blocked_train_step
     from boostmvsnerfs_torch.train.schedule import make_optimizer
@@ -1985,45 +1803,26 @@ def phase_train(model, batches: list, steps: int = 6):
     state = create_train_state(model, make_optimizer(TRAIN_CFG, TRAIN_EP_ITER))
     step = make_blocked_train_step(model, RAY_BLOCKS)
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
-    expect = expected_train_launches(model, batches[0])
+    expect = expected_train_launches(model, batch)
     require(expect == dict(NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2, img_sample=33,
                            img_sample_bwd=17, conv_wgrad=32, conv_dgrad=21),
             f"expected launches per step {expect}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    stats = step(state, batches[0])
+    stats = step(state, batch)
     torch.cuda.synchronize()
     launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     require(launches == expect, f"train: launches per step {launches}, expected {expect}")
-    losses = [float(stats["loss"])]
-    require(np.isfinite(losses[0]), f"train: loss {losses[0]}")
+    loss = float(stats["loss"])
+    require(np.isfinite(loss), f"train: loss {loss}")
     moved = sum(not torch.equal(p.detach(), before[k]) for k, p in model.named_parameters())
     require(moved == len(before), f"train: {len(before) - moved} parameters did not change")
-    step(state, batches[1])  # second warm-up step
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(steps)]
-    stats_all = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i, (start, end) in enumerate(events):
-        start.record()
-        stats_all.append(step(state, batches[i % len(batches)]))
-        end.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / steps
-    step_ms = [s.elapsed_time(e) for s, e in events]
-    losses += [float(st["loss"]) for st in stats_all]
-    require(all(np.isfinite(losses)), f"train: losses {losses}")
-    med = statistics.median(step_ms)
     emit(phase="train", geometry=list(TRAIN_HW), views=6, k_best=4, planes=[64, 8],
-         samples=[8, 2], ray_blocks=RAY_BLOCKS, rays_per_step=TRAIN_RAYS,
-         launches_per_step=launches, step_ms_median=med, step_ms_min=min(step_ms),
-         step_ms_max=max(step_ms), host_wall_ms_per_step=wall * 1e3,
-         rays_per_s=TRAIN_RAYS / (med / 1e3), peak_mem_gib=peak_gib, steps=steps,
-         losses=losses, parameters_moved=moved)
-    return launches, state, step
+         samples=[8, 2], ray_blocks=RAY_BLOCKS, launches_per_step=launches,
+         peak_mem_gib=peak_gib, loss=loss, parameters_moved=moved)
+    return launches
 
 
 def run_train_path() -> list:
@@ -2054,12 +1853,7 @@ def run_train_path() -> list:
     torch.cuda.empty_cache()
     phase_train_step_check(state)
     model.load_state_dict(state, strict=True)  # the kernel inputs moved the BN statistics
-    batches = [make_batch(s) for s in (0, 1, 2)]
-    launches, train_state, step = phase_train(model, batches)
-    phase_profile(lambda: step(train_state, batches[0]), "profile_train",
-                  ("warp_variance", "img_sample", "warp_variance_bwd", "img_sample_bwd",
-                   "conv_wgrad", "conv_dgrad"),
-                  frames=1, unit="step")
+    launches = phase_train(model, make_batch(0))
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
     return list(summary.values())
@@ -2291,7 +2085,6 @@ GUI_EVENTS = ({"kind": "none"}, {"kind": "rotate", "dx": 30, "dy": -10, "orbit":
 # level 0 of a config that renders level 1 only: the server answers 500
 GUI_LEVEL0 = {"kind": "options", "out_type": "pred", "level": 0}
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
-FORWARD_TIMES = 5  # forwards of the first served frame's batch timed per cuDNN mode
 
 
 @contextlib.contextmanager
@@ -2497,10 +2290,8 @@ def phase_gui(cfg) -> list:
         for mode in ("default", "deterministic", "default", "deterministic"):
             with deterministic_cudnn() if mode == "deterministic" else contextlib.nullcontext():
                 rgb = [render_fn.model(batches[0])["rgb_level1"] for _ in range(2)]
-                reruns.setdefault(mode, {"rerun_max_abs_diff": [], "forward_ms": []})
+                reruns.setdefault(mode, {"rerun_max_abs_diff": []})
                 reruns[mode]["rerun_max_abs_diff"].append(float((rgb[0] - rgb[1]).abs().max()))
-                reruns[mode]["forward_ms"].append(
-                    median_ms(lambda: render_fn.model(batches[0]), FORWARD_TIMES, warmup=1))
     del batches, rgb
     require(max(reruns["deterministic"]["rerun_max_abs_diff"]) == 0.0,
             f"gui: deterministic cuDNN reruns differ {reruns}")
@@ -2584,11 +2375,10 @@ def save_pretrain(cfg) -> dict:
 
 def drive_train_entry(cfg, ray_blocks: int, device=None) -> dict:
     """``run_train(cfg)`` on the card (or ``device``): per logged step its
-    wall time (from the previous record, or from the end of the pre-pass;
-    the stats' float conversion synchronises), its launches and stats; the
-    validation records; the pre-pass's and each validation's time and
-    launches; the launches and the peak memory (on the card) of the whole
-    run."""
+    launches (from the previous record, or from the end of the pre-pass)
+    and stats; the validation records; the pre-pass's and each
+    validation's time and launches; the launches and the peak memory (on
+    the card) of the whole run."""
     from boostmvsnerfs_torch import runner
     from boostmvsnerfs_torch.ops.cuda import launch_counts, reset_launch_counts
 
@@ -2596,12 +2386,11 @@ def drive_train_entry(cfg, ray_blocks: int, device=None) -> dict:
     mark = {}
 
     def restart():
-        mark.update(t=time.perf_counter(), launches=launch_counts())
+        mark["launches"] = launch_counts()
 
     def on_record(kind, state, r):
         if kind == "train":
-            steps.append({"ms": (time.perf_counter() - mark["t"]) * 1e3,
-                          "launches": launch_delta(mark["launches"]), "step": state.step, **r})
+            steps.append({"launches": launch_delta(mark["launches"]), "step": state.step, **r})
         else:
             vals.append(r)
         restart()
@@ -2623,17 +2412,14 @@ def drive_train_entry(cfg, ray_blocks: int, device=None) -> dict:
             "validations": validations}
 
 
-def step_summary(run: dict) -> dict:
-    ms = [s["ms"] for s in run["steps"]]
-    return {"step_ms": ms, "step_ms_median_after_first": statistics.median(ms[1:]),
-            "step_ms_min_after_first": min(ms[1:]), "step_ms_max_after_first": max(ms[1:]),
-            "losses": [{k: v for k, v in s.items() if k not in ("ms", "launches")}
-                       for s in run["steps"]]}
+def step_losses(run: dict) -> list:
+    """Each logged step's stats (``drive_train_entry``)."""
+    return [{k: v for k, v in s.items() if k != "launches"} for s in run["steps"]]
 
 
 def phase_train_entry(ws: str) -> list:
     """``run_train(cfg)`` over the fine-tuning recipe (module docstring,
-    item 10): the first run (pre-pass, TRAIN_ENTRY_STEPS steps, a
+    item 9): the first run (pre-pass, TRAIN_ENTRY_STEPS steps, a
     checkpoint, a validation), its launches against the design, the resumed run, the
     kernels on the first batch, the bf16 convolutions, the card against the
     CPU port. Returns the kernels' summary records, with the first run's
@@ -2658,7 +2444,7 @@ def phase_train_entry(ws: str) -> list:
     for name, run, epoch in (("first", first, 0), ("resumed", resumed, 1)):
         record[name] = {**{k: run[k] for k in ("seconds", "launches", "peak_mem_gib",
                                                "final_step", "val", "prepass", "validations")},
-                        **step_summary(run),
+                        "losses": step_losses(run),
                         "launches_per_step": [s["launches"] for s in run["steps"]]}
         check_train_entry_run(name, run, design, epoch, steps=TRAIN_ENTRY_STEPS)
     require(first["final_step"] == TRAIN_ENTRY_STEPS
@@ -2769,10 +2555,7 @@ def bf16_conv_check(ws: str, vs: dict) -> dict:
                 m.register_forward_hook(hook)
         torch.cuda.synchronize()
         reset_launch_counts()
-        t0 = time.perf_counter()
         rgb[dtype] = model(batch)["rgb_level1"].cpu().numpy()
-        torch.cuda.synchronize()
-        seen[f"{dtype}_frame_ms"] = (time.perf_counter() - t0) * 1e3
         seen[f"{dtype}_conv_dgrad"] = launch_counts()["conv_dgrad"]
     diff = float(np.abs(rgb["bfloat16"] - rgb["float32"]).mean())
     out = {"rgb_mean_abs_diff": diff, "psnr_db": psnr_db(rgb["bfloat16"], rgb["float32"]),
@@ -2864,7 +2647,6 @@ def train_check(ws: str, cfg_fn=None) -> dict:
 # ------------------------------- the MVSNeRF heads and MVSNeRF training
 
 MVS_HEADS = ("v1", "v2", "color_fusion")
-HEAD_FRAMES = 3  # timed frames of each head (0.2-0.4 s each on the card)
 MVS_FINETUNE = "configs/exps/finetune/mvsnerf_ours/free/base.yaml"
 MVS_PLAIN_FINETUNE = "configs/exps/finetune/mvsnerf/free/base.yaml"
 MVS_PLAIN_HW = (512, 512)  # configs/exps/evaluate/mvsnerf/free_eval.yaml
@@ -2876,8 +2658,8 @@ def run_mvsnerf_heads() -> list:
     workload with each other renderer head (MVS_HEADS): the lookups
     against their plain versions at the first head's frame, then per head
     the reduced frame against the CPU port and ``phase_main``'s launches
-    (#6 and #3 once, #8 never: these heads' MLPs run plainly), frame times
-    and peak memory. Returns the lookups' summary records."""
+    (#6 and #3 once, #8 never: these heads' MLPs run plainly) and peak
+    memory. Returns the lookups' summary records."""
     from boostmvsnerfs_torch.models.boost_mvsnerf import BoostMVSNeRF
     from boostmvsnerfs_torch.models.enerf import to_tensors
     from boostmvsnerfs_torch.models.mvsnerf import MVSNeRFConfig
@@ -2907,8 +2689,7 @@ def run_mvsnerf_heads() -> list:
         rgb_max = 3.0 if net_type == "color_fusion" else 1.0
         got = phase_main(model, [make_batch(s) for s in (0, 1, 2)], "mvsnerf_heads",
                          {"tri_sample": 1, "img_sample": 1, **MVS_VOLUME}, "rgb_level0",
-                         H * W, rgb_max,
-                         frames=HEAD_FRAMES, net_type=net_type, geometry=[H, W], views=6,
+                         H * W, rgb_max, net_type=net_type, geometry=[H, W], views=6,
                          k_best=list(MVS_K_BEST), samples=model.cfg.num_samples)
         launches = launches or got
         del model
@@ -2957,28 +2738,25 @@ def mvs_step_inputs(cfg, weights: dict, batch: dict, device=None) -> dict:
 
 
 def run_train_entry_mvsnerf() -> list:
-    """Phases ``train_entry_mvsnerf``, ``train_step_check_mvsnerf`` and
-    ``profile_train_mvsnerf`` (module docstring, item 12). Returns the
-    kernels' summary records."""
+    """Phases ``train_entry_mvsnerf`` and ``train_step_check_mvsnerf``
+    (module docstring, item 11). Returns the kernels' summary records."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
         free_scene(ws)
-        records, profile_inputs = phase_train_entry_mvsnerf(ws)
+        records = phase_train_entry_mvsnerf(ws)
         torch.cuda.empty_cache()
         phase_train_step_check_mvsnerf()
-        torch.cuda.empty_cache()
-        phase_profile_train_mvsnerf(*profile_inputs)
     return records
 
 
-def phase_train_entry_mvsnerf(ws: str):
+def phase_train_entry_mvsnerf(ws: str) -> list:
     """``run_train(cfg)`` over the BoostMVSNeRF fine-tuning recipe
     (MVS_FINETUNE), shortened only, on a Free scene at 480x736: the first
     run (pre-pass, TRAIN_ENTRY_STEPS steps, a checkpoint, a validation)
     and the resumed run against ``mvs_entry_design``; the kernels on the first batch (the
     step's colour lookup) and the first test batch (the validation frame's
     three kernels); then the plain MVSNeRF recipe at 512x512 for 2 steps
-    and a validation. Returns (the kernels' summary records with the
-    runs' launches, the profile's inputs)."""
+    and a validation. Returns the kernels' summary records with the runs'
+    launches."""
     from boostmvsnerfs_torch import runner
     from boostmvsnerfs_torch.train.checkpoint import CheckpointManager
     from boostmvsnerfs_torch.utils.synthetic import write_free_scene
@@ -3007,7 +2785,7 @@ def phase_train_entry_mvsnerf(ws: str):
     for name, run in (("first", first), ("resumed", resumed)):
         record[name] = {**{k: run[k] for k in ("seconds", "launches", "peak_mem_gib",
                                                "final_step", "val", "prepass", "validations")},
-                        **step_summary(run)}
+                        "losses": step_losses(run)}
     with torch.no_grad():
         step = phase_kernels({"img_sample": MVS_KERNELS["img_sample"]},
                              mvs_step_inputs(cfg, pretrain, batch), "train_entry_mvsnerf/step")
@@ -3037,10 +2815,10 @@ def phase_train_entry_mvsnerf(ws: str):
     record["plain"] = {"config": MVS_PLAIN_FINETUNE, "geometry": list(MVS_PLAIN_HW),
                        **{k: plain[k] for k in ("seconds", "launches", "peak_mem_gib",
                                                 "final_step", "val", "validations")},
-                       **step_summary(plain)}
+                       "losses": step_losses(plain)}
     record["phase_seconds"] = time.perf_counter() - t_phase
     emit(phase="train_entry_mvsnerf", **record)
-    return [*step.values(), *val.values()], (cfg, pretrain, batch)
+    return [*step.values(), *val.values()]
 
 
 def mvs_step_batch(H: int, W: int, seed: int) -> dict:
@@ -3167,69 +2945,6 @@ def phase_train_step_check_mvsnerf() -> None:
         record["run_train"] = train_check(small, mvs_entry_cfg)
     record["phase_seconds"] = time.perf_counter() - t_phase
     emit(phase="train_step_check_mvsnerf", **record)
-
-
-def mvs_plain_times(model, batch, iters: int = 5) -> dict:
-    """The step's plain volume lookup and MLP alone at its shapes (train
-    mode, CUDA events): each one's forward, and forward with backward (a
-    seeded cotangent; the volume and the MLP's input features take
-    gradients), median ms of ``iters``."""
-    from boostmvsnerfs_torch.ops.cuda.tri_sample import tri_sample_plain
-
-    model.train()
-    with torch.no_grad():
-        calls, (uvd, feat, dirs), _, _ = mvs_stages(model, batch)
-    volume, xyz, spr = calls["tri_sample"]
-    vol = volume.detach().requires_grad_()
-    feat = feat.detach().requires_grad_()
-    gen = torch.Generator(device=vol.device).manual_seed(5)
-    g_vox = torch.randn(*xyz.shape[:2], vol.shape[-1], generator=gen, device=vol.device)
-    g_raw = torch.randn(*uvd.shape[:2], 4, generator=gen, device=vol.device)
-    head, freqs = model.nerf.nerf, model.cfg.pos_freqs
-
-    def fwd_tri():
-        with torch.no_grad():
-            tri_sample_plain(vol, xyz, spr)
-
-    def both_tri():
-        tri_sample_plain(vol, xyz, spr).backward(g_vox)
-
-    def fwd_mlp():
-        with torch.no_grad():
-            head(uvd, feat, dirs, freqs)
-
-    def both_mlp():
-        head(uvd, feat, dirs, freqs).backward(g_raw)
-
-    out = {"samples": int(xyz.shape[0] * xyz.shape[1]), "volume": list(vol.shape)}
-    for name, f, b in (("tri_sample_plain", fwd_tri, both_tri), ("mlp_plain", fwd_mlp, both_mlp)):
-        fwd, total = median_ms(f, iters), median_ms(b, iters)
-        out[name] = {"forward_ms": fwd, "forward_backward_ms": total, "backward_ms": total - fwd}
-    return out
-
-
-def phase_profile_train_mvsnerf(cfg, weights: dict, batch: dict) -> None:
-    """One profiled step of the BoostMVSNeRF recipe (the entry's first
-    batch: 4 images of 1024 rays, K=4, 480x736 volumes) after 2 warm-up
-    steps: device busy against the step's time, cuDNN forward and backward,
-    #3, the top kernels and the backward functions by device time; then the
-    plain volume lookup and MLP alone at the step's shapes
-    (``mvs_plain_times``)."""
-    from boostmvsnerfs_torch import runner
-    from boostmvsnerfs_torch.models.enerf import CascadeConfig
-    from boostmvsnerfs_torch.parallel.train import create_train_state, make_train_step
-    from boostmvsnerfs_torch.train.schedule import make_optimizer
-
-    model = runner.make_network(cfg)
-    model.load_state_dict(weights, strict=True)
-    state = create_train_state(model, make_optimizer(cfg.train, 4))
-    step = make_train_step(model, cas=CascadeConfig.from_cfg(cfg.enerf))
-    for _ in range(2):
-        step(state, batch)
-    phase_profile(lambda: step(state, batch), "profile_train_mvsnerf",
-                  ("img_sample", "conv_wgrad", "conv_dgrad"),
-                  frames=1, unit="step")
-    emit(phase="profile_train_mvsnerf_plain", **mvs_plain_times(model, batch))
 
 
 # ------------------------------------------------ the ENeRF variants
@@ -3378,8 +3093,8 @@ def no_vox_heads_per_frame(model, batch) -> int:
 
 
 def run_composite() -> list:
-    """Phases ``kernels`` (path composite), ``composite`` and
-    ``profile_composite``: the layered composite from YAML
+    """Phases ``kernels`` (path composite) and ``composite``: the layered
+    composite from YAML
     (``make_network`` over COMPOSITE_CFG with COMPOSITE_OPTS: the eval
     cascade of base_eval.yaml, 3 views) at 480x736 with seeded weights.
     Returns the kernels' summary records with the frame's launches."""
@@ -3410,8 +3125,6 @@ def run_composite() -> list:
                           origins=COMPOSITE_ORIGINS, planes=list(model.cas.volume_planes),
                           bg_planes=list(model.bg.cas.volume_planes),
                           no_vox_heads_per_frame=no_vox, check=check)
-    batch = make_batch(0)
-    phase_profile(lambda: model(batch), "profile_composite", tuple(COMPOSITE_FRAME))
     emit(phase="composite_seconds", seconds=time.perf_counter() - t_phase)
     for rec in summary.values():
         rec["launches"] = launches[rec["name"]]
@@ -3564,14 +3277,14 @@ def phase_human(ws: str) -> None:
                        "batch": int(batch["src_inps"].shape[0]), "rays_per_level": n_rays,
                        "design": design, **{k: run[k] for k in (
                            "seconds", "launches", "peak_mem_gib", "final_step", "val",
-                           "validations")}, **step_summary(run)}
+                           "validations")}, "losses": step_losses(run)}
     record["check"] = train_check(ws, human_train_cfg)
     record["phase_seconds"] = time.perf_counter() - t_phase
     emit(phase="human", **record)
 
 
 def run_variants() -> list:
-    """The ENeRF variants (module docstring, item 14)."""
+    """The ENeRF variants (module docstring, item 13)."""
     records = run_composite()
     torch.cuda.empty_cache()
     phase_composite_train()
@@ -3599,7 +3312,6 @@ DIST_FRAME_ITERS = 5
 DIST_FRAME_TOL = 1e-5
 DIST_PSNR_TOL_DB = 1e-4
 SPREAD_FACTOR = 3.0
-COLLECTIVE_PREFIXES = ("c10d::", "gloo:", "nccl:")
 
 
 def descendants(pid: int) -> list:
@@ -4044,7 +3756,7 @@ def dist_train_design(cfg, batch: dict, steps: int, prepass: bool, validation: b
 
 
 def phase_distributed_train(ws: str, smi: str) -> list:
-    """Phase ``distributed_train`` (module docstring, item 15). Returns the
+    """Phase ``distributed_train`` (module docstring, item 14). Returns the
     kernels' summary records at a rank's shapes, with the launches of the
     world-2 run (both ranks)."""
     from boostmvsnerfs_torch import runner
@@ -4135,7 +3847,7 @@ def phase_distributed_train(ws: str, smi: str) -> list:
 
 
 def phase_distributed_eval(ws: str, smi: str) -> list:
-    """Phase ``distributed_eval`` (module docstring, item 15). Returns the
+    """Phase ``distributed_eval`` (module docstring, item 14). Returns the
     kernels' summary records at a ``cv`` rank's shapes, with the sharded
     frame's launches (both ranks)."""
     from boostmvsnerfs_torch import runner
@@ -4206,7 +3918,7 @@ def phase_distributed_eval(ws: str, smi: str) -> list:
 
 
 def run_distributed(smi: str) -> list:
-    """The multi-GPU phases (module docstring, item 15) on a Free scene of 16
+    """The multi-GPU phases (module docstring, item 14) on a Free scene of 16
     images at 480x736."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
         free_scene(ws)

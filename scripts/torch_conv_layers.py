@@ -9,12 +9,12 @@ the seed, the cell's batches, set-up as the benchmark makes it) it
 
 1. runs one unit (a fine-tuning step or an eval frame) and records, in call
    order, every convolution that ``models/blocks.conv_at`` sends through
-   ``ConvWgrad`` (its layer, input and output shapes and strides, weight
+   ``KernelConv`` (its layer, input and output shapes and strides, weight
    shape, stride, padding and whether it is transposed), and every data
    gradient that ``conv_dgrad`` computes (``chip_smoke.dgrad_records``: a
    transposed convolution's forward, a convolution's input gradient);
 2. profiles one more unit with shapes recorded (primed as the benchmark
-   primes it) and lists, in a step, for each ``ConvWgradBackward`` the
+   primes it) and lists, in a step, for each ``KernelConvBackward`` the
    device kernels under it with their ms; then the unit's top kernels and
    its convolution kernels;
 3. replays each data gradient alone, on seeded normal data of the layer's
@@ -43,7 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CELLS = ("enerf_free_finetune", "mvsnerf_free_finetune", "enerf_free_eval", "mvsnerf_free_eval")
-ROUTED = "ConvWgradBackward"
+ROUTED = "KernelConvBackward"
 CONV_KERNELS = ("wgrad", "dgrad", "convolve", "fprop")  # conv_wgrad and conv_dgrad too
 
 
@@ -59,10 +59,10 @@ def record_layers(model, step) -> list:
     from boostmvsnerfs_torch.models import blocks
 
     seen, names = [], {m: n for n, m in model.named_modules()}
-    real = blocks.ConvWgrad.apply
+    real = blocks.KernelConv.apply
 
-    def spy(x, w, b, conv):
-        out = real(x, w, b, conv)
+    def spy(x, w, b, conv, dgrad):
+        out = real(x, w, b, conv, dgrad)
         seen.append({"layer": names.get(conv), "kind": type(conv).__name__,
                      "x": list(x.shape), "x_strides": list(x.stride()),
                      "weight": list(w.shape), "out": list(out.shape),
@@ -70,11 +70,11 @@ def record_layers(model, step) -> list:
                      "padding": list(conv.padding), "transposed": conv.transposed})
         return out
 
-    blocks.ConvWgrad.apply = spy
+    blocks.KernelConv.apply = spy
     try:
         step()
     finally:
-        del blocks.ConvWgrad.apply  # Function's own again
+        del blocks.KernelConv.apply  # Function's own again
     return seen
 
 
@@ -87,7 +87,7 @@ def kernels_under(e) -> list:
 
 
 def backward_table(prof, layers: list) -> list:
-    """Each ``ConvWgradBackward`` of the profile with what runs under it,
+    """Each ``KernelConvBackward`` of the profile with what runs under it,
     matched to its layer by its output gradient's shape (the backward meets
     the layers in reverse order)."""
     free = list(layers)

@@ -2,18 +2,19 @@
 
     python3 scripts/torch_eval_ab.py OLD_TREE NEW_TREE [--rounds 1]
 
-Each tree is a directory holding a ``boostmvsnerfs_torch`` package (a
-``git archive`` of a commit, or the repository itself). For each round the
-trees run in the order OLD, NEW, NEW, OLD, each in a process of its own that
-imports only that tree's package, builds its CUDA kernels there and renders
-the first main path of ``chip_smoke.py``: BoostENeRF K=4 of C(6,3) at
-480x736, planes (64, 8), level 1 rendered, seeded random weights (seed 0),
+Each tree is a directory holding a ``boostmvsnerfs_torch`` package with
+``utils/profiling.profiled`` (a ``git archive`` of a commit, or the
+repository itself). For each round the trees run in the order OLD, NEW,
+NEW, OLD, each in a process of its own that imports only that tree's
+package, builds its CUDA kernels there and renders the first main path
+of ``chip_smoke.py``: BoostENeRF K=4 of C(6,3) at 480x736, planes (64, 8), level 1 rendered, seeded random weights (seed 0),
 f32 with TF32 off. Each process prints one JSON line: the frame time
 (median, min, max over 10 back-to-back frames after 2 warm-up frames, CUDA
 events) and the device-busy time per frame of a profiled 2-frame window
-(torch.profiler, the sum of kernel times). The last lines are a summary per
-tree and the card's name and power limit from nvidia-smi. Needs one CUDA
-device.
+(the tree's ``utils/profiling.profiled``, which takes a profile that lost a
+device record again; the sum of kernel times, the primer's left out). The
+last lines are a summary per tree and the card's name and power limit from
+nvidia-smi. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -31,12 +32,12 @@ FRAMES = 10
 def worker(tree: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
     from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
     from boostmvsnerfs_torch.ops.cuda import _build
     from boostmvsnerfs_torch.utils.port_weights import random_state_dict
+    from boostmvsnerfs_torch.utils.profiling import block_kernels, profiled
     from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -59,12 +60,8 @@ def worker(tree: str) -> dict:
         end.record()
     torch.cuda.synchronize()
     frame_ms = [s.elapsed_time(e) for s, e in events]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            model(batch)
-        torch.cuda.synchronize()
-    busy_us = sum(e.device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    prof, _ = profiled(lambda: [model(batch) for _ in range(2)])
+    busy_us = sum(e.device_time_total for e in block_kernels(prof))
     return {"tree": tree, "frame_ms_median": statistics.median(frame_ms),
             "frame_ms_min": min(frame_ms), "frame_ms_max": max(frame_ms),
             "device_busy_ms_per_frame": busy_us / 1e3 / 2}

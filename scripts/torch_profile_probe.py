@@ -3,10 +3,10 @@
     python3 scripts/torch_profile_probe.py OUT.jsonl
 
 Runs ``chip_smoke.py`` whole, in this process, and writes one JSON line to
-OUT.jsonl per profile it takes (``complete_profile``): the seconds since the
-start, the last phase record printed before it, the kernel launches the
-profiler saw on the host, and how many of the primer's and of the measured
-block's launches have no device record. A block with lost records is
+OUT.jsonl per profile it takes (``utils/profiling.complete_profile``): the
+seconds since the start, the last phase record printed before it, the
+kernel launches the profiler saw on the host, and how many of the primer's
+and of the measured block's launches have no device record. A block with lost records is
 written down instead of failing the run. Before the eval entry's phases,
 after each of them and at the end, it also takes bare profiles of 5 small
 kernels, with no primer, 0.05 s and 1 s after the profile's start, and
@@ -26,6 +26,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+from boostmvsnerfs_torch.utils import profiling  # noqa: E402
+
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
 
 
@@ -59,7 +61,7 @@ def main(out_path: str) -> int:
 
     def lost_launches(prof) -> int:
         launches, recorded = launch_records(prof)
-        n = smoke.PRIMER_KERNELS
+        n = profiling.PRIMER_KERNELS
         write(kind="complete_profile", launches=len(launches),
               primer_lost=sum(c not in recorded for c in launches[:n]),
               block_lost=sum(c not in recorded for c in launches[n:]))
@@ -91,7 +93,7 @@ def main(out_path: str) -> int:
         return run
 
     smoke.emit = emit_and_note
-    smoke.lost_launches = lost_launches
+    profiling.lost_launches = lost_launches
     smoke.run_evaluate_path = around(smoke.run_evaluate_path, "evaluate")
     smoke.run_evaluate_mvsnerf_path = around(smoke.run_evaluate_mvsnerf_path, "evaluate_mvsnerf")
     rc = smoke.main()

@@ -11,7 +11,7 @@ unblocked step of JAX's ``run_train``, ``parallel/train.make_train_step``;
 R > 1: ``make_blocked_train_step``), f32 with TF32 off. It prints one JSON
 line per case: the peak memory (``torch.cuda.max_memory_allocated``),
 each step's wall time to a synchronisation and, for one more step under
-torch.profiler (``chip_smoke.complete_profile``), its device-busy time
+torch.profiler (``utils/profiling.complete_profile``), its device-busy time
 (the kernels' summed time; one stream) against that step's CUDA-event
 time, so the host's share is 1 - busy / step; or ``oom`` with the memory
 held when the card ran out. Then the card's name and power limit from
@@ -36,8 +36,6 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import torch
 
-    import chip_smoke
-
     if not torch.cuda.is_available():
         print("torch_train_memory: needs a CUDA device", file=sys.stderr)
         return 1
@@ -51,6 +49,7 @@ def main() -> int:
         make_train_step,
     )
     from boostmvsnerfs_torch.train.schedule import make_optimizer
+    from boostmvsnerfs_torch.utils.profiling import block_kernels, complete_profile
     from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
 
     set_numerics()
@@ -75,11 +74,11 @@ def main() -> int:
                 times.append((time.perf_counter() - t0) * 1e3)
             rec.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, step_ms=times)
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            with chip_smoke.complete_profile() as prof:
+            with complete_profile() as prof:
                 start.record()
                 step(state, batch)
                 end.record()
-            busy = sum(e.device_time_total for e in chip_smoke.block_kernels(prof)) / 1e3
+            busy = sum(e.device_time_total for e in block_kernels(prof)) / 1e3
             wall = start.elapsed_time(end)
             rec.update(profiled_step_ms=wall, device_busy_ms=busy, host_share=1 - busy / wall)
         except torch.cuda.OutOfMemoryError:

@@ -1,4 +1,6 @@
-"""chip_smoke.py's work counts and bounds on toy inputs (CPU).
+"""chip_smoke.py's checks rehearsed on the CPU: work counts and bounds on
+toy inputs, the phases' launch designs, and the card-vs-CPU bars against
+float32's own spread and the planted faults.
 
 The sampler's bound charges the map bytes that the four bilinear taps can
 touch, not the whole map: a ray block of the fine-tuning step samples a band
@@ -8,7 +10,6 @@ charges its dense layers to the tensor cores at bf16 (989 TFLOP/s) and to
 the f32 units at f32 (67 TFLOP/s).
 """
 
-import contextlib
 import importlib.util
 import os
 from pathlib import Path
@@ -182,64 +183,6 @@ def test_mask_faults_fail_the_limits(smoke, tmp_path, family):
     assert (warp_variance.warp_variance_plain, render.viewport_visibility) == originals
     assert smoke.masks_within_limits(smoke.compare_masks(sound, sound, k))
     assert not smoke.masks_within_limits(smoke.compare_masks(faulty, sound, k))
-
-
-class _Event:
-    def __init__(self, name, device, corr):
-        self._name, self._device, self._corr = name, device, corr
-
-    def name(self):
-        return self._name
-
-    def device_type(self):
-        return self._device
-
-    def correlation_id(self):
-        return self._corr
-
-
-class _Profile:
-    def __init__(self, events):
-        self.profiler = type("P", (), {"kineto_results": type("R", (), {
-            "events": staticmethod(lambda: events)})})
-
-
-def test_lost_launches_leave_out_the_primer(smoke):
-    """A complete profile's check pairs each kernel launch after the
-    primer's with its device record by correlation id: the primer's lost
-    records do not count, the block's do."""
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    n = smoke.PRIMER_KERNELS
-    events = [_Event("cudaLaunchKernel", cpu, c) for c in range(1, n + 4)]
-    events += [_Event("aten::mul", cpu, 0), _Event("cudaStreamSynchronize", cpu, n + 9)]
-    events += [_Event("spin_kernel(long)", cuda, c) for c in range(3, n + 1)]  # 2 lost
-    events += [_Event("k", cuda, c) for c in (n + 1, n + 2, n + 3)]
-    assert smoke.lost_launches(_Profile(events)) == 0
-    events.pop()  # the block's last record
-    events.append(_Event("cuLaunchKernel", cpu, n + 5))
-    assert smoke.lost_launches(_Profile(events)) == 2
-
-
-def test_a_profile_that_lost_records_is_taken_again(smoke, monkeypatch):
-    """``profiled`` takes a block's profile again when torch.profiler lost a
-    record of it (each loss noted), returns the first complete one, and
-    fails once PROFILE_TRIES profiles have all lost records."""
-    outcomes, runs, notes = [], [], []
-
-    @contextlib.contextmanager
-    def fake_profile():
-        yield "profile"
-        if outcomes.pop(0):
-            raise smoke.LostRecords("lost")
-
-    monkeypatch.setattr(smoke, "complete_profile", fake_profile)
-    monkeypatch.setattr(smoke, "emit", lambda **rec: notes.append(rec))
-    outcomes[:] = [True, True, False]
-    assert smoke.profiled(lambda: runs.append(1) or len(runs)) == ("profile", 3)
-    assert [n["attempt"] for n in notes] == [1, 2]
-    outcomes[:] = [True] * smoke.PROFILE_TRIES
-    with pytest.raises(smoke.LostRecords):
-        smoke.profiled(lambda: None)
 
 
 @pytest.fixture
@@ -419,6 +362,99 @@ def test_train_bars_pass_float32_and_fail_a_skipped_step(smoke, tmp_path, record
     record_property("control_last_step_skipped", control)
     assert smoke.within_train_bars(reading), reading
     assert not smoke.within_train_bars(control), control
+
+
+def test_chip_smoke_train_phases_rehearse_on_cpu(smoke, monkeypatch):
+    """chip_smoke.py's training pieces at 32x64 on the CPU: the backward
+    kernels' inputs from the model's train-mode stages (each wrapper takes
+    its plain version here), their work counts, the launches per blocked
+    step the code implies (16 blocks: the same counts as at 480x736), the
+    step's weight gradients that the card routes to ``conv_wgrad`` (routed
+    here too, through its plain version), the smooth card-vs-CPU batch and
+    the gradient comparison."""
+    from boostmvsnerfs_torch.models import blocks
+    from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig, to_tensors
+    from boostmvsnerfs_torch.ops.cuda.img_sample import row_sample_bwd
+    from boostmvsnerfs_torch.ops.cuda.warp_variance import fused_warp_variance, warp_variance_bwd
+    from boostmvsnerfs_torch.utils.synthetic import make_scene_batch
+
+    model = BoostENeRF(CascadeConfig(k_best=2), device="cpu")
+    model.load_state_dict(smoke.random_weights(model, 0), strict=True)
+    batch = to_tensors(make_scene_batch(B=1, n_views=4, H=32, W=64, boost=True, k_best=2,
+                                        rig="forward", with_targets=True), torch.device("cpu"))
+    with torch.no_grad():
+        inputs = smoke.train_kernel_inputs(model, batch)
+        (l0, (f0, _, d0, g0)), (l1, (f1, _, d1, g1)) = inputs["warp_variance_bwd"]
+        assert (l0, l1) == ("level0", "level1")
+        # the training forward (#1's f32 instance) on the same inputs
+        assert [(label, a[0], a[2], a[3]) for label, a in inputs["warp_variance"]] == [
+            (l0, f0, d0, torch.float32), (l1, f1, d1, torch.float32)]
+        assert f0.shape == (2, 3, 8, 16, 32) and d0.shape == (2, 64, 4, 8)
+        assert g0.shape == (2, 64, 4, 8, 32) and g1.shape == (2, 8, 16, 32, 16)
+        (s0, (i0, x0, _, c0)), (s1, (i1, x1, _, c1)) = inputs["img_sample_bwd"]
+        assert (s0, s1) == ("level0", "level1 block 1 of 16")
+        assert i0.shape == (6, 8, 16, 35) and x0.shape == (6, 8 * 16 * 8)
+        assert i1.shape == (6, 32, 64, 11) and x1.shape == (6, 2 * 64 * 2)
+        assert c1.shape == (6, 2 * 64 * 2, 11)
+        for name, wrapper in (("warp_variance_bwd", warp_variance_bwd),
+                              ("img_sample_bwd", row_sample_bwd)):
+            for _, args in inputs[name]:
+                assert all(torch.isfinite(o).all() for o in wrapper(*args)), name
+                assert min(smoke.TRAIN_KERNELS[name][3](*args)) > 0, name
+        for _, args in inputs["warp_variance"]:
+            assert torch.isfinite(fused_warp_variance(*args)).all()
+            assert min(smoke.TRAIN_KERNELS["warp_variance"][3](*args)) > 0
+        assert [label for label, _ in inputs["img_sample"]] == [s0, s1]
+        for (_, fwd), (_, bwd) in zip(inputs["img_sample"], inputs["img_sample_bwd"]):
+            assert all(a is b for a, b in zip(fwd, bwd[:3]))
+            assert min(smoke.TRAIN_KERNELS["img_sample"][3](*fwd)) > 0
+    assert smoke.expected_train_launches(model, batch) == dict(
+        smoke.NO_LAUNCHES, warp_variance=2, warp_variance_bwd=2, img_sample=33,
+        img_sample_bwd=17, conv_wgrad=32, conv_dgrad=21)
+    monkeypatch.setattr(blocks, "WGRAD_DEVICES", ("cuda", "cpu"))
+    records = smoke.routed_conv_records(model, batch)
+    assert len(records) == smoke.routed_convs(model) == 32
+    assert records[0]["weight"] == [1, 8, 3, 3, 3] and records[-1]["weight"] == [8, 3, 3, 3]
+    assert {r["x_layout"] for r in records} == {"channels_last"}
+    assert all(p.grad is None for p in model.parameters())
+    smooth = smoke.smooth_scene_batch(32, 64, seed=3)
+    assert smooth["src_inps"].shape == (1, 4, 32, 64, 3)
+    assert np.abs(smooth["src_inps"]).max() <= 1.5
+    state = smoke.random_weights(model, 0)
+    for dtype, kind in ((torch.float32, "blocked"), (torch.float64, "plain")):
+        loss, grads = smoke.train_step_grads(state, smooth, "cpu", dtype, kind)
+        assert np.isfinite(loss) and grads.keys() == dict(model.named_parameters()).keys()
+        assert all(g.dtype == torch.float64 and torch.isfinite(g).all() for g in grads.values())
+    g = {"a": torch.ones(3), "b": torch.zeros(2)}
+    assert smoke.grad_rel_errors(g, g) == {"a": 0.0, "b": 0.0}
+    assert smoke.global_rel_error(g, {"a": torch.ones(3), "b": torch.ones(2)}) == pytest.approx(
+        np.sqrt(2 / 5))
+
+
+def test_chip_smoke_gradient_bars_separate_float32_from_planted_faults(smoke):
+    """chip_smoke.py's card-vs-CPU gradient bars at their own size (128x192,
+    4 views, K=2) on the CPU port against float64: float32's own steps (on
+    the batch and on ulp-perturbed copies) pass them, and each planted
+    wiring fault fails them; every planted function is restored after."""
+    from boostmvsnerfs_torch.models.boost_enerf import BoostENeRF
+    from boostmvsnerfs_torch.models.enerf import CascadeConfig
+
+    originals = {f: getattr(importlib.import_module(f"boostmvsnerfs_torch.ops.{m}"), a)
+                 for f, (m, a, _) in smoke.PLANTED_FAULTS.items()}
+    state = smoke.random_weights(BoostENeRF(CascadeConfig(k_best=2), device="cpu"), 0)
+    batch = smoke.smooth_scene_batch(128, 192, seed=3)
+    _, ref = smoke.train_step_grads(state, batch, "cpu", torch.float64, "plain")
+    f32 = [smoke.train_step_grads(state, batch, "cpu", torch.float32, k)[1]
+           for k in ("plain", "blocked")]
+    bars = smoke.cpu_bar_readings(state, batch, ref, f32)
+    assert len(bars["spread"]) == 2 + smoke.ULP_PERTURBATIONS
+    assert all(smoke.within_bars(r) for r in bars["spread"]), bars["spread"]
+    assert bars["faults"].keys() == smoke.PLANTED_FAULTS.keys()
+    for fault, r in bars["faults"].items():
+        assert not smoke.within_bars(r), (fault, r)
+    for f, (m, a, _) in smoke.PLANTED_FAULTS.items():
+        assert getattr(importlib.import_module(f"boostmvsnerfs_torch.ops.{m}"), a) is originals[f]
 
 
 # ------------------------------------- the MVSNeRF heads and MVSNeRF training

@@ -4,8 +4,10 @@
 convolution's input gradient, equally a transposed convolution's forward)
 against autograd and ``F.conv_transpose3d`` for every 3D family the
 networks use, including the 41 -> 8 and 8 -> 1 layers and a
-channels-last output gradient; ``ConvWgrad`` on the route against the
+channels-last output gradient; ``KernelConv`` on the route against the
 module's own autograd; ``conv_at``'s choice of route and its launches;
+the one shape rule outside which the route stays off and the wrapper
+raises;
 BoostENeRF and BoostMVSNeRF training steps whose gradients do not move
 with the route; and an eval frame of each family whose output does not
 move. The route runs on CUDA only, so the cases that take it here add the
@@ -111,7 +113,7 @@ def _plain_case(name):
 
 
 def _function_case(name):
-    """``ConvWgrad`` on both routes against autograd through the module's
+    """``KernelConv`` on both routes against autograd through the module's
     own call, float64: forward, input, weight and bias gradients; the data
     gradient launched once (the transposed forward, or the input
     gradient)."""
@@ -311,8 +313,25 @@ def _counts_case(monkeypatch):
     assert nbytes == 4 * (3 + 6 + 54)
 
 
+def _refused_case(kernel: int, padding: int, stride: int):
+    """One shape rule (``conv_dgrad.fits``): outside it ``routes_dgrad``
+    keeps PyTorch's convolution and ``conv_data_grad`` raises."""
+    def case(monkeypatch):
+        _routes(monkeypatch)
+        conv = nn.Conv3d(4, 8, kernel, stride=stride, padding=padding, bias=False)
+        x = torch.randn(1, 4, 6, 7, 8, requires_grad=True)
+        g = torch.randn_like(conv(x))
+        assert not conv_dgrad.fits(conv.kernel_size, conv.stride, conv.padding)
+        assert not blocks.routes_dgrad(conv, x)
+        with pytest.raises(ValueError, match="kernel 3, padding 1, stride 1 or 2"):
+            conv_dgrad.conv_data_grad(g, conv.weight, x.shape, conv.stride, conv.padding)
+    return case
+
+
 CASES = {
     **{f"plain_{f}": _plain_case(f) for f in FAMILIES},
+    **{f"refused_k{k}_p{p}_s{s}": _refused_case(k, p, s)
+       for k, p, s in ((5, 2, 1), (3, 0, 1), (3, 1, 3))},
     **{f"route_{f}": _function_case(f) for f in FAMILIES},
     **{f"conv_at_{s}": _choice_case(s)
        for s in ("transposed_eval", "transposed_frozen", "transposed_train", "conv_train",

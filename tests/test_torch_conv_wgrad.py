@@ -1,6 +1,6 @@
 """The weight-gradient route of ``models/blocks.conv_at`` on the CPU.
 
-``ConvWgrad`` (the convolution's forward, PyTorch's input gradient, the
+``KernelConv`` (the convolution's forward, PyTorch's input gradient, the
 weight gradient of ``ops/cuda/conv_wgrad``, here its plain version) against
 autograd through ``F.conv2d`` / ``F.conv3d`` / ``F.conv_transpose3d`` for
 every family the networks use, including a permuted, channels-last-strided
@@ -38,7 +38,7 @@ def _route_on_cpu(monkeypatch):
 
 
 def _function_case(conv: nn.Module, x_shape, channels_last=False):
-    """ConvWgrad's input, weight and bias gradients against autograd through
+    """KernelConv's input, weight and bias gradients against autograd through
     the module's own call, float64 (module docstring)."""
     def case(monkeypatch):
         _route_on_cpu(monkeypatch)
@@ -51,7 +51,7 @@ def _function_case(conv: nn.Module, x_shape, channels_last=False):
         y_ref = m(x)
         g = torch.randn_like(y_ref)
         want = torch.autograd.grad(y_ref, [x, *m.parameters()], g)
-        y = blocks.ConvWgrad.apply(x, m.weight, m.bias, m)
+        y = blocks.KernelConv.apply(x, m.weight, m.bias, m, blocks.routes_dgrad(m, x))
         got = torch.autograd.grad(y, [x, *m.parameters()], g)
         torch.testing.assert_close(y, y_ref, rtol=0, atol=0)
         for a, b in zip(got, want):
@@ -66,8 +66,8 @@ def _choice_case(setting: str):
     def case(monkeypatch):
         _route_on_cpu(monkeypatch)
         calls = []
-        real = blocks.ConvWgrad.apply
-        monkeypatch.setattr(blocks.ConvWgrad, "apply",
+        real = blocks.KernelConv.apply
+        monkeypatch.setattr(blocks.KernelConv, "apply",
                             lambda *a: calls.append(1) or real(*a))
         conv = nn.Conv3d(4, 8, 3, padding=1, bias=False)
         x = torch.randn(1, 4, 3, 5, 6)
@@ -103,8 +103,8 @@ def _boost_step_grads(route: bool, monkeypatch) -> dict:
     batch = to_tensors(make_scene_batch(B=1, n_views=4, H=64, W=96, boost=True, k_best=2,
                                         seed=0, rig="forward", with_targets=True), "cpu")
     calls = []
-    real = blocks.ConvWgrad.apply
-    monkeypatch.setattr(blocks.ConvWgrad, "apply", lambda *a: calls.append(1) or real(*a))
+    real = blocks.KernelConv.apply
+    monkeypatch.setattr(blocks.KernelConv, "apply", lambda *a: calls.append(1) or real(*a))
     loss, _ = make_blocked_loss(model, 4)(batch)
     loss.backward()
     assert bool(calls) == route

@@ -7,8 +7,10 @@ records ``model.warp`` and counts ``render.samples``, and with tracing off
 its spans cost the flag check alone; ``h2d_bytes`` counts the bytes a
 batch's host arrays send; the launch counts are the registry's; the
 benchmark's four readers of the spans and counters; ``device_trace`` and
-``run_evaluate``'s ``profile_dir`` trace."""
+``run_evaluate``'s ``profile_dir`` trace; the retaking profiler's count of
+lost device records and its retakes."""
 
+import contextlib
 import glob
 import importlib.util
 import json
@@ -404,3 +406,63 @@ def test_run_evaluate_writes_a_trace_to_profile_dir(tmp_path):
     spans = traced()["spans"]
     assert spans["eval.frame"]["n"] == spans["executor.frame"]["n"] == 2
     assert sum(ret["frame_ms"]) == pytest.approx(spans["eval.frame"]["host_s"] * 1e3, rel=1e-9)
+
+
+class _Event:
+    def __init__(self, name, device, corr):
+        self._name, self._device, self._corr = name, device, corr
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._device
+
+    def correlation_id(self):
+        return self._corr
+
+
+class _Profile:
+    def __init__(self, events):
+        self.profiler = type("P", (), {"kineto_results": type("R", (), {
+            "events": staticmethod(lambda: events)})})
+
+
+def test_lost_launches_leave_out_the_primer():
+    """A complete profile's check pairs each kernel launch after the
+    primer's with its device record by correlation id: the primer's lost
+    records do not count, the block's do."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    n = profiling.PRIMER_KERNELS
+    events = [_Event("cudaLaunchKernel", cpu, c) for c in range(1, n + 4)]
+    events += [_Event("aten::mul", cpu, 0), _Event("cudaStreamSynchronize", cpu, n + 9)]
+    events += [_Event("spin_kernel(long)", cuda, c) for c in range(3, n + 1)]  # 2 lost
+    events += [_Event("k", cuda, c) for c in (n + 1, n + 2, n + 3)]
+    assert profiling.lost_launches(_Profile(events)) == 0
+    events.pop()  # the block's last record
+    events.append(_Event("cuLaunchKernel", cpu, n + 5))
+    assert profiling.lost_launches(_Profile(events)) == 2
+
+
+def test_a_profile_that_lost_records_is_taken_again(monkeypatch, capsys):
+    """``profiled`` takes a block's profile again when torch.profiler lost a
+    record of it (each loss noted in a ``profile_retaken`` line), returns
+    the first complete one, and fails once PROFILE_TRIES profiles have all
+    lost records."""
+    outcomes, runs = [], []
+
+    @contextlib.contextmanager
+    def fake_profile():
+        yield "profile"
+        if outcomes.pop(0):
+            raise profiling.LostRecords("lost")
+
+    monkeypatch.setattr(profiling, "complete_profile", fake_profile)
+    outcomes[:] = [True, True, False]
+    assert profiling.profiled(lambda: runs.append(1) or len(runs)) == ("profile", 3)
+    notes = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert {n["phase"] for n in notes} == {"profile_retaken"}
+    assert [n["attempt"] for n in notes] == [1, 2]
+    outcomes[:] = [True] * profiling.PROFILE_TRIES
+    with pytest.raises(profiling.LostRecords):
+        profiling.profiled(lambda: None)
